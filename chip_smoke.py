@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's exact-search main path once on one GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py [--profile [--out DIR]]
 
@@ -8,26 +8,41 @@ the kernels are built for sm_90a). It imports nothing of JAX and nothing
 of the JAX package. Phases, each of which raises on failure:
 
   1. set-up: versions, the card's name and power limit, the nvcc build of
-     the kernels in myscaledb_tpu_torch/csrc/;
+     the kernels in myscaledb_tpu_torch/csrc/ (one nvcc per source, all
+     started together);
   2. each hand-written kernel against its plain PyTorch version on the
-     card, at the shapes the main path gives it, held to
-     `distance.kernel_error_bound`; a hi-only control (the bf16 payload's
-     query split without its lo half) must fall outside that bound;
-  3. the SIFT1M-shaped main path through connect / create_table / insert /
+     card, at the shapes the main paths give it: score and tile_max held
+     to `distance.kernel_error_bound`, with a hi-only control (the bf16
+     payload's query split without its lo half) that must fall outside it;
+     gathermv held to `gathermv.kernel_error_bound`, with a control that
+     skips the query's bf16 cast and must fall outside it;
+  3. the SIFT1M-shaped exact path through connect / create_table / insert /
      search / delete / gather: a 1,000,000-row segment (tile-max kernel)
      and a 50,000-row segment (score kernel), recall@10 against an exact
      f32 scan of the stored values, a pre-filter and deletes;
-  4. the GIST-shaped path: 100,000 x 960, Cosine, batch 256 (score kernel);
-  5. times: QPS of phases 3 and 4, each kernel beside its plain version;
-     with --profile, each cell's QPS spread, device time, kernels per
-     search, device busy share and top host functions (traces and host
-     profiles under --out).
+  4. the GIST-shaped exact path: 100,000 x 960, Cosine, batch 256 (score
+     kernel);
+  5. the exact paths' QPS; with --profile, each cell's QPS spread, device
+     time, kernels per search, device busy share and top host functions
+     (traces and host profiles under --out);
+  6. the HNSW path on phase 4's table: add_vector_index(HNSWFLAT, m=32,
+     ef_c=100, Cosine), graph searches at ef_s 50 / 100 / 200 (gathermv
+     kernel) with recall against phase 4's exact results and QPS, a
+     filtered search, the routed default search and a search after
+     deletes (--profile adds the graph search's cell);
+  7. times: each kernel beside its plain version, the library call that
+     computes the same function (where there is one) and its bound; the
+     routing cost model's constants, as medians over COST_RUNS runs of the
+     graph search at two batch sizes (host and device time) and of phase
+     5's exact scan, with their spread and the HNSW cell's routing at both
+     ends of it.
 
-The kernels' launch counters are zeroed just before phases 3-4 and read
-just after; every kernel must have launched there. The last line of
-standard output is {"ok": true, "device": {...}}; the line before it is
-the per-kernel JSON record. Without CUDA, or without the package beside
-this file, it exits non-zero and prints no result.
+Each path's launch counters are zeroed just before it is driven and read
+just after: score and tile_max over phases 3-4, gathermv over phase 6;
+every kernel must have launched on its path. The last line of standard
+output is {"ok": true, "device": {...}}; the line before it is the
+per-kernel JSON record. Without CUDA, or without the package beside this
+file, it exits non-zero and prints no result.
 """
 
 import json
@@ -43,14 +58,33 @@ SIFT_N, SIFT_SMALL_N, SIFT_D, SIFT_NQ, SIFT_BATCH = 1_000_000, 50_000, 128, 1_00
 SIFT_CAPS = (1_048_576, 50_176)  # the segments' capacities (storage/segment.py)
 GIST_N, GIST_D, GIST_NQ, GIST_BATCH = 100_000, 960, 1_024, 256
 GIST_CAP = 114_688
+# the HNSW path (BASELINE.json config 3 at the JAX bench's hnsw_100k size):
+# build params, the ef_s grid, the 256-query batches it searches, and the
+# graph recall_ids@10 floor at ef_s = 100
+HNSW_PARAMS = dict(m=32, ef_c=100)
+HNSW_EFS = (50, 100, 200)
+HNSW_BATCHES = 2
+HNSW_MIN_RECALL = 0.98
+# (Q, BEAM, m, Dt, N) of the gathermv comparisons: the main path's shape,
+# a ragged one, and a narrow beam (ef_s < 8) over m = 16 blocks
+GATHERMV_SHAPES = [(256, 8, 32, 1024, 100_000), (13, 8, 64, 128, 5_000),
+                   (256, 5, 16, 1024, 20_000)]
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PROFILE_RUNS = 9  # one-pass runs per cell for --profile's QPS spread
+# runs of the cost model's measurements (phase 5's scan, phase 7's graph
+# searches at two batch sizes, in turns); the constants are their medians
+COST_RUNS = 5
+COST_SMALL_BATCH, COST_SMALL_BATCHES = 32, 4
 # near-tie tolerance of the recall checks: the JAX package's f32
 # tolerance (tests/test_distance_ops.py:37)
 F32_TOL = dict(rtol=2e-4, atol=2e-3)
-# (kernel, Q, N, D) of the kernel-vs-plain comparisons: the shapes the
-# main path gives each kernel
-KERNEL_SHAPES = [("score", 104, 50_176, 128), ("score", 256, 114_688, 1024),
-                 ("tile_max", 104, 1_048_576, 128)]
+# (kernel, Q, N, D, metric) of the kernel-vs-plain comparisons and times:
+# the shapes and metric the exact paths give each kernel; a kernel's
+# record line takes its last shape here
+KERNEL_SHAPES = [("score", 104, 50_176, 128, "L2"), ("score", 256, 114_688, 1024, "Cosine"),
+                 ("tile_max", 104, 1_048_576, 128, "L2")]
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -158,7 +192,7 @@ def compare_kernels(dev):
         check(not bool(distance.outside_kernel_bound(got, want, bound).any()),
               f"{name} disagrees with its plain version: {what}")
 
-    for name, q, n, d in KERNEL_SHAPES:
+    for name, q, n, d, _ in KERNEL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for metric in (Metric.L2, Metric.IP, Metric.COSINE):
                 qs, x, aux = operands(q, n, d, dtype, metric)
@@ -192,6 +226,42 @@ def compare_kernels(dev):
                         control = tilescan.tile_maxes_plain(hi_only, x, aux, m8, metric)
                     close(name, got, want, bound, f"{what} {mname}", control)
                 del qs, x, aux
+    sync(dev)
+    return err
+
+
+def compare_gathermv(dev):
+    """gathermv against its plain version at GATHERMV_SHAPES, held to
+    `gathermv.kernel_error_bound`; the control that skips the query's bf16
+    cast must fall outside it on most entries. Some block rows lie outside
+    [0, N): the kernel clamps them as the plain version does."""
+    import torch
+
+    from myscaledb_tpu_torch.ops import gathermv
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = 0.0
+    for q, beam, m, dt, n in GATHERMV_SHAPES:
+        check(gathermv.supports(dt), f"gathermv does not support Dt={dt}")
+        nb = torch.randint(0, 256, (n, m, dt), generator=gen, device=dev, dtype=torch.uint8)
+        rows = torch.randint(-3, n + 3, (q, beam), generator=gen, device=dev, dtype=torch.int32)
+        qs = 0.01 * torch.randn((q, dt), generator=gen, device=dev)
+        got = gathermv.gather_block_scores(qs, rows, nb)
+        want = gathermv.gather_block_scores_plain(qs, rows, nb)
+        bound = gathermv.kernel_error_bound(qs, rows, nb)
+        control = gathermv.unrounded_control(qs, rows, nb)
+        diff = (got - want).abs()
+        ratio = float((diff / (bound + gathermv.KERNEL_RTOL * want.abs())).max())
+        n_out = int(gathermv.outside_kernel_bound(control, want, bound).sum())
+        err = max(err, float(diff.max()))
+        what = f"Q={q} BEAM={beam} m={m} Dt={dt} N={n}"
+        log(f"  gathermv {what}: max_abs_err={float(diff.max()):.6g} (worst err/bound "
+            f"{ratio:.3g}); unrounded control {n_out} of {want.numel()} outside")
+        check(not bool(gathermv.outside_kernel_bound(got, want, bound).any()),
+              f"gathermv disagrees with its plain version: {what}")
+        check(n_out > want.numel() // 2,
+              f"the bound does not catch a gathermv kernel without the bf16 cast: {what}")
+        del nb, rows, qs, got, want, bound, control
     sync(dev)
     return err
 
@@ -338,30 +408,160 @@ def gist_path(ms, dev):
     batches = [queries[i : i + GIST_BATCH] for i in range(0, GIST_NQ, GIST_BATCH)]
     res = [t.search("vec", qb, k=K) for qb in batches]
     check(all(r.metric == Metric.COSINE for r in res), "GIST table must search in Cosine")
-    check_recall("GIST Cosine", res, exact_topk(t, "vec", queries, K, Metric.COSINE), F32_TOL)
+    gt = exact_topk(t, "vec", queries, K, Metric.COSINE)
+    check_recall("GIST Cosine", res, gt, F32_TOL)
     d = np.concatenate([r.distances for r in res])
     check(np.isfinite(d).all() and (d > -1e-3).all() and (d < 2.001).all(),
           "Cosine distances must lie in [0, 2]")
-    return t, batches
+    return t, batches, gt
 
 
-def qps(search, batches, nq_per_batch, rounds=3):
-    """Best-of-`rounds` QPS after a warm-up pass; results stay on the
-    device (as a pipelined server would keep them) and the window ends in
-    torch.cuda.synchronize()."""
+# ---------------------------------------------------------------- phase 6
+def graph_recall(results, gt):
+    """(recall_ids@k, recall_dist@k) against the exact (scores, segments,
+    rows) `gt` of the same queries. recall_dist counts the returned hits
+    whose Cosine distance is within the exact k-th distance (1e-4 relative
+    plus 1e-4, as bench.py's hnsw_100k cell counts it)."""
+    rows = np.concatenate([r.rows for r in results])
+    dist = np.concatenate([r.distances for r in results])
+    gv, _, gr = gt
+    nq, k = rows.shape
+    hits = sum(len(set(rows[i].tolist()) & set(gr[i].tolist())) for i in range(nq))
+    kth = 1.0 - gv[:nq, k - 1 : k]  # Cosine distance = 1 - score
+    return hits / (nq * k), float((dist <= kth * (1 + 1e-4) + 1e-4).mean())
+
+
+def hnsw_path(ms, dev, t, batches, gt, card):
+    """Build HNSWFLAT on phase 4's table and search it through the table's
+    entry points. Returns (graph settings, the batches searched, the
+    index, ef_s -> (recall_ids, recall_dist, QPS))."""
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.index import hnsw
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import gathermv
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    t0 = time.perf_counter()
+    t.add_vector_index("h", "vec", type="HNSWFLAT", metric_type="Cosine", **HNSW_PARAMS)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    check(t.index_status("h") == {0: IndexStatus.LOADED},
+          f"HNSW build did not load: {t.index_status('h')} {t.event_log.rows()[-1:]}")
+    idx = t.loaded_index(0, "vec", Metric.COSINE)
+    nb = idx.nbdata
+    check(nb is not None and idx.tproj is None and nb.shape[2] == idx.data.shape[1],
+          "the 100k x 960 index must hold full-width node blocks the gathermv kernel takes")
+    log(f"  HNSWFLAT build {build_s:.2f} s (m={HNSW_PARAMS['m']}, ef_c={HNSW_PARAMS['ef_c']}; "
+        f"node blocks {tuple(nb.shape)} = {nb.numel() / 1e9:.3f} GB, "
+        f"{idx.centroids.shape[0]} entries, index {idx.memory_bytes / 1e9:.3f} GB)  [{card}]")
+
+    graph = ms.Settings()
+    graph.query.cost_based_index_routing = False
+    hb = batches[:HNSW_BATCHES]
+    nq = sum(len(qb) for qb in hb)
+    curve, found = {}, {}
+    for ef in HNSW_EFS:
+        before = (gathermv.gather_block_scores.launches, GLOBAL_COUNTERS.get("VectorIndexSearches"))
+        res = [t.search("vec", qb, k=K, params={"ef_s": ef}, settings=graph) for qb in hb]
+        sync(dev)
+        n_launch = gathermv.gather_block_scores.launches - before[0]
+        check(GLOBAL_COUNTERS.get("VectorIndexSearches") - before[1] == len(hb),
+              f"ef_s={ef}: the graph searches did not go through the index")
+        check(n_launch == hnsw.n_iterations(ef) * len(hb),
+              f"ef_s={ef}: {n_launch} gathermv launches, expected "
+              f"{hnsw.n_iterations(ef)} iterations x {len(hb)} batches")
+        rid, rdist = graph_recall(res, gt)
+        rate = qps(lambda qb: t.search("vec", qb, k=K, params={"ef_s": ef}, settings=graph),
+                   hb, GIST_BATCH)
+        curve[ef], found[ef] = (rid, rdist, rate), res
+        log(f"  graph ef_s={ef}: recall_ids@{K} {rid:.4f}, recall_dist {rdist:.4f}, "
+            f"{n_launch} gathermv launches ({hnsw.n_iterations(ef)} iterations x {len(hb)}), "
+            f"QPS {rate:.1f} (batch {GIST_BATCH}, {nq} queries)  [{card}]")
+        for r in res:
+            check(np.isfinite(r.distances).all() and (r.rows >= 0).all(),
+                  f"ef_s={ef}: a graph search returned fewer than {K} hits")
+    check(curve[100][0] >= HNSW_MIN_RECALL,
+          f"graph recall_ids@{K} {curve[100][0]:.4f} < {HNSW_MIN_RECALL} at ef_s=100")
+
+    flt = F("id") < 50_000
+    before = GLOBAL_COUNTERS.get("VectorIndexSearches")
+    fres = [t.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph, filter=flt) for qb in hb]
+    check(GLOBAL_COUNTERS.get("VectorIndexSearches") - before == len(hb),
+          "the filtered search (selectivity 0.5) must search the graph")
+    ids = np.concatenate([t.gather(r, ["id"])["id"] for r in fres])
+    check((np.concatenate([r.rows for r in fres]) >= 0).all() and (ids < 50_000).all(),
+          "every filtered graph hit must pass id < 50000")
+    log(f"  filtered graph search (id < 50000, ef_s=100): all {ids.size} hits pass")
+
+    names = ("VectorIndexSearches", "VectorIndexCostRouteToScan")
+    before = {n: GLOBAL_COUNTERS.get(n) for n in names}
+    rres = [t.search("vec", qb, k=K, params={"ef_s": 100}) for qb in hb]
+    routed = {n: GLOBAL_COUNTERS.get(n) - before[n] for n in names}
+    rid, rdist = graph_recall(rres, gt)
+    if routed["VectorIndexCostRouteToScan"] == len(hb):
+        check_recall("routed default search (exact scan)", rres,
+                     tuple(a[:nq] for a in gt), F32_TOL)
+    else:
+        check(routed["VectorIndexSearches"] == len(hb), f"routed search took no route: {routed}")
+        check(rid >= HNSW_MIN_RECALL, f"routed graph search recall_ids@{K} {rid:.4f}")
+    log(f"  routed default search (ef_s=100): counters {routed}, recall_ids@{K} {rid:.4f}")
+
+    # deletes last: the rows each query found first, then the graph again
+    first = sorted({int(i) for r in found[100] for i in t.gather(r, ["id"])["id"][:, 0]})
+    check(t.delete(F("id").isin(first)) == len(first), "delete removed another count of rows")
+    dres = [t.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph) for qb in hb]
+    ids = np.concatenate([t.gather(r, ["id"])["id"] for r in dres])
+    check(not set(ids.ravel().tolist()) & set(first), "a deleted row came back from the graph")
+    log(f"  delete: {len(first)} rows deleted, none returned by the graph")
+    return graph, hb, idx, curve
+
+
+def search_seconds(search, batches, rounds=3):
+    """Best-of-`rounds` host seconds per search, after a warm-up pass;
+    results stay on the device (as a pipelined server would keep them) and
+    each timed window ends in torch.cuda.synchronize()."""
     import torch
 
     for qb in batches:
         search(qb)
     torch.cuda.synchronize()
-    best = 0.0
+    best = float("inf")
     for _ in range(rounds):
         t0 = time.perf_counter()
         for qb in batches:
             search(qb)
         torch.cuda.synchronize()
-        best = max(best, len(batches) * nq_per_batch / (time.perf_counter() - t0))
+        best = min(best, (time.perf_counter() - t0) / len(batches))
     return best
+
+
+def qps(search, batches, nq_per_batch):
+    """Best-of-3 QPS (see search_seconds)."""
+    return nq_per_batch / search_seconds(search, batches)
+
+
+def device_trace(search, batches, trace_path):
+    """One pass of `search` over `batches` under torch.profiler; its chrome
+    trace's kernel, memcpy and memset events give (device ms of the pass,
+    device ms by name, kernels launched). The trace goes to `trace_path`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for qb in batches:
+            search(qb)
+        torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(dev, f"{trace_path}: the profiler saw no device activity")
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    return sum(by_name.values()), by_name, sum(e["cat"] == "kernel" for e in dev)
 
 
 def profile_cells(cells, runs, out_dir, card):
@@ -377,7 +577,6 @@ def profile_cells(cells, runs, out_dir, card):
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     for label, search, batches in cells:
@@ -396,19 +595,8 @@ def profile_cells(cells, runs, out_dir, card):
         log(f"  {label}: one-pass QPS over {runs} passes min {rates[0]:.1f} / median "
             f"{statistics.median(rates):.1f} / max {rates[-1]:.1f}  [{card}]")
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            one_pass()
-        trace = os.path.join(out_dir, f"trace_{label}.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
-        dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        check(dev, f"{label}: the profiler saw no device activity")
-        dev_ms = sum(e["dur"] for e in dev) / 1e3
-        by_name = {}
-        for e in dev:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
-        n_kernels = sum(e["cat"] == "kernel" for e in dev)
+        dev_ms, by_name, n_kernels = device_trace(
+            search, batches, os.path.join(out_dir, f"trace_{label}.json"))
         log(f"  {label}: device {dev_ms / nb:.4f} ms / search, "
             f"{n_kernels / nb:.1f} kernels / search, busy share {dev_ms / wall_ms:.3f} "
             f"({dev_ms:.3f} ms device over a median {wall_ms:.3f} ms pass of {nb} searches)")
@@ -427,6 +615,195 @@ def profile_cells(cells, runs, out_dir, card):
                 f"{ncalls / nb:.0f} calls: {func} ({os.path.basename(fname)}:{line})")
 
 
+# ---------------------------------------------------------------- phase 7
+def bound(nbytes, flops, kind):
+    """(bound_ms, bound_by): the least time the card could take to move
+    `nbytes` or to do `flops` operations of type `kind`, at its published
+    peaks."""
+    b, o = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[kind]
+    return 1e3 * max(b, o), "bytes" if b >= o else "operations"
+
+
+def time_kernels(dev, idx, card):
+    """Each kernel, its plain version and the library call (where one
+    computes the same function) at the shapes of the main paths, with the
+    bound of the kernel's work. Returns kernel name -> the fields of its
+    record line, from its last shape."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, gathermv, tilescan
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+
+    def done(name, rec):
+        lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+        log(f"  {name:8s} {rec['shape']}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+            f" ms, library {lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  [{card}]")
+        out[name] = rec
+
+    for name, qn, n, d, mname in KERNEL_SHAPES:
+        metric = Metric(mname)
+        x = (3.0 * torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
+        q = distance.normalize_queries(torch.randn((qn, d), generator=gen, device=dev), metric)
+        aux = distance.base_aux(x, metric)
+        flops = 2 * 2 * qn * n * d  # bf16 hi and lo products
+        if name == "tile_max":
+            m8 = torch.ones((n,), dtype=torch.uint8, device=dev)
+            rec = dict(
+                ms=cuda_time_ms(lambda: tilescan.tile_maxes(q, x, aux, m8, metric=metric)),
+                plain_ms=cuda_time_ms(lambda: tilescan.tile_maxes_plain(q, x, aux, m8, metric)),
+                library_ms=None,  # no one PyTorch call computes masked sub-tile maxima
+            )
+            nbytes = 2 * n * d + 4 * n + n + 4 * qn * d + 4 * qn * (n // tilescan.SUB)
+        else:
+            xf = x.to(torch.float32)  # the library call's operand, made outside its timing
+            rec = dict(
+                ms=cuda_time_ms(lambda: distance.scores(q, x, aux, metric=metric)),
+                plain_ms=cuda_time_ms(lambda: distance.scores_plain(q, x, aux, metric)),
+                library_ms=cuda_time_ms(lambda: torch.matmul(q, xf.T)),
+            )
+            nbytes = 2 * n * d + 4 * n + 4 * qn * d + 4 * qn * n
+            del xf
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "bf16")
+        rec["shape"] = f"Q={qn} N={n} D={d} bf16 {mname}"
+        done(name, rec)
+        del x, q, aux
+    # gathermv at the HNSW path's shape, over the index's own node blocks
+    nb = idx.nbdata
+    n, m, dt = nb.shape
+    qn, beam = GIST_BATCH, 8
+    rows = torch.randint(0, n, (qn, beam), generator=gen, device=dev, dtype=torch.int32)
+    qs = 0.01 * torch.randn((qn, dt), generator=gen, device=dev)
+    blocks = int(torch.unique(rows).numel())  # the distinct blocks the data needs
+    rec = dict(
+        ms=cuda_time_ms(lambda: gathermv.gather_block_scores(qs, rows, nb)),
+        plain_ms=cuda_time_ms(lambda: gathermv.gather_block_scores_plain(qs, rows, nb)),
+        library_ms=None,  # no one PyTorch call gathers and reduces in one
+        shape=f"Q={qn} BEAM={beam} m={m} Dt={dt} N={n} u8 ({blocks} distinct blocks)",
+    )
+    rec["bound_ms"], rec["bound_by"] = bound(
+        blocks * m * dt + 4 * qn * dt + 4 * qn * beam + 4 * qn * beam * m,
+        2 * qn * beam * m * dt, "f32")  # f32 FMA, no tensor cores
+    done("gathermv", rec)
+    return out
+
+
+def scan_cost_runs(gist, batches, out_dir):
+    """COST_RUNS measurements of the exact scan on phase 4's table (batch
+    256), each a one-pass host time and a torch.profiler pass's device
+    time. Returns (payload bytes, [(host s, device s) per search])."""
+    import torch
+
+    def search(qb):
+        gist.search("vec", qb, k=K)
+
+    runs = []
+    for i in range(COST_RUNS):
+        t0 = time.perf_counter()
+        for qb in batches:
+            search(qb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(batches)
+        dev_ms, _, _ = device_trace(search, batches, os.path.join(out_dir, f"cost_scan_{i}.json"))
+        runs.append((wall, 1e-3 * dev_ms / len(batches)))
+    return int(gist.live_segments()[0].vector("vec").nbytes), runs
+
+
+def spread(values):
+    """(min, median, max)."""
+    import statistics
+
+    return min(values), statistics.median(values), max(values)
+
+
+def cost_model(gist, scan, graph, hb, card, out_dir):
+    """The H100 values of index/hnsw.py's routing constants, as medians
+    over COST_RUNS runs, with their spread. Each run times the graph search
+    (ef_s = 100) at batch 256 and at batch COST_SMALL_BATCH in turns, each
+    by a one-pass host time and a torch.profiler pass's device time:
+    ITER_PER_QUERY_S is the device time's slope per query per frontier
+    iteration, ITER_FIXED_S the small batch's host time per iteration less
+    its per-query part. The exact scan's runs (`scan`, from
+    `scan_cost_runs`) give SCAN_BYTES_PER_S = payload bytes over device
+    seconds and SCAN_FIXED_S = the host seconds the device does not cover.
+    Then the routing of the HNSW cell (batch 256, ef_s 100, phase 4's
+    payload) at the medians and at both corners of the spread."""
+    import torch
+
+    from myscaledb_tpu_torch.index import hnsw
+
+    iters = hnsw.n_iterations(100)
+    sb = COST_SMALL_BATCH
+    small = [qb[i : i + sb] for qb in hb for i in range(0, len(qb), sb)][:COST_SMALL_BATCHES]
+
+    def search(qb):
+        gist.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph)
+
+    def measure(batches, tag):
+        """(host s, device s) per search: one pass each."""
+        t0 = time.perf_counter()
+        for qb in batches:
+            search(qb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(batches)
+        dev_ms, _, _ = device_trace(search, batches, os.path.join(out_dir, f"cost_{tag}.json"))
+        return wall, 1e-3 * dev_ms / len(batches)
+
+    for qb in hb + small:  # warm-up
+        search(qb)
+    consts = {k: [] for k in ("SCAN_BYTES_PER_S", "SCAN_FIXED_S", "ITER_FIXED_S",
+                              "ITER_PER_QUERY_S")}
+    nbytes, scan_runs = scan
+    for i in range(COST_RUNS):
+        w_big, d_big = measure(hb, f"graph{GIST_BATCH}_{i}")
+        w_small, d_small = measure(small, f"graph{sb}_{i}")
+        per_q = (d_big - d_small) / iters / (GIST_BATCH - sb)
+        consts["ITER_PER_QUERY_S"].append(per_q)
+        consts["ITER_FIXED_S"].append(w_small / iters - sb * per_q)
+        wall, dev = scan_runs[i]
+        consts["SCAN_BYTES_PER_S"].append(nbytes / dev)
+        consts["SCAN_FIXED_S"].append(max(wall - dev, 0.0))
+        log(f"  run {i}: graph ef_s=100 host {1e3 * w_big:.4f} / device {1e3 * d_big:.4f} ms "
+            f"per batch of {GIST_BATCH}, host {1e3 * w_small:.4f} / device {1e3 * d_small:.4f} "
+            f"ms per batch of {sb}; exact scan host {1e3 * wall:.4f} / device {1e3 * dev:.4f} "
+            f"ms per batch of {GIST_BATCH} over {nbytes} bytes  [{card}]")
+    sp = {k: spread(v) for k, v in consts.items()}
+    med = {k: v[1] for k, v in sp.items()}
+    log("  cost model on this card (median of %d runs; min / max): " % COST_RUNS + ", ".join(
+        f"{k} = {v[1]:.6g} ({v[0]:.6g} / {v[2]:.6g})" for k, v in sp.items()) + f"  [{card}]")
+
+    def route(c):
+        scan_s = c["SCAN_FIXED_S"] + nbytes / c["SCAN_BYTES_PER_S"]
+        graph_s = iters * (c["ITER_FIXED_S"] + GIST_BATCH * c["ITER_PER_QUERY_S"])
+        return ("scan" if scan_s < graph_s else "graph"), scan_s, graph_s
+
+    # the corners: every constant at the end of its spread that favours
+    # one route
+    to_scan = dict(SCAN_BYTES_PER_S=sp["SCAN_BYTES_PER_S"][2], SCAN_FIXED_S=sp["SCAN_FIXED_S"][0],
+                   ITER_FIXED_S=sp["ITER_FIXED_S"][2], ITER_PER_QUERY_S=sp["ITER_PER_QUERY_S"][2])
+    to_graph = dict(SCAN_BYTES_PER_S=sp["SCAN_BYTES_PER_S"][0], SCAN_FIXED_S=sp["SCAN_FIXED_S"][2],
+                    ITER_FIXED_S=sp["ITER_FIXED_S"][0], ITER_PER_QUERY_S=sp["ITER_PER_QUERY_S"][0])
+    routes = {}
+    for label, c in (("median", med), ("scan-favoured corner", to_scan),
+                     ("graph-favoured corner", to_graph)):
+        routes[label], scan_s, graph_s = route(c)
+        log(f"  HNSW cell (batch {GIST_BATCH}, ef_s 100, {nbytes} bytes) at the {label}: "
+            f"{routes[label]} (scan {1e3 * scan_s:.4f} ms, graph {1e3 * graph_s:.4f} ms)")
+    if len(set(routes.values())) == 1:
+        log(f"  the same route, {routes['median']}, at the medians and at both corners")
+    else:
+        deciders = [k for k in med if route({**med, k: to_graph[k]})[0] != routes["median"]
+                    or route({**med, k: to_scan[k]})[0] != routes["median"]]
+        log(f"  the routing of the HNSW cell turns within the spread; alone, {deciders} turn it")
+    _, scan_s, graph_s = route(med)
+    break_even = (graph_s - med["SCAN_FIXED_S"]) * med["SCAN_BYTES_PER_S"]
+    log(f"  at the medians the graph beats the scan at batch {GIST_BATCH}, ef_s 100 only above "
+        f"{break_even / 1e9:.4f} GB of payload")
+    return med
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None):
     import argparse
@@ -435,7 +812,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 5, show where each cell's time goes")
+                    help="show where each cell's time goes (phases 5 and 6)")
     ap.add_argument("--out", default=os.path.join("myscaledb_tpu_torch", "_build", "profile"),
                     help="directory for --profile's traces and host profiles")
     args = ap.parse_args(argv)
@@ -451,8 +828,7 @@ def main(argv=None):
         return 1
     sys.path.insert(0, here)
     import myscaledb_tpu_torch as ms
-    from myscaledb_tpu_torch.metrics import Metric
-    from myscaledb_tpu_torch.ops import _cuda, distance, tilescan
+    from myscaledb_tpu_torch.ops import _cuda, distance, gathermv, tilescan
 
     # ---- 1. set-up
     card = card_line()
@@ -469,25 +845,27 @@ def main(argv=None):
     # ---- 2. kernels vs their plain versions
     log("[2] kernels vs plain versions on the card")
     errs = compare_kernels(dev)
+    errs["gathermv"] = compare_gathermv(dev)
 
-    # ---- 3./4. the main path, with the launch counters zeroed
+    # ---- 3./4. the exact paths, with their launch counters zeroed
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
-    log("[3] SIFT1M-shaped main path (1,000,000 + 50,000 rows x 128, L2, batch 100, k=10)")
+    log("[3] SIFT1M-shaped exact path (1,000,000 + 50,000 rows x 128, L2, batch 100, k=10)")
     sift, sift_batches, flt = sift_path(ms, dev)
-    log("[4] GIST-shaped path (100,000 x 960, Cosine, batch 256, k=10)")
-    gist, gist_batches = gist_path(ms, dev)
+    log("[4] GIST-shaped exact path (100,000 x 960, Cosine, batch 256, k=10)")
+    gist, gist_batches, gist_gt = gist_path(ms, dev)
     launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
-    log(f"  kernel launches on the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    log(f"  kernel launches on the exact paths: {launches}")
+    for name in ("score", "tile_max"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the exact paths")
 
-    # ---- 5. times
-    log(f"[5] times on {card}")
+    # ---- 5. the exact paths' QPS (before phase 6 indexes the GIST table)
+    log(f"[5] exact-path QPS on {card}")
     sift_qps = qps(lambda qb: sift.search("vec", qb, k=K, metric="L2"), sift_batches, SIFT_BATCH)
     sift_fqps = qps(lambda qb: sift.search("vec", qb, k=K, metric="L2", filter=flt),
                     sift_batches, SIFT_BATCH)
     gist_qps = qps(lambda qb: gist.search("vec", qb, k=K), gist_batches, GIST_BATCH)
+    gist_scan = scan_cost_runs(gist, gist_batches, args.out)
     log(f"  SIFT1M-shaped exact L2 QPS (batch 100, k=10): {sift_qps:.1f}  [{card}]")
     log(f"  SIFT1M-shaped filtered (id<10000) QPS: {sift_fqps:.1f}  [{card}]")
     log(f"  GIST-shaped exact Cosine QPS (batch 256, k=10): {gist_qps:.1f}  [{card}]")
@@ -500,42 +878,38 @@ def main(argv=None):
             ("gist_exact", lambda qb: gist.search("vec", qb, k=K), gist_batches),
         ], PROFILE_RUNS, args.out, card)
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    timing = {}
-    # kernel 2 at the SIFT segment's shape: Q=104 (100 padded), bf16 payload
-    x = (3.0 * torch.randn((1_048_576, 128), generator=gen, device=dev)).to(torch.bfloat16)
-    q = torch.randn((104, 128), generator=gen, device=dev)
-    aux = distance.base_aux(x, Metric.L2)
-    m8 = torch.ones((x.shape[0],), dtype=torch.uint8, device=dev)
-    timing["tile_max"] = (
-        cuda_time_ms(lambda: tilescan.tile_maxes(q, x, aux, m8, metric=Metric.L2)),
-        cuda_time_ms(lambda: tilescan.tile_maxes_plain(q, x, aux, m8, Metric.L2)),
-        "Q=104 N=1048576 D=128 bf16 L2",
-    )
-    # kernel 1 at the small SIFT segment's and at the GIST segment's shape
-    for shape in ((104, 50_176, 128, Metric.L2), (256, 114_688, 1024, Metric.COSINE)):
-        qn, n, d, metric = shape
-        x = (3.0 * torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
-        q = distance.normalize_queries(torch.randn((qn, d), generator=gen, device=dev), metric)
-        aux = distance.base_aux(x, metric)
-        timing[f"score {n}x{d}"] = (
-            cuda_time_ms(lambda: distance.scores(q, x, aux, metric=metric)),
-            cuda_time_ms(lambda: distance.scores_plain(q, x, aux, metric)),
-            f"Q={qn} N={n} D={d} bf16 {metric.value}",
-        )
-    del x, q, aux
-    for name, (k_ms, p_ms, what) in timing.items():
-        log(f"  {name:18s} {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms  [{card}]")
+    # ---- 6. the HNSW path, with the gathermv launch counter zeroed
+    log("[6] HNSW path on phase 4's table (HNSWFLAT m=32 ef_c=100, Cosine, batch 256, k=10)")
+    gathermv.gather_block_scores.launches = 0
+    graph, hb, idx, _ = hnsw_path(ms, dev, gist, gist_batches, gist_gt, card)
+    launches["gathermv"] = gathermv.gather_block_scores.launches
+    log(f"  gathermv launches on the HNSW path: {launches['gathermv']}")
+    check(launches["gathermv"] > 0, "kernel gathermv was not launched on the HNSW path")
+    if args.profile:
+        log(f"[6p] where the time goes on {card}")
+        profile_cells([("hnsw_graph_ef100", lambda qb: gist.search(
+            "vec", qb, k=K, params={"ef_s": 100}, settings=graph), hb)],
+            PROFILE_RUNS, args.out, card)
 
+    # ---- 7. times
+    log(f"[7] times on {card}")
+    timing = time_kernels(dev, idx, card)
+    cost_model(gist, gist_scan, graph, hb, card, args.out)
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
         {"name": "score", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/score.cu",
          "replaces": "myscaledb_tpu/ops/distance.py:57",
          "launches": launches["score"], "max_abs_err": errs["score"],
-         "ms": timing["score 114688x1024"][0], "plain_ms": timing["score 114688x1024"][1]},
+         **{k: timing["score"][k] for k in keys}},
         {"name": "tile_max", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/tile_max.cu",
          "replaces": "myscaledb_tpu/ops/tilescan.py:66",
          "launches": launches["tile_max"], "max_abs_err": errs["tile_max"],
-         "ms": timing["tile_max"][0], "plain_ms": timing["tile_max"][1]},
+         **{k: timing["tile_max"][k] for k in keys}},
+        {"name": "gathermv", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/gathermv.cu",
+         "replaces": "myscaledb_tpu/ops/gathermv.py:52",
+         "launches": launches["gathermv"], "max_abs_err": errs["gathermv"],
+         **{k: timing["gathermv"][k] for k in keys}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 point.
 
 Counterpart of myscaledb_tpu/api/client.py without the build scheduler,
-the index LRU cache, replicas and system logs (none of which the exact
-search slice uses). The database carries an explicit torch device into
-every table and segment.
+the index LRU cache, replicas and system tables (index builds run on the
+caller's thread). The database carries an explicit torch device into
+every table, segment and index, and one vector-index event log.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from ..config import Settings
 from ..errors import SchemaError
 from ..ops._cuda import set_exact_precision
+from ..service.event_log import EventLog
 from ..storage.schema import Schema
 from ..storage.table import Table
 
@@ -42,6 +43,7 @@ class Database:
     def __init__(self, settings: Optional[Settings] = None, *, device="cuda"):
         self.settings = settings or Settings()
         self.device = resolve_device(device)
+        self.event_log = EventLog()
         self._tables: Dict[str, Table] = {}
         self._lock = threading.RLock()
 
@@ -58,7 +60,8 @@ class Database:
             if name in self._tables:
                 raise SchemaError(f"table {name!r} already exists")
             t = Table(
-                name, schema, settings or self.settings, device=self.device, engine=engine
+                name, schema, settings or self.settings, device=self.device, engine=engine,
+                event_log=self.event_log,
             )
             self._tables[name] = t
             return t

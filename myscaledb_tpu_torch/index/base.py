@@ -26,6 +26,16 @@ def params_key(params: Optional[Dict[str, Any]]) -> ParamsKey:
     return tuple(sorted((params or {}).items()))
 
 
+def check_cancel(cancel_cb) -> None:
+    """Raise IndexBuildCanceledError when the build's cancel callback
+    fires. Index builds call this at chunk boundaries (the index->build(...,
+    cancel_cb) contract of the reference library, VIWithDataPart.h:338)."""
+    if cancel_cb is not None and cancel_cb():
+        from ..errors import IndexBuildCanceledError
+
+        raise IndexBuildCanceledError("index build canceled")
+
+
 class IndexKind(enum.Enum):
     # Index types exercised by the reference tests (SURVEY.md §2.3).
     FLAT = "FLAT"
@@ -94,7 +104,11 @@ class IndexDescription:
 
 
 class VectorIndex(abc.ABC):
-    """A built, device-resident index over one segment's vector column."""
+    """A built, device-resident index over one segment's vector column.
+
+    Subclasses that can be built (`add_vector_index`) also define
+    `build(payload, n_rows, *, metric, dim, params, settings, cancel_cb)`,
+    `state_dict` and `from_state_dict(state, *, device)`."""
 
     kind: IndexKind
     metric: Metric
@@ -115,3 +129,36 @@ class VectorIndex(abc.ABC):
         mask: bool[capacity] True = searchable (pre-filter ∩ deletes),
         applied inside selection.
         """
+
+    @classmethod
+    def estimate_build_bytes(cls, payload, n_rows: int, params=None) -> int:
+        """Conservative device-memory estimate for building this index
+        over `payload`, checked against the build budget before anything
+        is allocated (VIBuildMemoryUsageHelper::checkBuildMemory analogue).
+        Default: an f32 copy of the rows plus ~2 payload-sized transients."""
+        del params
+        return 4 * n_rows * payload.data.shape[1] + 2 * int(payload.nbytes)
+
+    def prefer_exact_scan(self, nq: int, k: int, params, scan_bytes: int) -> bool:
+        """Cost-based routing hook: True when the exact scan of
+        `scan_bytes` bytes is modeled cheaper than searching this index for
+        an nq-query batch. Default: never; graph indexes override it."""
+        del nq, k, params, scan_bytes
+        return False
+
+    def supports_two_stage(self) -> bool:
+        """Whether the index returns approximate candidates for an exact
+        re-rank (supportTwoStageSearch, VIWithDataPart.cpp:128-133)."""
+        return False
+
+    @property
+    def memory_bytes(self) -> int:
+        """Device bytes held by the index's own tensors (the LRU cache
+        weight, once there is a cache): every tensor attribute counted once
+        by storage."""
+        seen, total = set(), 0
+        for v in vars(self).values():
+            if isinstance(v, torch.Tensor) and v.untyped_storage().data_ptr() not in seen:
+                seen.add(v.untyped_storage().data_ptr())
+                total += v.numel() * v.element_size()
+        return total

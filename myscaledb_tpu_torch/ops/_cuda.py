@@ -5,7 +5,8 @@ under myscaledb_tpu_torch/csrc/ and are compiled by nvcc for sm_90a into
 one shared library with a plain C interface, loaded through ctypes. The
 build happens at first use, into myscaledb_tpu_torch/_build/, keyed by a
 hash of the sources, so a fresh checkout builds on its first kernel call
-and an unchanged checkout reuses the library.
+and an unchanged checkout reuses the library. Each `.cu` file compiles in
+its own nvcc process, all started together, and one more links them.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no nvcc and no card.
@@ -29,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -100,25 +101,50 @@ class _Library:
                 self._lib = self._load()
             return self._lib
 
+    def _build(self, path: str) -> None:
+        """nvcc each .cu file to an object, all in parallel, then link the
+        objects into `path`. Everything is written under private names and
+        renamed at the end: concurrent processes never load a half-written
+        library."""
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        jobs = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        try:
+            for cmd, _, proc in jobs:
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
+                    )
+            tmp = f"{path}.{tag}"
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *[o for _, o, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, path)
+        finally:
+            for _, obj, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if os.path.exists(obj):
+                    os.remove(obj)
+
     def _load(self) -> ctypes.CDLL:
         os.makedirs(BUILD_DIR, exist_ok=True)
         path = os.path.join(BUILD_DIR, f"libmyscaledb_kernels_{_source_hash()}.so")
         if not os.path.exists(path):
-            # build to a private name, then rename: concurrent processes
-            # never load a half-written library
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[
-                s for s in _sources() if s.endswith(".cu")
-            ]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            self._build(path)
             self.build_seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, path)
         self.path = path
         lib = ctypes.CDLL(path)
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -128,6 +154,8 @@ class _Library:
         lib.msd_scores.restype = ci
         lib.msd_tile_max.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.msd_tile_max.restype = ci
+        lib.msd_gathermv.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.msd_gathermv.restype = ci
         return lib
 
 

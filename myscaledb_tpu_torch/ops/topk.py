@@ -79,6 +79,31 @@ def merge_topk(
     return _pad_k(mvals, torch.gather(idx, -1, pos), k)
 
 
+def dedup_rows(values: torch.Tensor, rows: torch.Tensor, extra=None):
+    """Kill duplicate row ids along the last axis, keeping one copy per
+    row (the `extra`-flagged copy when given, e.g. beam-search 'expanded'
+    flags). Returns (values, rows, extra or None) in row-id order, the
+    killed copies as (-inf, -1, False); padding (-1) sorts last. Row ids
+    must be < 2^30."""
+    pad_key = torch.full_like(rows, 2**31 - 1, dtype=torch.int32)
+    r32 = rows.to(torch.int32)
+    if extra is not None:
+        key = torch.where(rows >= 0, r32 * 2 + (1 - extra.to(torch.int32)), pad_key)
+    else:
+        key = torch.where(rows >= 0, r32, pad_key)
+    order = torch.sort(key, dim=-1, stable=True).indices
+    v_s = torch.gather(values, -1, order)
+    r_s = torch.gather(rows, -1, order)
+    dup = torch.zeros_like(r_s, dtype=torch.bool)
+    dup[..., 1:] = (r_s[..., 1:] == r_s[..., :-1]) & (r_s[..., 1:] >= 0)
+    v_s = v_s.masked_fill(dup, NEG_INF)
+    r_s = r_s.masked_fill(dup, -1)
+    if extra is not None:
+        e_s = torch.gather(extra, -1, order).masked_fill(dup, False)
+        return v_s, r_s, e_s
+    return v_s, r_s, None
+
+
 def merge_topk_lists(vals: torch.Tensor, idx: torch.Tensor, k: int):
     """Collapse a stacked [..., L, k'] set of top-k lists to one [..., k]
     (the global merge across segments and chunks)."""

@@ -1,7 +1,8 @@
-"""Vector search execution: per-segment exact search + global top-k merge.
+"""Vector search execution: per-segment search + global top-k merge.
 
-Counterpart of myscaledb_tpu/search/executor.py, FLAT branch. The
-re-expression of the reference's search-manager stack:
+Counterpart of myscaledb_tpu/search/executor.py, without two-stage search
+and the host tier. The re-expression of the reference's search-manager
+stack:
 
   MergeTreeVSManager::vectorScan            -> per-segment search_t
   performPrefilter + DenseBitmap            -> filters.Expr -> device mask
@@ -10,7 +11,8 @@ re-expression of the reference's search-manager stack:
 
 Where the JAX package runs one jitted program per query, the port issues
 one stream of eager launches on the segments' device: the query upload,
-the cast + pad + |q|^2, every segment's scan, and the global merge.
+the cast + pad + |q|^2, every segment's index search or scan, and the
+global merge.
 Results are lazy: tensors stay on the device until the caller reads them.
 
 Labels stay segment-local; a global hit is (segment_id, row_id, score).
@@ -26,6 +28,7 @@ import torch.nn.functional as tnf
 
 from ..config import Settings
 from ..errors import QueryShapeError
+from ..index.base import VectorIndex, params_key
 from ..index.flat import FlatIndex
 from ..metrics import Metric, score_to_distance
 from ..ops.topk import NEG_INF
@@ -238,9 +241,12 @@ class VectorSearchExecutor:
     """Executes a vector search over a table's segments.
 
     Index-vs-brute-force policy per segment (bruteForceSearchEnabled,
-    MergeTreeVSManager.cpp:1681-1688): small segments always scan
-    exactly; large ones scan only if enable_brute_force_vector_search.
-    The port has no ANN index yet, so every searched segment scans.
+    MergeTreeVSManager.cpp:1681-1688): a built index for the column is
+    used when present, unless an over-selective filter
+    (filter_fallback_selectivity) or the cost model
+    (cost_based_index_routing) sends the segment to the exact scan;
+    otherwise small segments always scan exactly and large ones scan only
+    if enable_brute_force_vector_search.
     """
 
     def __init__(self, table):
@@ -267,7 +273,6 @@ class VectorSearchExecutor:
     def _run_traced(
         self, column, query, k, *, filter, params, metric, settings, two_stage
     ) -> SearchResult:
-        del params  # FLAT has no search parameters
         t = self.table
         st = settings or t.settings
         vtype = t.schema.require_vector(column)
@@ -298,7 +303,8 @@ class VectorSearchExecutor:
 
         nq_pad = max(8, -(-nq // 8) * 8)
         dpad = segments[0].vector(column).data.shape[1]
-        searchers: List[FlatIndex] = []
+        pkey = params_key(params)
+        searchers: List[VectorIndex] = []
         masks: List[Any] = []
         seg_ids: List[int] = []
         for seg in segments:
@@ -310,23 +316,48 @@ class VectorSearchExecutor:
                 if fold is True:
                     fexpr = None  # provably all pass: alive mask only
             mask = segment_mask(seg, fexpr)
-            small = seg.n_rows < st.table.min_rows_to_build_vector_index
-            if not small and not st.query.enable_brute_force_vector_search:
-                # the reference SKIPS index-less large parts when brute
-                # force is off (fewer/no rows, not an error)
-                GLOBAL_COUNTERS.bump("VectorSearchSegmentsSkipped")
-                continue
-            payload = seg.vector(column)
-            searchers.append(
-                FlatIndex(
+            idx = t.loaded_index(seg.segment_id, column, metric)
+            forced_exact = False
+            if (
+                idx is not None
+                and fexpr is not None
+                and st.query.filter_fallback_selectivity > 0
+            ):
+                sel = estimate_selectivity(seg, fexpr)
+                if sel is not None and sel < st.query.filter_fallback_selectivity:
+                    # over-selective filter: the exact masked scan is both
+                    # correct (a graph walk loses recall on sparse masks)
+                    # and cheap (few survivors) -- fallbackToFlat
+                    idx = None
+                    forced_exact = True
+                    GLOBAL_COUNTERS.bump("VectorIndexFallbackToFlat")
+            if idx is not None and st.query.cost_based_index_routing:
+                payload = seg.vector(column)
+                if idx.prefer_exact_scan(nq, k, pkey, int(payload.nbytes)):
+                    # the exact scan is modeled cheaper than this index's
+                    # search for this batch and corpus, and it is exact
+                    idx = None
+                    forced_exact = True
+                    GLOBAL_COUNTERS.bump("VectorIndexCostRouteToScan")
+            if idx is None:
+                small = forced_exact or seg.n_rows < st.table.min_rows_to_build_vector_index
+                if not small and not st.query.enable_brute_force_vector_search:
+                    # the reference SKIPS index-less large parts when brute
+                    # force is off (fewer/no rows, not an error)
+                    GLOBAL_COUNTERS.bump("VectorSearchSegmentsSkipped")
+                    continue
+                payload = seg.vector(column)
+                idx = FlatIndex(
                     payload.data,
                     payload.aux_for(metric),
                     metric=metric,
                     dim=vtype.dim,
                     n_rows=seg.n_rows,
                 )
-            )
-            GLOBAL_COUNTERS.bump("VectorBruteForceSearches")
+                GLOBAL_COUNTERS.bump("VectorBruteForceSearches")
+            else:
+                GLOBAL_COUNTERS.bump("VectorIndexSearches")
+            searchers.append(idx)
             masks.append(mask)
             seg_ids.append(seg.segment_id)
 
@@ -336,7 +367,7 @@ class VectorSearchExecutor:
         queries = _prep_queries(qh, nq_pad, dpad, segments[0].device)
         vs, rs = [], []
         for s, m in zip(searchers, masks):
-            v, r = s.search_t(queries, k, mask=as_mask_array(m))
+            v, r = s.search_t(queries, k, mask=as_mask_array(m), params=pkey)
             vs.append(v)
             rs.append(r)
         mv, mt, mr = _merge_tagged_body(tuple(vs), tuple(rs), k)

@@ -1,13 +1,16 @@
-"""Carry a segment's state across from the JAX package.
+"""Carry a segment's or an index's state across from the JAX package.
 
 `segment_from_arrays` builds the port's `Segment` over the same stored
-bytes as a JAX segment, given its arrays as numpy. It lets the port score
-exactly the payload the JAX package scores (the parity tests use it) and
-is the route by which a segment built by one package serves in the other.
+bytes as a JAX segment, given its arrays as numpy. `hnsw_from_state_dict`
+builds the port's HNSW index from a JAX HNSW index's `state_dict()`. They
+let the port search exactly what the JAX package searches (the parity
+tests use them), and are the route by which a segment or an index built
+by one package serves in the other.
 
 numpy has no bfloat16, so a bf16 payload crosses as raw bits: the caller
-passes `np.asarray(x).view(np.uint16)`, and the bits are reinterpreted
-with `torch.Tensor.view(torch.bfloat16)`, not converted.
+passes `np.asarray(x).view(np.uint16)` (or an array whose dtype is named
+bfloat16, which is viewed so here), and the bits are reinterpreted with
+`torch.Tensor.view(torch.bfloat16)`, not converted.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..errors import SchemaError
+from ..index.base import IndexKind
 from .schema import FloatVector, Schema
 from .segment import Segment, upload_payload
 
@@ -96,3 +100,25 @@ def segment_from_arrays(
         if len(rows):
             seg.delete_rows(rows)
     return seg
+
+
+def hnsw_from_state_dict(state: Dict, device):
+    """The port's HNSW index (HNSWFLAT or HNSWSQ) from a JAX HNSW index's
+    `state_dict()`: {"meta": {kind, metric, dim, n_rows, m, ef_default,
+    codec, storage_dtype}, "arrays": {field: numpy array}}, every array
+    moved to `device`. A bf16 payload crosses as its stored bits."""
+    from ..index import hnsw
+
+    classes = {IndexKind.HNSWFLAT.value: hnsw.HNSWFlatIndex, IndexKind.HNSWSQ.value: hnsw.HNSWSQIndex}
+    kind = state["meta"]["kind"]
+    if kind not in classes:
+        raise NotImplementedError(
+            f"index kind {kind!r} cannot cross yet (HNSWPQ and IVF: ROADMAP queue 1 #5)"
+        )
+    arrays = dict(state["arrays"])
+    data = arrays.get("data")
+    if data is not None and np.asarray(data).dtype.name == "bfloat16":
+        arrays["data"] = np.asarray(data).view(np.uint16)
+    return classes[kind].from_state_dict(
+        {"meta": state["meta"], "arrays": arrays}, device=torch.device(device)
+    )

@@ -1,23 +1,28 @@
-"""Table: segments + exact search entry points.
+"""Table: segments, vector indexes and the search entry points.
 
-Counterpart of myscaledb_tpu/storage/table.py, for the MergeTree engine
-and the exact-search slice:
+Counterpart of myscaledb_tpu/storage/table.py, for the MergeTree engine:
 
   * insert  -> new immutable segment (INSERT = new part), searchable by
-    exact scan immediately
+    exact scan immediately; every vector index of the table is built for
+    it (or marked a small part)
+  * add_vector_index / drop_vector_index -> the per-(segment, index)
+    lifecycle (IndexStatus slots, event log, counters)
   * search  -> VectorSearchExecutor (pre-filter ∩ deletes, per-segment
-    exact scan, global top-k merge)
+    index search or exact scan, global top-k merge)
   * lightweight DELETE -> per-segment delete bitmaps intersected into
     every search
   * gather  -> output columns of the hits
 
-Every segment lives on the table's explicit `device`. Index lifecycle,
-text indexes, versioned engines, mutations and merges are not ported yet
-(ROADMAP queue 1).
+Every segment and index lives on the table's explicit `device`. Index
+builds run synchronously on the caller's thread: the background build
+scheduler, the LRU index cache, persistence and replication are ROADMAP
+queue 1 #10 and #13. Text indexes, versioned engines, mutations and
+merges are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -26,15 +31,43 @@ import numpy as np
 import torch
 
 from ..config import Settings
-from ..errors import SchemaError
+from ..errors import IndexBuildCanceledError, IndexBuildMemoryError, IndexParameterError, SchemaError
+from ..index import hnsw  # noqa: F401  (registers HNSWFLAT and HNSWSQ)
+from ..index import registry
+from ..index.base import IndexDescription, IndexKind, IndexStatus, VectorIndex
 from ..metrics import Metric
 from ..search.executor import SearchResult, VectorSearchExecutor
 from ..search.filters import Expr
-from ..service.event_log import GLOBAL_COUNTERS, GLOBAL_QUERY_LOG
+from ..service.event_log import GLOBAL_COUNTERS, GLOBAL_QUERY_LOG, EventLog, EventType
+from ..service.tracing import span
+from .hbm import device_memory_stats
 from .schema import BinaryVector, Schema
 from .segment import Segment
 
 _STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# Index kinds the port cannot build yet, with the ROADMAP item that ports
+# them. HNSWFLAT and HNSWSQ are the only kinds with a `build`.
+_NOT_PORTED = {
+    IndexKind.FLAT: "FLAT needs no index: every index-less segment is scanned exactly",
+    IndexKind.IVFFLAT: "IVF search is ROADMAP queue 1 #5",
+    IndexKind.IVFSQ: "IVF search and the SQ codec are ROADMAP queue 1 #5",
+    IndexKind.IVFPQ: "IVF search and the PQ codec are ROADMAP queue 1 #5",
+    IndexKind.MSTG: "MSTG (IVF + two-stage re-rank) is ROADMAP queue 1 #5",
+    IndexKind.HNSWPQ: "the PQ codec is ROADMAP queue 1 #5",
+    IndexKind.BINARYFLAT: "binary vectors are ROADMAP queue 1 #8",
+    IndexKind.BINARYMSTG: "binary vectors are ROADMAP queue 1 #8",
+}
+
+
+@dataclasses.dataclass
+class IndexSlot:
+    """Per-(segment, index) build state (VIWithColumnInPart analogue)."""
+
+    status: IndexStatus
+    instance: Optional[VectorIndex] = None
+    # set to stop an in-flight build at the next chunk boundary
+    cancel: threading.Event = dataclasses.field(default_factory=threading.Event)
 
 
 class Table:
@@ -46,6 +79,7 @@ class Table:
         *,
         device,
         engine: str = "MergeTree",
+        event_log: Optional[EventLog] = None,
     ):
         if engine.strip().lower() != "mergetree":
             raise NotImplementedError(
@@ -62,6 +96,9 @@ class Table:
         self._dml_lock = threading.RLock()
         self._segments: Dict[int, Segment] = {}
         self._next_segment_id = 0
+        self._index_descs: Dict[str, IndexDescription] = {}
+        self._slots: Dict[tuple, IndexSlot] = {}  # (segment_id, index_name)
+        self.event_log = event_log if event_log is not None else EventLog()
         self._executor = VectorSearchExecutor(self)
 
     # ------------------------------------------------------------- ingest
@@ -89,6 +126,9 @@ class Table:
         )
         with self._lock:
             self._segments[seg_id] = seg
+            descs = list(self._index_descs.values())
+        for desc in descs:
+            self._schedule_build(seg, desc)
         GLOBAL_COUNTERS.bump("InsertedSegments")
         GLOBAL_COUNTERS.bump("InsertedRows", seg.n_rows)
         return seg_id
@@ -105,11 +145,177 @@ class Table:
         return n
 
     # -------------------------------------------------------------- index
-    def add_vector_index(self, name: str, column: str, type: str = "MSTG", **params):
-        raise NotImplementedError(
-            "vector indexes are not ported yet: IVF/MSTG is ROADMAP queue 1 "
-            "#5, HNSW queue 1 #6"
+    def add_vector_index(
+        self, name: str, column: str, type: str = "MSTG", **params
+    ) -> IndexDescription:
+        """ALTER TABLE ADD VECTOR INDEX analogue. Builds the index for every
+        existing segment before it returns (synchronous builds)."""
+        with self._lock:
+            if name in self._index_descs:
+                raise IndexParameterError(f"vector index {name!r} already exists")
+            d = self._index_desc(column)
+            if d is not None:
+                raise IndexParameterError(f"column {column!r} already has vector index {d.name!r}")
+        vtype = self.schema.require_vector(column)
+        if isinstance(vtype, BinaryVector):
+            raise NotImplementedError("binary vectors are not ported yet (ROADMAP queue 1 #8)")
+        if type.lower() == "default":
+            type = "MSTG"
+        desc = registry.make_description(
+            name,
+            column,
+            type,
+            vtype.dim,
+            is_binary_column=False,
+            default_metric=self.settings.table.float_vector_search_metric_type,
+            params=params,
+            strict=self.settings.table.vector_index_parameter_check,
         )
+        if desc.kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"index type {desc.kind.value} is not ported yet: {_NOT_PORTED[desc.kind]}"
+            )
+        with self._lock:
+            self._index_descs[name] = desc
+            segs = list(self._segments.values())
+        self.event_log.record(self.name, name, column, EventType.DEFINITION_CREATED)
+        for seg in segs:
+            self._schedule_build(seg, desc)
+        return desc
+
+    def drop_vector_index(self, name: str) -> None:
+        with self._lock:
+            desc = self._index_descs.pop(name, None)
+            if desc is None:
+                raise IndexParameterError(f"no vector index named {name!r}")
+            for key in [k for k in self._slots if k[1] == name]:
+                # an in-flight build stops at its next chunk boundary
+                self._slots[key].cancel.set()
+                del self._slots[key]
+        self.event_log.record(self.name, name, desc.column, EventType.DEFINITION_DROPPED)
+
+    def _schedule_build(self, seg: Segment, desc: IndexDescription) -> None:
+        key = (seg.segment_id, desc.name)
+        tset = self.settings.table
+        small = seg.n_rows < tset.min_rows_to_build_vector_index or (
+            tset.min_bytes_to_build_vector_index > 0
+            and seg.n_rows * desc.dim * 4 < tset.min_bytes_to_build_vector_index
+        )
+        with self._lock:
+            self._slots[key] = IndexSlot(
+                IndexStatus.SMALL_PART if small else IndexStatus.PENDING
+            )
+        if small:
+            self.event_log.record(
+                self.name, desc.name, desc.column, EventType.WILL_NOT_BUILD,
+                segment_id=seg.segment_id,
+            )
+            return
+        self._build_one(seg, desc)
+
+    def _build_one(self, seg: Segment, desc: IndexDescription) -> None:
+        key = (seg.segment_id, desc.name)
+        with self._lock:
+            slot = self._slots.get(key)
+            if slot is None or slot.status not in (IndexStatus.PENDING, IndexStatus.ERROR):
+                return
+            slot.status = IndexStatus.BUILDING
+        self.event_log.record(
+            self.name, desc.name, desc.column, EventType.BUILD_START,
+            segment_id=seg.segment_id,
+        )
+        t0 = time.time()
+
+        def _canceled() -> bool:
+            if slot.cancel.is_set():
+                return True
+            with self._lock:  # index dropped (slot replaced or removed)
+                return self._slots.get(key) is not slot
+
+        try:
+            impl = registry.implementation(desc.kind)
+            payload = seg.vector(desc.column)
+            self._check_build_memory(
+                impl.estimate_build_bytes(payload, seg.n_rows, desc.params)
+            )
+            with span("index_build", table=self.name, index=desc.name,
+                      kind=desc.kind.value, segment=seg.segment_id, rows=seg.n_rows):
+                instance = impl.build(
+                    payload,
+                    seg.n_rows,
+                    metric=desc.metric,
+                    dim=desc.dim,
+                    params=desc.params,
+                    settings=self.settings,
+                    cancel_cb=_canceled,
+                )
+            elapsed = time.time() - t0
+            with self._lock:
+                if self._slots.get(key) is not slot:  # index dropped mid-build
+                    return
+                slot.instance = instance
+                slot.status = IndexStatus.LOADED
+            self.event_log.record(
+                self.name, desc.name, desc.column, EventType.BUILD_SUCCEED,
+                segment_id=seg.segment_id, elapsed_s=elapsed,
+            )
+            GLOBAL_COUNTERS.bump("VectorIndexBuilds")
+        except IndexBuildCanceledError:
+            GLOBAL_COUNTERS.bump("VectorIndexBuildCancels")
+            self.event_log.record(
+                self.name, desc.name, desc.column, EventType.BUILD_CANCELED,
+                segment_id=seg.segment_id,
+            )
+        except Exception as e:  # noqa: BLE001 — the status machine records it
+            # a build that does not fit the budget fails here too: the
+            # retry after evicting cached indexes waits for the LRU cache
+            # (ROADMAP queue 1 #10)
+            GLOBAL_COUNTERS.bump("VectorIndexBuildFailEvents")
+            msg = f"{type(e).__name__}: {e}"
+            with self._lock:
+                if self._slots.get(key) is slot:
+                    slot.status = IndexStatus.ERROR
+            self.event_log.record(
+                self.name, desc.name, desc.column, EventType.BUILD_ERROR,
+                segment_id=seg.segment_id, error=msg,
+            )
+
+    def _check_build_memory(self, estimate_bytes: int) -> None:
+        """Raise IndexBuildMemoryError when the build would not fit the
+        budget: `build_memory_limit_bytes`, or ratio x the device's memory
+        with the live use added (a device without memory stats, the CPU,
+        skips the check)."""
+        srv = self.settings.server
+        limit = srv.build_memory_limit_bytes
+        if limit is None:
+            stats = device_memory_stats(self.device)
+            if stats is None:
+                return
+            in_use, cap = stats
+            limit = int(cap * srv.vector_index_build_size_ratio_of_memory)
+            if in_use + estimate_bytes <= cap and estimate_bytes <= limit:
+                return
+            raise IndexBuildMemoryError(
+                f"index build needs ~{estimate_bytes >> 20} MiB "
+                f"(in_use {in_use >> 20} MiB, budget {limit >> 20} MiB)"
+            )
+        if estimate_bytes > limit:
+            raise IndexBuildMemoryError(
+                f"index build needs ~{estimate_bytes >> 20} MiB > budget {limit >> 20} MiB"
+            )
+
+    def index_status(self, name: str) -> Dict[int, IndexStatus]:
+        """segment id -> IndexStatus of index `name` (system.vector_indices'
+        per-part status)."""
+        with self._lock:
+            return {sid: s.status for (sid, n), s in self._slots.items() if n == name}
+
+    def wait_index_built(self, timeout: float = 300.0) -> bool:
+        """True: builds run on the caller's thread, so every build has
+        ended when add_vector_index or insert returns. (The JAX package's
+        call; it waits once builds run in the background, ROADMAP queue 1
+        #10.)"""
+        return True
 
     def add_fts_index(self, name: str, columns, params=None):
         raise NotImplementedError(
@@ -117,13 +323,28 @@ class Table:
         )
 
     def loaded_index(self, segment_id: int, column: str, metric: Metric):
-        """No ANN index exists in the port yet: every segment scans."""
-        del segment_id, column, metric
+        """The built index of `column` for one segment, when its metric is
+        the one searched; else None (the segment is scanned)."""
+        with self._lock:
+            for desc in self._index_descs.values():
+                if desc.column != column or desc.metric != metric:
+                    continue
+                slot = self._slots.get((segment_id, desc.name))
+                if slot is not None and slot.instance is not None:
+                    return slot.instance
         return None
 
+    def _index_desc(self, column: str) -> Optional[IndexDescription]:
+        """The vector index defined on `column` (at most one), or None."""
+        with self._lock:
+            return next((d for d in self._index_descs.values() if d.column == column), None)
+
     def index_metric_for(self, column: str) -> Metric:
-        """Metric used for a column: the table default
-        (float_vector_search_metric_type); no index can override it yet."""
+        """Metric used for a column: its index's metric, else the table
+        default (float_vector_search_metric_type)."""
+        desc = self._index_desc(column)
+        if desc is not None:
+            return desc.metric
         vtype = self.schema.require_vector(column)
         if isinstance(vtype, BinaryVector):
             raise NotImplementedError(
@@ -153,6 +374,9 @@ class Table:
         if metric is not None:
             vtype = self.schema.require_vector(column)
             m = Metric.parse(metric, binary=isinstance(vtype, BinaryVector))
+        desc = self._index_desc(column) if params else None
+        if desc is not None:
+            registry.validate_search_params(desc.kind, params)
         res = self._executor.run(
             column,
             query,

@@ -24,7 +24,8 @@ def _run(code, cwd=REPO, **env):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, myscaledb_tpu_torch, myscaledb_tpu_torch.storage.convert\n"
-        "from myscaledb_tpu_torch.ops import _cuda, bruteforce\n"
+        "from myscaledb_tpu_torch.ops import _cuda, bruteforce, gathermv, kmeans, quantize\n"
+        "from myscaledb_tpu_torch.index import hnsw, ivf\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'myscaledb_tpu'))\n"
         "assert not bad, bad\n"
@@ -102,12 +103,16 @@ def test_no_quiet_fallback_for_other_devices():
 
     import myscaledb_tpu_torch as ms
     from myscaledb_tpu_torch.metrics import Metric
-    from myscaledb_tpu_torch.ops import distance, tilescan
+    from myscaledb_tpu_torch.ops import distance, gathermv, tilescan
 
     q = torch.empty((8, 128), device="meta")
     x = torch.empty((256, 128), device="meta")
     aux = torch.empty((256,), device="meta")
     m8 = torch.empty((256,), dtype=torch.uint8, device="meta")
+    rows = torch.empty((8, 8), dtype=torch.int32, device="meta")
+    nb = torch.empty((256, 32, 128), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gathermv.gather_block_scores(q, rows, nb)
     with pytest.raises(ValueError, match="unsupported device"):
         distance.scores(q, x, aux, metric=Metric.L2)
     with pytest.raises(ValueError, match="unsupported device"):

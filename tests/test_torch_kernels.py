@@ -13,14 +13,21 @@ order of their sums, so a kernel's score may lie at most 2^-16 of
 sum_i |q_i x_i| plus 1e-5 of the score from the plain version's
 (`distance.kernel_error_bound`). That is far tighter than the JAX
 package's cross-package tolerances, and tight enough to catch a kernel
-that drops the query's lo half (the control tests below).
+that drops the query's lo half (the control tests below). The gathermv
+kernel is held to the same kind of bound around sum_d |bf16(q_d) c_d|
+(`gathermv.kernel_error_bound`), which a kernel that skips the query's
+bf16 cast falls outside.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from myscaledb_tpu_torch.index import hnsw
 from myscaledb_tpu_torch.metrics import Metric
-from myscaledb_tpu_torch.ops import distance, tilescan
+from myscaledb_tpu_torch.ops import distance, gathermv, tilescan
+from myscaledb_tpu_torch.storage.schema import FloatVector, Schema, UInt64
+from myscaledb_tpu_torch.storage.segment import Segment
 
 METRICS = [Metric.L2, Metric.IP, Metric.COSINE]
 SCORE_SHAPES = [(13, 1000, 128), (130, 4099, 24), (8, 50_176, 128)]
@@ -136,3 +143,89 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="N % 128"):
         tilescan.tile_maxes(q, x[:200], aux[:200], torch.ones(200, dtype=torch.uint8,
                             device=cuda_device), metric=Metric.L2)
+
+
+def _gathermv_operands(device, q, beam, m, dt, n=500, seed=0):
+    """Codes, block rows (some outside [0, N), which the kernel clamps) and
+    queries scaled as the traversal scales them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nb = torch.randint(0, 256, (n, m, dt), generator=g, device=device, dtype=torch.uint8)
+    rows = torch.randint(-3, n + 3, (q, beam), generator=g, device=device, dtype=torch.int32)
+    rows[0, 0], rows[-1, -1] = -1, n  # both sides, whatever the draw
+    qs = 0.01 * torch.randn((q, dt), generator=g, device=device)
+    return qs, rows, nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [13, 256])
+@pytest.mark.parametrize("beam", [2, 4, 5, 8])
+@pytest.mark.parametrize("m", [16, 32, 64])
+@pytest.mark.parametrize("dt", [128, 256, 1024])
+def test_gathermv_kernel_vs_plain(cuda_device, q, beam, m, dt):
+    """Ragged Q, a beam narrower than 8 (ef_s < 8), m from 16 to 64, the
+    three widths and clamped rows; a control that skips the query's bf16
+    cast falls outside the bound on most entries."""
+    qs, rows, nb = _gathermv_operands(cuda_device, q, beam, m, dt, seed=q * beam + m + dt)
+    assert gathermv.supports(dt)
+    before = gathermv.gather_block_scores.launches
+    got = gathermv.gather_block_scores(qs, rows, nb)
+    assert gathermv.gather_block_scores.launches == before + 1
+    want = gathermv.gather_block_scores_plain(qs, rows, nb)
+    bound = gathermv.kernel_error_bound(qs, rows, nb)
+    assert got.shape == (q, beam * m)
+    assert not gathermv.outside_kernel_bound(got, want, bound).any()
+    clamped = gathermv.gather_block_scores_plain(qs, rows.clamp(0, nb.shape[0] - 1), nb)
+    torch.testing.assert_close(want, clamped, rtol=0, atol=0)
+    control = gathermv.unrounded_control(qs, rows, nb)
+    assert gathermv.outside_kernel_bound(control, want, bound).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_gathermv_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    qs, rows, nb = _gathermv_operands(cuda_device, 8, 8, 32, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        gathermv.gather_block_scores(qs, rows.t().contiguous().t(), nb)
+    with pytest.raises(ValueError, match="Dt % 16"):
+        gathermv.gather_block_scores(
+            qs[:, :40].contiguous(), rows, nb[:, :, :40].contiguous()
+        )
+    with pytest.raises(TypeError, match="uint8"):
+        gathermv.gather_block_scores(qs, rows, nb.to(torch.int8))
+    with pytest.raises(ValueError, match="one device"):
+        gathermv.gather_block_scores(qs.cpu(), rows, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ef_s,k", [(16, 64, 10), (32, 5, 5), (48, 4, 3)])
+def test_hnsw_search_launches_gathermv_every_iteration(cuda_device, m, ef_s, k):
+    """A graph search on the card scores every frontier iteration with the
+    kernel, at any m and at a beam narrower than 8 (ef_s < 8), and finds
+    what the same index finds on the CPU (the kernel's plain version):
+    recall of the card's rows against the CPU's >= 0.95 (only the order of
+    the f32 sums differs, which can turn a near-tie), and every returned
+    row's score within rtol 2e-4 / atol 2e-3 of its exact f32 score. (At a
+    small ef a query may get fewer than k hits, -1 rows: see
+    tests/test_torch_hnsw.py::test_beam_narrower_than_8_through_the_kernel_route.)"""
+    rng = np.random.default_rng(m + ef_s)
+    centers = 8.0 * rng.standard_normal((20, 128)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 20, 2000)] + rng.standard_normal((2000, 128))).astype(np.float32)
+    schema = Schema({"id": UInt64(), "vec": FloatVector(128)})
+    seg = Segment.from_columns(
+        0, schema, {"id": np.arange(2000, dtype=np.uint64), "vec": vecs}, device=cuda_device
+    )
+    idx = hnsw.HNSWFlatIndex.build(seg.vector("vec"), 2000, metric=Metric.L2, dim=128,
+                                   params={"m": m, "ef_c": 40})
+    assert idx.nbdata is not None and idx.nbdata.shape[1] == m
+    q = torch.from_numpy(vecs[:16] + 0.3 * rng.standard_normal((16, 128)).astype(np.float32))
+    before = gathermv.gather_block_scores.launches
+    v, r = idx.search_t(q.to(cuda_device), k, params=(("ef_s", ef_s),))
+    assert gathermv.gather_block_scores.launches - before == hnsw.n_iterations(max(ef_s, k))
+    cpu = hnsw.HNSWFlatIndex.from_state_dict(idx.state_dict(), device="cpu")
+    _, rc = cpu.search_t(q, k, params=(("ef_s", ef_s),))
+    r = r.cpu().numpy()
+    same = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(r, rc.numpy()))
+    assert same >= 0.95 * (rc.numpy() >= 0).sum()
+    live, v = r >= 0, v.cpu().numpy()
+    stored = seg.vector("vec").data[:2000, :128].float().cpu().numpy()[np.maximum(r, 0)]
+    exact = 2.0 * np.einsum("qd,qkd->qk", q.numpy(), stored) - (stored**2).sum(-1)
+    np.testing.assert_allclose(v[live], exact[live], rtol=2e-4, atol=2e-3)
