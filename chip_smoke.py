@@ -9,13 +9,15 @@ of the JAX package. Phases, each of which raises on failure:
 
   1. set-up: versions, the card's name and power limit, the nvcc build of
      the kernels in myscaledb_tpu_torch/csrc/ (one nvcc per source, all
-     started together);
+     started together) and what `-Xptxas -v` said of each kernel;
   2. each hand-written kernel against its plain PyTorch version on the
-     card, at the shapes the main paths give it: score and tile_max held
-     to `distance.kernel_error_bound`, with a hi-only control (the bf16
-     payload's query split without its lo half) that must fall outside it;
-     gathermv held to `gathermv.kernel_error_bound`, with a control that
-     skips the query's bf16 cast and must fall outside it;
+     card, at the shapes the main paths give it and at one ragged shape
+     (Q = 300): score and tile_max held to `distance.kernel_error_bound`,
+     with a hi-only control (the bf16 payload's query split without its
+     lo half) that must fall outside it, and the kernels' own query split
+     checked bit for bit against `split_query_bf16`; gathermv held to
+     `gathermv.kernel_error_bound`, with a control that skips the query's
+     bf16 cast and must fall outside it;
   3. the SIFT1M-shaped exact path through connect / create_table / insert /
      search / delete / gather: a 1,000,000-row segment (tile-max kernel)
      and a 50,000-row segment (score kernel), recall@10 against an exact
@@ -31,7 +33,8 @@ of the JAX package. Phases, each of which raises on failure:
      filtered search, the routed default search and a search after
      deletes (--profile adds the graph search's cell);
   7. times: each kernel beside its plain version, the library call that
-     computes the same function (where there is one) and its bound; the
+     computes the same function (where there is one) and its bound, and
+     for score one bf16 torch.matmul over the same tensor-core work; the
      routing cost model's constants, as medians over COST_RUNS runs of the
      graph search at two batch sizes (host and device time) and of phase
      5's exact scan, with their spread and the HNSW cell's routing at both
@@ -73,6 +76,9 @@ GATHERMV_SHAPES = [(256, 8, 32, 1024, 100_000), (13, 8, 64, 128, 5_000),
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PROFILE_RUNS = 9  # one-pass runs per cell for --profile's QPS spread
+# the device's sleep while the host enqueues a timed run (~25 ms at the
+# H100's clock; the longest run enqueues in a few ms)
+SLEEP_CYCLES = 50_000_000
 # runs of the cost model's measurements (phase 5's scan, phase 7's graph
 # searches at two batch sizes, in turns); the constants are their medians
 COST_RUNS = 5
@@ -85,6 +91,13 @@ F32_TOL = dict(rtol=2e-4, atol=2e-3)
 # record line takes its last shape here
 KERNEL_SHAPES = [("score", 104, 50_176, 128, "L2"), ("score", 256, 114_688, 1024, "Cosine"),
                  ("tile_max", 104, 1_048_576, 128, "L2")]
+# ragged shapes phase 2 also compares (not timed): Q = 300 is three query
+# tiles (streamed query), N = 4,099 ends mid-tile with rows that are not
+# 16-byte aligned, D = 136 ends mid-chunk; tile_max's 16,512 rows end half
+# way through a 256-row tile
+RAGGED_SHAPES = [("score", 300, 4_099, 136, "L2"), ("tile_max", 300, 16_512, 1024, "L2")]
+# (Q, D) of the split check: a resident and a streamed query
+SPLIT_SHAPES = [(100, 128), (300, 1024)]
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -131,19 +144,39 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def cuda_time_ms(fn, iters=20, warmup=3):
+def cuda_time_ms(fn, iters=20, warmup=3, padded=True):
+    """Milliseconds per call of `fn`, by CUDA events around `iters` calls
+    after `warmup`. Padded (the default), the device first sleeps for
+    SLEEP_CYCLES while the host enqueues the calls, so the host's time
+    between calls does not show: the device's own time per call. Unpadded,
+    the calls run as the host issues them (this script's earlier method), which a
+    call shorter than its host overhead cannot fill."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if padded:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def log_ptxas(text):
+    """What `-Xptxas -v` said of each kernel: registers, shared memory,
+    barriers, spills (one line per kernel)."""
+    name = None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            log(f"  ptxas {name[:60]}: {line.split(':', 1)[-1].strip()}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -192,7 +225,7 @@ def compare_kernels(dev):
         check(not bool(distance.outside_kernel_bound(got, want, bound).any()),
               f"{name} disagrees with its plain version: {what}")
 
-    for name, q, n, d, _ in KERNEL_SHAPES:
+    for name, q, n, d, _ in KERNEL_SHAPES + RAGGED_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for metric in (Metric.L2, Metric.IP, Metric.COSINE):
                 qs, x, aux = operands(q, n, d, dtype, metric)
@@ -226,8 +259,31 @@ def compare_kernels(dev):
                         control = tilescan.tile_maxes_plain(hi_only, x, aux, m8, metric)
                     close(name, got, want, bound, f"{what} {mname}", control)
                 del qs, x, aux
+    check_split(dev, gen)
     sync(dev)
     return err
+
+
+def check_split(dev, gen):
+    """The bf16 engine splits the f32 query into hi and lo halves itself:
+    against one-hot payload rows (the identity) under IP each score is
+    hi + lo of one query entry, exact in f32, so the score kernel must
+    equal its plain version (`split_query_bf16`) bit for bit."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance
+
+    for q, d in SPLIT_SHAPES:
+        qs = 3.0 * torch.randn((q, d), generator=gen, device=dev)
+        x = torch.eye(d, device=dev).to(torch.bfloat16)
+        got = distance.scores(qs, x, None, metric=Metric.IP)
+        want = distance.scores_plain(qs, x, None, Metric.IP)
+        n_diff = int((got != want).sum())
+        g = distance.scan_geometry(q, d, d)
+        log(f"  split    Q={q} D={d} ({'resident' if g.resident else 'streamed'} query): "
+            f"{n_diff} of {want.numel()} scores differ from split_query_bf16's")
+        check(n_diff == 0, f"the kernel's query split is not split_query_bf16's: Q={q} D={d}")
 
 
 def compare_gathermv(dev):
@@ -637,10 +693,12 @@ def time_kernels(dev, idx, card):
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
 
-    def done(name, rec):
+    def done(name, rec, call):
         lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         log(f"  {name:8s} {rec['shape']}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
-            f" ms, library {lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  [{card}]")
+            f" ms, library {lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it); back to back from the host "
+            f"{cuda_time_ms(call, padded=False):.4f} ms  [{card}]")
         out[name] = rec
 
     for name, qn, n, d, mname in KERNEL_SHAPES:
@@ -651,24 +709,34 @@ def time_kernels(dev, idx, card):
         flops = 2 * 2 * qn * n * d  # bf16 hi and lo products
         if name == "tile_max":
             m8 = torch.ones((n,), dtype=torch.uint8, device=dev)
+            call = lambda: tilescan.tile_maxes(q, x, aux, m8, metric=metric)  # noqa: E731
             rec = dict(
-                ms=cuda_time_ms(lambda: tilescan.tile_maxes(q, x, aux, m8, metric=metric)),
+                ms=cuda_time_ms(call),
                 plain_ms=cuda_time_ms(lambda: tilescan.tile_maxes_plain(q, x, aux, m8, metric)),
                 library_ms=None,  # no one PyTorch call computes masked sub-tile maxima
             )
             nbytes = 2 * n * d + 4 * n + n + 4 * qn * d + 4 * qn * (n // tilescan.SUB)
         else:
             xf = x.to(torch.float32)  # the library call's operand, made outside its timing
+            call = lambda: distance.scores(q, x, aux, metric=metric)  # noqa: E731
             rec = dict(
-                ms=cuda_time_ms(lambda: distance.scores(q, x, aux, metric=metric)),
+                ms=cuda_time_ms(call),
                 plain_ms=cuda_time_ms(lambda: distance.scores_plain(q, x, aux, metric)),
                 library_ms=cuda_time_ms(lambda: torch.matmul(q, xf.T)),
             )
             nbytes = 2 * n * d + 4 * n + 4 * qn * d + 4 * qn * n
-            del xf
+            # a yardstick, not a kernel of the port: one bf16 tensor-core
+            # GEMM over the same work (the stacked [2Q, D] hi/lo query
+            # against the payload), without the epilogue
+            hl = distance.split_query_bf16(q).reshape(2 * qn, d)
+            gemm = cuda_time_ms(lambda: torch.matmul(hl, x.T))
+            log(f"  {name:8s} Q={qn} N={n} D={d}: one bf16 torch.matmul [2Q, D] x [D, N] takes "
+                f"{gemm:.4f} ms (a yardstick for the tensor-core work; bound "
+                f"{bound(0, flops, 'bf16')[0]:.4f} ms)  [{card}]")
+            del xf, hl
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "bf16")
         rec["shape"] = f"Q={qn} N={n} D={d} bf16 {mname}"
-        done(name, rec)
+        done(name, rec, call)
         del x, q, aux
     # gathermv at the HNSW path's shape, over the index's own node blocks
     nb = idx.nbdata
@@ -677,8 +745,9 @@ def time_kernels(dev, idx, card):
     rows = torch.randint(0, n, (qn, beam), generator=gen, device=dev, dtype=torch.int32)
     qs = 0.01 * torch.randn((qn, dt), generator=gen, device=dev)
     blocks = int(torch.unique(rows).numel())  # the distinct blocks the data needs
+    call = lambda: gathermv.gather_block_scores(qs, rows, nb)  # noqa: E731
     rec = dict(
-        ms=cuda_time_ms(lambda: gathermv.gather_block_scores(qs, rows, nb)),
+        ms=cuda_time_ms(call),
         plain_ms=cuda_time_ms(lambda: gathermv.gather_block_scores_plain(qs, rows, nb)),
         library_ms=None,  # no one PyTorch call gathers and reduces in one
         shape=f"Q={qn} BEAM={beam} m={m} Dt={dt} N={n} u8 ({blocks} distinct blocks)",
@@ -686,7 +755,7 @@ def time_kernels(dev, idx, card):
     rec["bound_ms"], rec["bound_by"] = bound(
         blocks * m * dt + 4 * qn * dt + 4 * qn * beam + 4 * qn * beam * m,
         2 * qn * beam * m * dt, "f32")  # f32 FMA, no tensor cores
-    done("gathermv", rec)
+    done("gathermv", rec, call)
     return out
 
 
@@ -841,6 +910,7 @@ def main(argv=None):
     _cuda.LIBRARY.get()
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_cuda.LIBRARY.build_seconds:.2f} s) -> {_cuda.LIBRARY.path}")
+    log_ptxas(_cuda.LIBRARY.ptxas_log())
 
     # ---- 2. kernels vs their plain versions
     log("[2] kernels vs plain versions on the card")

@@ -7,34 +7,34 @@
 //   IP:     q.x                (aux unused, may be null)
 //
 // What bounds it on the H100: at the GIST shape (Q=256, N=114,688,
-// D=1,024, bf16) it does 2 x 60 GFLOP (two passes for the hi/lo split),
-// ~0.12 ms at the bf16 tensor-core peak, reads a 235 MB payload
-// (~0.07 ms at 3.35 TB/s) and writes Q*N*4 = 117 MB of scores (~0.035 ms),
-// so the tensor-core rate and the score write bound it together. The
-// design keeps each block's 128x128 score tile in registers, so every
-// payload value staged in shared memory feeds 128 queries, and writes each
-// score once. It masks the ragged edges of Q and N itself; the TPU
-// kernel's padding rules (Q%8, N%512) do not apply.
+// D=1,024, bf16) it does 2 x 60 GFLOP (the hi/lo query split), 0.122 ms
+// at the bf16 tensor-core peak; it reads a 235 MB payload (0.070 ms at
+// 3.35 TB/s) and writes Q*N*4 = 117 MB of scores (0.035 ms). So the
+// tensor-core rate bounds it, with the score write next.
 //
-// Precision option taken: for the bf16 payload of the main path, bf16
-// tensor cores (mma.sync) with the hi/lo query split, the TPU kernel's own
-// math, because f32 FMA on the CUDA cores made the kernel compute-bound
-// (67 TFLOP/s peak against 989 for bf16 tensor cores); for an f32
-// payload, f32 FMA, which keeps every product exact. See score_tile.cuh.
+// Design (score_tile.cuh): for a bf16 payload, the persistent TMA-ring +
+// wgmma engine with the query split in the kernel; its epilogue applies
+// the metric, stages each warpgroup's 64 x 32 slice of scores through
+// shared memory and writes it with coalesced 16-byte stores (4-byte
+// stores where N % 4 != 0, since the rows are then not 16-byte aligned),
+// masked at the ragged Q and N edges, while the producer already loads
+// the next tile. Plain stores, not TMA stores: a TMA store needs a row
+// stride that is a multiple of 16 bytes. The TPU kernel's padding rules
+// (Q%8, N%512) do not apply. For an f32 payload (off the main path), f32
+// FMA on the CUDA cores, which keeps every product exact.
 
 #include "score_tile.cuh"
 
 namespace msd {
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-score_kernel(const float* __restrict__ q, const T* __restrict__ x,
-             const float* __restrict__ aux, float* __restrict__ out,
-             int Q, int N, int D, int metric) {
+score_kernel_f32(const float* __restrict__ q, const float* __restrict__ x,
+                 const float* __restrict__ aux, float* __restrict__ out,
+                 int Q, int N, int D, int metric) {
     const int q0 = blockIdx.y * BM;
     const int n0 = blockIdx.x * BN;
     Tile t;
-    score_tile(q, x, Q, N, D, q0, n0, t);
+    fma_tile(q, x, Q, N, D, q0, n0, t);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
         const int n = n0 + t.ni(j);
@@ -50,19 +50,19 @@ score_kernel(const float* __restrict__ q, const T* __restrict__ x,
 
 }  // namespace msd
 
+// stages / resident / smem_bytes / grid: the bf16 engine's geometry from
+// ops/distance.py::scan_geometry (unused for an f32 payload)
 extern "C" int msd_scores(const void* q, const void* x, const void* aux, void* out,
-                          int Q, int N, int D, int metric, int x_bf16, void* stream) {
+                          int Q, int N, int D, int metric, int x_bf16, int stages,
+                          int resident, int smem_bytes, int grid, void* stream) {
     using namespace msd;
-    const dim3 grid((N + BN - 1) / BN, (Q + BM - 1) / BM);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (x_bf16) {
-        score_kernel<uint16_t><<<grid, THREADS, 0, s>>>(
-            static_cast<const float*>(q), static_cast<const uint16_t*>(x),
-            static_cast<const float*>(aux), static_cast<float*>(out), Q, N, D, metric);
-    } else {
-        score_kernel<float><<<grid, THREADS, 0, s>>>(
-            static_cast<const float*>(q), static_cast<const float*>(x),
-            static_cast<const float*>(aux), static_cast<float*>(out), Q, N, D, metric);
-    }
+    if (x_bf16)
+        return wg::launch<wg::SCORE>(q, x, aux, nullptr, out, Q, N, D, metric, stages,
+                                     resident, smem_bytes, grid, s);
+    const dim3 blocks((N + BN - 1) / BN, (Q + BM - 1) / BM);
+    score_kernel_f32<<<blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(x),
+        static_cast<const float*>(aux), static_cast<float*>(out), Q, N, D, metric);
     return static_cast<int>(cudaGetLastError());
 }

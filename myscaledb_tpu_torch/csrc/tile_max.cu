@@ -8,37 +8,42 @@
 // matrix never reaches device memory: the traffic is the payload read
 // plus Q*N/128*4 bytes of maxima.
 //
-// What bounds it on the H100: at batch 100 over 1M x 128 bf16 it reads a
-// 256 MiB payload (~0.08 ms at 3.35 TB/s) and does 2 x 34 GFLOP on the
-// bf16 tensor cores with the hi/lo query split (~0.07 ms at peak), so the
-// payload read and the tensor-core rate bound it together. The products
-// run on bf16 tensor cores for a bf16 payload (f32 FMA, which made the
-// kernel compute-bound at 1.15 ms, remains for f32 payloads; see
-// score_tile.cuh). One block owns one 128-query tile x one 128-row
-// sub-tile, so blocks are independent and need no cross-block reduction:
-// each thread folds its 8 rows, and the 16 threads that share a query
-// fold through shared memory. The TPU kernel's lane-tiling
-// read-modify-write and VMEM block sizing are Mosaic workarounds and have
-// no counterpart here. Masked rows take -3.4e38 exactly as on the TPU,
-// so an all-masked sub-tile reports -3.4e38 and the caller's -inf / -1
-// handling is unchanged.
+// What bounds it on the H100: at batch 104 over 1,048,576 x 128 bf16 it
+// reads a 256 MiB payload (0.080 ms at 3.35 TB/s; 277 MB with aux, mask
+// and maxima, 0.083 ms) and does 2 x 28 GFLOP of hi/lo products (0.057
+// ms at 989 TF/s; 0.069 ms as the 128-row query tile pads it). The two
+// bounds are close, so the payload loads must overlap the MMAs: only the
+// asynchronous TMA ring and `wgmma` of score_tile.cuh make the byte bound
+// reachable.
+//
+// Design: for a bf16 payload, the persistent TMA-ring + wgmma engine of
+// score_tile.cuh with the query resident in shared memory at the SIFT
+// shapes (Q <= 128, D <= 128). Its epilogue applies the mask and `aux` to
+// the accumulator in registers: each thread folds the 32 columns it holds
+// of each of its two rows per 128-row sub-tile, then two `shfl_xor`
+// steps fold the 4 lanes of a quad, and one lane writes the query's max.
+// No shared-memory round trip and no block-wide barrier. A 256-row tile
+// holds two sub-tiles; N % 128 == 0 (the wrapper checks), and a sub-tile
+// past N is skipped. The TPU kernel's lane-tiling read-modify-write and
+// VMEM block sizing are Mosaic workarounds and have no counterpart here.
+// Masked rows take -3.4e38 exactly as on the TPU, so an all-masked
+// sub-tile reports -3.4e38 and the caller's -inf / -1 handling is
+// unchanged. For an f32 payload (off the main path), f32 FMA on the CUDA
+// cores, one 128 x 128 block per sub-tile, folded through shared memory.
 
 #include "score_tile.cuh"
 
 namespace msd {
 
-constexpr float NEG = -3.4e38f;
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-tile_max_kernel(const float* __restrict__ q, const T* __restrict__ x,
-                const float* __restrict__ aux, const uint8_t* __restrict__ mask,
-                float* __restrict__ out, int Q, int N, int D, int metric) {
+tile_max_kernel_f32(const float* __restrict__ q, const float* __restrict__ x,
+                    const float* __restrict__ aux, const uint8_t* __restrict__ mask,
+                    float* __restrict__ out, int Q, int N, int D, int metric) {
     __shared__ float part[SLOTS][BM];
     const int q0 = blockIdx.y * BM;
     const int n0 = blockIdx.x * BN;
     Tile t;
-    score_tile(q, x, Q, N, D, q0, n0, t);
+    fma_tile(q, x, Q, N, D, q0, n0, t);
 
     // each thread folds its 8 rows per query (N % BN == 0: rows in range)
     bool keep[8];
@@ -70,22 +75,21 @@ tile_max_kernel(const float* __restrict__ q, const T* __restrict__ x,
 
 }  // namespace msd
 
+// stages / resident / smem_bytes / grid: the bf16 engine's geometry from
+// ops/distance.py::scan_geometry (unused for an f32 payload)
 extern "C" int msd_tile_max(const void* q, const void* x, const void* aux,
                             const void* mask, void* out, int Q, int N, int D,
-                            int metric, int x_bf16, void* stream) {
+                            int metric, int x_bf16, int stages, int resident,
+                            int smem_bytes, int grid, void* stream) {
     using namespace msd;
-    const dim3 grid(N / BN, (Q + BM - 1) / BM);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (x_bf16) {
-        tile_max_kernel<uint16_t><<<grid, THREADS, 0, s>>>(
-            static_cast<const float*>(q), static_cast<const uint16_t*>(x),
-            static_cast<const float*>(aux), static_cast<const uint8_t*>(mask),
-            static_cast<float*>(out), Q, N, D, metric);
-    } else {
-        tile_max_kernel<float><<<grid, THREADS, 0, s>>>(
-            static_cast<const float*>(q), static_cast<const float*>(x),
-            static_cast<const float*>(aux), static_cast<const uint8_t*>(mask),
-            static_cast<float*>(out), Q, N, D, metric);
-    }
+    if (x_bf16)
+        return wg::launch<wg::TILE_MAX>(q, x, aux, mask, out, Q, N, D, metric, stages,
+                                        resident, smem_bytes, grid, s);
+    const dim3 blocks(N / BN, (Q + BM - 1) / BM);
+    tile_max_kernel_f32<<<blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(x),
+        static_cast<const float*>(aux), static_cast<const uint8_t*>(mask),
+        static_cast<float*>(out), Q, N, D, metric);
     return static_cast<int>(cudaGetLastError());
 }

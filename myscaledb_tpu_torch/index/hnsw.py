@@ -64,10 +64,10 @@ ITER_MIN = 4
 # device rate and the host time it leaves uncovered. Both searches are
 # host-bound there, so the fixed terms follow the host's speed (phase 7
 # prints their spread).
-SCAN_BYTES_PER_S = 2.02246e11
-SCAN_FIXED_S = 1.72923e-3
-ITER_FIXED_S = 1.74838e-3
-ITER_PER_QUERY_S = 4.07028e-7
+SCAN_BYTES_PER_S = 3.53907e11
+SCAN_FIXED_S = 2.51254e-3
+ITER_FIXED_S = 1.73306e-3
+ITER_PER_QUERY_S = 4.17335e-7
 # Final-cut exact re-score: bound on the decoded-f32 gather transient
 # [Q, chunk, D]; wide rerank pools re-score in chunks under this cap.
 RESCORE_TRANSIENT_CAP = 256 * 1024 * 1024

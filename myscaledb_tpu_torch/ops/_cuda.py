@@ -84,10 +84,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def _ptxas_path(lib_path: str) -> str:
+    return lib_path[: -len(".so")] + ".ptxas.txt"
+
+
 class _Library:
     """The kernels' shared library: built once per source hash, loaded once
     per process. `build_seconds` is the nvcc wall time of this process's
-    build (0.0 when the library was already built)."""
+    build (0.0 when the library was already built); `ptxas_log()` is what
+    `-Xptxas -v` said of each kernel (registers, shared memory, spills)
+    when the library was built."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -101,6 +107,10 @@ class _Library:
                 self._lib = self._load()
             return self._lib
 
+    def ptxas_log(self) -> str:
+        with open(_ptxas_path(self.path)) as f:
+            return f.read()
+
     def _build(self, path: str) -> None:
         """nvcc each .cu file to an object, all in parallel, then link the
         objects into `path`. Everything is written under private names and
@@ -111,16 +121,20 @@ class _Library:
         jobs = []
         for src in (s for s in _sources() if s.endswith(".cu")):
             obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         try:
+            log = []
             for cmd, _, proc in jobs:
                 out, err = proc.communicate()
                 if proc.returncode != 0:
                     raise RuntimeError(
                         f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
                     )
+                log.append(f"== {os.path.basename(cmd[-1])}\n{out}{err}")
+            with open(_ptxas_path(path), "w") as f:
+                f.write("".join(log))
             tmp = f"{path}.{tag}"
             cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *[o for _, o, _ in jobs]]
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -150,9 +164,9 @@ class _Library:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # every pointer and the stream as c_void_p: a bare Python int would
         # be passed as a 32-bit int and cut the pointer
-        lib.msd_scores.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.msd_scores.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.msd_scores.restype = ci
-        lib.msd_tile_max.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.msd_tile_max.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.msd_tile_max.restype = ci
         lib.msd_gathermv.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.msd_gathermv.restype = ci

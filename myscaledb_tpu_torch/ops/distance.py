@@ -12,20 +12,24 @@ Counterpart of myscaledb_tpu/ops/distance.py. Max-is-better scores
 `scores` replaces the TPU kernel `_score_kernel` with csrc/score.cu (see
 the note there for what bounds it on the H100). A CUDA tensor goes to the
 kernel; a CPU tensor goes to `scores_plain`, the same math in torch ops.
-There is no fallback from one to the other.
+There is no fallback from one to the other. `scan_geometry` sizes the
+bf16 engine that score.cu and tile_max.cu share (csrc/score_tile.cuh).
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from ..metrics import Metric
-from ._cuda import LIBRARY, METRIC_CODES, check_launch, stream_ptr
+from ._cuda import LIBRARY, METRIC_CODES, cdiv, check_launch, round_up, stream_ptr
 
-# The kernels load the depth axis in 16-byte chunks (4 f32 or 8 bf16
-# values), each wholly inside or outside D.
+# The kernels take the depth axis in 16-byte pieces (8 bf16 or 4 f32
+# values, the bf16 engine's tensor-map row strides and its resident query
+# loader's 8 values), each wholly inside or outside D.
 D_MULTIPLE = 8
 
 # How far a scan kernel may lie from its plain version. Both compute the
@@ -37,6 +41,77 @@ D_MULTIPLE = 8
 # (typically ~2^-9/sqrt(D)), far outside the bound at every shape.
 KERNEL_RTOL = 1e-5
 KERNEL_SUM_TOL = 2.0**-16
+
+# The bf16 scan engine's tiles (csrc/score_tile.cuh, namespace wg): BM
+# queries x BN payload rows per output tile, BK depth per ring stage.
+SCAN_BM, SCAN_BN, SCAN_BK = 128, 256, 64
+SCAN_STAGE_X = SCAN_BN * SCAN_BK * 2  # bf16 payload chunk
+SCAN_STAGE_Q = SCAN_BM * SCAN_BK * 4  # f32 query chunk, streamed mode only
+SCAN_STAGE_EPI = 2048  # the tile's aux (f32) and mask (u8) for the epilogue
+SCAN_STAGING = 2 * 64 * 40 * 4  # score epilogue staging, both warpgroups
+SCAN_RESIDENT_MAX_DK = 128  # the resident hi+lo query: 2 x 128 x Dk x 2 B <= 64 KiB
+SCAN_MAX_STAGES = 4
+SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class ScanGeometry:
+    """How the bf16 engine runs one call: `stages` ring stages, the query
+    `resident` in shared memory for the block's life or streamed through
+    the ring beside the payload, `smem_bytes` of dynamic shared memory and
+    `grid` persistent blocks over `tiles` output tiles."""
+
+    stages: int
+    resident: bool
+    smem_bytes: int
+    grid: int
+    tiles: int
+
+
+@functools.lru_cache(maxsize=1024)
+def scan_geometry(q: int, n: int, d: int, sms: int = H100_SMS) -> ScanGeometry:
+    """The bf16 engine's geometry for Q = q, N = n, D = d on a card with
+    `sms` SMs. The query is resident when it is one tile (q <= 128) and its
+    hi+lo halves take at most 64 KiB (d <= 128, the SIFT shapes); the ring
+    then holds only payload chunks (32 KiB each, 4 stages). Otherwise the
+    f32 query chunk rides each stage beside the payload chunk (64 KiB a
+    stage, 3 stages). Each stage also has 2 KiB for a tile's aux and mask.
+    The byte count matches `Layout` in score_tile.cuh (1,024 bytes of slack
+    align the base for the 128B swizzle, 16 bytes of mbarriers a stage);
+    the kernel checks it."""
+    dk = round_up(max(d, 1), SCAN_BK)
+    tiles = cdiv(q, SCAN_BM) * cdiv(n, SCAN_BN)
+    resident = q <= SCAN_BM and dk <= SCAN_RESIDENT_MAX_DK
+    stage = SCAN_STAGE_X + (0 if resident else SCAN_STAGE_Q) + SCAN_STAGE_EPI + 16
+    fixed = 1024 + SCAN_STAGING + (2 * SCAN_BM * dk * 2 if resident else 0)
+    stages = min(SCAN_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    return ScanGeometry(stages, resident, fixed + stages * stage, max(1, min(sms, tiles)), tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_scan(entry: str, queries, base, aux, mask, out, metric) -> None:
+    """Launch a scan kernel's C entry point (`msd_scores` without `mask`,
+    `msd_tile_max` with it) with the geometry of `scan_geometry`."""
+    q, (n, d) = queries.shape[0], base.shape
+    g = scan_geometry(q, n, d, sm_count(base.device))
+    err = getattr(LIBRARY.get(), entry)(
+        queries.data_ptr(),
+        base.data_ptr(),
+        aux.data_ptr() if aux is not None else None,
+        *([mask.data_ptr()] if mask is not None else []),
+        out.data_ptr(),
+        q, n, d,
+        METRIC_CODES[metric.value],
+        int(base.dtype == torch.bfloat16),
+        g.stages, int(g.resident), g.smem_bytes, g.grid,
+        stream_ptr(base.device),
+    )
+    check_launch(entry, err)
 
 
 def kernel_error_bound(
@@ -71,7 +146,8 @@ def split_query_bf16(q: torch.Tensor) -> torch.Tensor:
     of a bf16 x bf16 product: two tensor-core passes, f32 accumulation, no
     extra payload traffic, and none of the single-pass query quantization
     noise that would reorder near-tied neighbours. The CUDA kernels split
-    in shared memory; the plain versions split with this function."""
+    the query themselves, bit for bit the same; the plain versions split
+    with this function."""
     q = q.to(torch.float32)
     hi = q.to(torch.bfloat16)
     lo = (q - hi.to(torch.float32)).to(torch.bfloat16)
@@ -164,17 +240,7 @@ def scores(
     out = torch.empty((q, n), dtype=torch.float32, device=base.device)
     if q == 0 or n == 0:
         return out
-    err = LIBRARY.get().msd_scores(
-        queries.data_ptr(),
-        base.data_ptr(),
-        aux.data_ptr() if aux is not None else None,
-        out.data_ptr(),
-        q, n, d,
-        METRIC_CODES[metric.value],
-        int(base.dtype == torch.bfloat16),
-        stream_ptr(base.device),
-    )
-    check_launch("msd_scores", err)
+    launch_scan("msd_scores", queries, base, aux, None, out, metric)
     scores.launches += 1
     return out
 

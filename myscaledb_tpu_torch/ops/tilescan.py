@@ -28,13 +28,13 @@ from typing import Tuple
 import torch
 
 from ..metrics import Metric
-from ._cuda import LIBRARY, METRIC_CODES, check_launch, stream_ptr
 from .distance import (
     _apply_metric,
     _check_kernel_operands,
     _check_scan_args,
     dot_plain,
     kernel_error_bound,
+    launch_scan,
 )
 
 SUB = 128  # rows per sub-tile (one max per query per sub-tile)
@@ -103,25 +103,12 @@ def tile_maxes(
         return tile_maxes_plain(queries, base, aux, mask_u8, metric)
     if base.device.type != "cuda":
         raise ValueError(f"unsupported device {base.device}")
-    _check_kernel_operands(queries, base, aux, d=d)
-    if not mask_u8.is_contiguous():
-        raise ValueError("the CUDA scan kernels need contiguous operands")
+    _check_kernel_operands(queries, base, aux, mask_u8, d=d)
     q = queries.shape[0]
     out = torch.empty((q, n // SUB), dtype=torch.float32, device=base.device)
     if q == 0 or n == 0:
         return out
-    err = LIBRARY.get().msd_tile_max(
-        queries.data_ptr(),
-        base.data_ptr(),
-        aux.data_ptr(),
-        mask_u8.data_ptr(),
-        out.data_ptr(),
-        q, n, d,
-        METRIC_CODES[metric.value],
-        int(base.dtype == torch.bfloat16),
-        stream_ptr(base.device),
-    )
-    check_launch("msd_tile_max", err)
+    launch_scan("msd_tile_max", queries, base, aux, mask_u8, out, metric)
     tile_maxes.launches += 1
     return out
 

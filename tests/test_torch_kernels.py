@@ -31,6 +31,16 @@ from myscaledb_tpu_torch.storage.segment import Segment
 
 METRICS = [Metric.L2, Metric.IP, Metric.COSINE]
 SCORE_SHAPES = [(13, 1000, 128), (130, 4099, 24), (8, 50_176, 128)]
+# shapes that cross the bf16 engine's tiles (128 queries x 256 rows x 64
+# deep) and its resident / streamed query: Q around one and two
+# warpgroups and one and two tiles, N from one row to many tiles, D
+# under, across and over one depth chunk
+RAGGED_Q, RAGGED_N, RAGGED_D = [1, 63, 65, 129, 300], [1, 4099, 50_176], [8, 24, 136, 1024]
+# the CPU bound tests take a few of them (the f64 reference is slow)
+BOUND_SHAPES = SCORE_SHAPES + [(1, 1, 8), (63, 4099, 24), (65, 4099, 136), (129, 1000, 1024),
+                               (300, 4099, 8)]
+TILE_Q, TILE_D, TILE_KEEP = [1, 65, 129, 300], [128, 256, 1024], [0.01, 1.0, 0.0]
+TILE_N = 16_512  # 129 sub-tiles: the last 256-row tile is half past N
 
 
 @pytest.fixture()
@@ -48,8 +58,7 @@ def _operands(device, dtype, metric, q, n, d, seed):
     return g, qs, x, aux
 
 
-def _tile_operands(device, dtype, metric, q, keep):
-    n, d = 16384, 128
+def _tile_operands(device, dtype, metric, q, keep, n=16384, d=128):
     g, qs, x, aux = _operands(device, dtype, metric, q, n, d, q)
     aux = aux if aux is not None else torch.zeros(n, device=device)
     m8 = (torch.rand(n, generator=g, device=device) < keep).to(torch.uint8)
@@ -101,8 +110,88 @@ def test_tile_max_kernel_vs_plain(cuda_device, dtype, metric, q, keep):
     assert torch.equal(got == tilescan.NEG, want == tilescan.NEG)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("q,n,d", SCORE_SHAPES)
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("q", RAGGED_Q)
+def test_score_kernel_ragged_shapes(cuda_device, metric, q, n, d):
+    """The bf16 engine at shapes that cross its tiles, its depth chunks and
+    its resident / streamed query choice."""
+    _, qs, x, aux = _operands(cuda_device, torch.bfloat16, metric, q, n, d, q + n + d)
+    got = distance.scores(qs, x, aux, metric=metric)
+    want = distance.scores_plain(qs, x, aux, metric)
+    bound = distance.kernel_error_bound(qs, x, aux, metric)
+    assert got.shape == (q, n)
+    assert not distance.outside_kernel_bound(got, want, bound).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", TILE_KEEP)
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", TILE_D)
+@pytest.mark.parametrize("q", TILE_Q)
+def test_tile_max_kernel_ragged_shapes(cuda_device, q, d, metric, keep):
+    qs, x, aux, m8 = _tile_operands(cuda_device, torch.bfloat16, metric, q, keep, TILE_N, d)
+    got = tilescan.tile_maxes(qs, x, aux, m8, metric=metric)
+    want = tilescan.tile_maxes_plain(qs, x, aux, m8, metric)
+    bound = tilescan.tile_error_bound(qs, x, aux, metric)
+    assert got.shape == (q, TILE_N // tilescan.SUB)
+    assert not distance.outside_kernel_bound(got, want, bound).any()
+    assert torch.equal(got == tilescan.NEG, want == tilescan.NEG)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,d", [(1, 8), (100, 128), (300, 136), (65, 1024)])
+def test_kernel_split_is_bit_exact(cuda_device, q, d):
+    """The kernel splits the f32 query into bf16 hi and lo halves itself.
+    Against one-hot payload rows (the identity) under IP each score is
+    hi + lo of one query entry, exact in f32, so the kernel must equal the
+    plain version (split by `split_query_bf16`) bit for bit. Resident
+    (d <= 128, q <= 128) and streamed queries both."""
+    g = torch.Generator(device=cuda_device).manual_seed(q + d)
+    qs = 3.0 * torch.randn((q, d), generator=g, device=cuda_device)
+    qs[0, : min(d, 4)] = torch.tensor([1.0 + 2.0**-9, -3.0e-3, 7.0e4, 1.0e-30][: min(d, 4)])
+    x = torch.eye(d, device=cuda_device).to(torch.bfloat16)
+    got = distance.scores(qs, x, None, metric=Metric.IP)
+    assert torch.equal(got, distance.scores_plain(qs, x, None, Metric.IP))
+    # and the lo half matters: the hi half alone differs
+    assert not torch.equal(got, qs.to(torch.bfloat16).to(torch.float32))
+
+
+def test_scan_geometry_fits_every_shape_the_gate_admits():
+    """For every shape the tile-scan gate admits (D up to 2,048, Q up to
+    1,024) and the score kernel's depths (any D % 8 == 0 up to 2,048): the
+    ring has at least two stages, shared memory fits a Hopper block, the
+    grid is non-empty and no larger than the tiles, and the query is
+    resident exactly when it is one tile (Q <= 128) of D <= 128, as
+    csrc/score_tile.cuh says."""
+    for n in (tilescan.SUB * tilescan.OUT_LANES, 1_048_576):
+        for d in range(128, 2049, 128):
+            for q in range(8, 1025, 8):
+                assert tilescan.supports(n, d, q, 10)
+                _check_geometry(q, n, d)
+    for d in range(8, 2049, 8):
+        for q in (1, 63, 64, 65, 128, 129, 256, 300, 1024):
+            for n in (1, 4099, 114_688):
+                _check_geometry(q, n, d)
+
+
+def _check_geometry(q, n, d):
+    g = distance.scan_geometry(q, n, d)
+    assert 2 <= g.stages <= distance.SCAN_MAX_STAGES
+    assert g.smem_bytes <= distance.SMEM_LIMIT
+    assert g.tiles == -(-q // distance.SCAN_BM) * -(-n // distance.SCAN_BN)
+    assert 1 <= g.grid == min(distance.H100_SMS, g.tiles)
+    assert g.resident == (q <= 128 and d <= 128)
+    stage = distance.SCAN_STAGE_X + distance.SCAN_STAGE_EPI + 16
+    stage += 0 if g.resident else distance.SCAN_STAGE_Q
+    # one more stage would not fit, unless the ring is at its most
+    assert g.stages == distance.SCAN_MAX_STAGES or g.smem_bytes + stage > distance.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("q,n,d", BOUND_SHAPES)
 def test_score_bound_admits_exact_math_and_rejects_hi_only(metric, q, n, d):
     """The plain version (f32 sums) lies inside the bound around the same
     split math summed in f64; the hi-only control lies outside it."""
@@ -116,9 +205,11 @@ def test_score_bound_admits_exact_math_and_rejects_hi_only(metric, q, n, d):
 
 
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("q,keep", [(13, 0.01), (104, 1.0)])
-def test_tile_bound_admits_exact_math_and_rejects_hi_only(metric, q, keep):
-    qs, x, aux, m8 = _tile_operands(torch.device("cpu"), torch.bfloat16, metric, q, keep)
+@pytest.mark.parametrize("q,keep,n,d", [(13, 0.01, 16384, 128), (104, 1.0, 16384, 128),
+                                        (1, 1.0, TILE_N, 256), (65, 0.01, TILE_N, 1024),
+                                        (300, 1.0, TILE_N, 128)])
+def test_tile_bound_admits_exact_math_and_rejects_hi_only(metric, q, keep, n, d):
+    qs, x, aux, m8 = _tile_operands(torch.device("cpu"), torch.bfloat16, metric, q, keep, n, d)
     want = tilescan.tile_maxes_plain(qs, x, aux, m8, metric)
     bound = tilescan.tile_error_bound(qs, x, aux, metric)
     s = _exact_split_scores(qs, x, aux, metric)
