@@ -38,11 +38,23 @@ of the JAX package. Phases, each of which raises on failure:
      routing cost model's constants, as medians over COST_RUNS runs of the
      graph search at two batch sizes (host and device time) and of phase
      5's exact scan, with their spread and the HNSW cell's routing at both
-     ends of it.
+     ends of it;
+  8. the IVF family on phase 3's table: IVFFLAT (ncentroids 1024) with its
+     build time, an nprobe sweep that stops at the first recall_ids@10 >=
+     0.95 (bench.py's rule), QPS at that operating point at batch 100 and
+     500, an nprobe-3 search (dyn_nprobe), a 10% filter through the
+     index's WindowMask (built once, then cached) and a 0.5% filter that
+     falls back to the exact scan (tile_max); then IVFSQ, IVFPQ and the
+     default MSTG (add_vector_index with no type), one at a time, and MSTG
+     under two_stage_search. Every hit must be a live row with its exact
+     f32 score. Then HNSWPQ (m=32, ef_c=100) on phase 4's table, searched
+     at ef_s 100 (gathermv). --profile adds the ivf_flat cell and the
+     window step's gathered bytes beside the exact scan's device time.
 
 Each path's launch counters are zeroed just before it is driven and read
-just after: score and tile_max over phases 3-4, gathermv over phase 6;
-every kernel must have launched on its path. The last line of standard
+just after: score and tile_max over phases 3-4, gathermv over phase 6, all
+three over phase 8; every kernel must have launched on its path, and the
+record's launches are the sums over those paths. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record. Without CUDA, or without the package beside this
 file, it exits non-zero and prints no result.
@@ -98,6 +110,18 @@ KERNEL_SHAPES = [("score", 104, 50_176, 128, "L2"), ("score", 256, 114_688, 1024
 RAGGED_SHAPES = [("score", 300, 4_099, 136, "L2"), ("tile_max", 300, 16_512, 1024, "L2")]
 # (Q, D) of the split check: a resident and a streamed query
 SPLIT_SHAPES = [(100, 128), (300, 1024)]
+# the IVF path (BASELINE.json config 2, SIFT1M IVFFLAT at ncentroids 1024,
+# as bench.py:424 builds it): the nprobe sweep and its stopping rule
+# (bench.py:443-457), the large batch, the filters (10% of the 1M segment
+# goes through the index, 0.5% falls back to the exact scan) and the
+# dyn_nprobe probe; then HNSWPQ on the GIST table
+IVF_NCENT = 1024
+IVF_NPROBES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+IVF_RECALL_TARGET = 0.95
+IVF_BIG_BATCH = 500
+IVF_FILTERS = (100_000, 5_000)
+IVF_DYN_NPROBE = 3
+HNSWPQ_PARAMS = dict(m=32, ef_c=100)
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -438,10 +462,10 @@ def sift_path(ms, dev):
     ids = np.concatenate([t.gather(r, ["id"])["id"] for r in dres])
     check((ids >= 100).all(), "a deleted row came back")
     # the queries built on deleted rows must now find other rows
-    check_recall("SIFT L2 after delete", dres,
-                 exact_topk(t, "vec", queries, K, Metric.L2), F32_TOL)
+    gt = exact_topk(t, "vec", queries, K, Metric.L2)
+    check_recall("SIFT L2 after delete", dres, gt, F32_TOL)
     log("  delete: 100 rows deleted, none returned, gather(['id']) agrees")
-    return t, batches, flt
+    return t, batches, flt, queries, gt
 
 
 def gist_path(ms, dev):
@@ -873,6 +897,309 @@ def cost_model(gist, scan, graph, hb, card, out_dir):
     return med
 
 
+# ---------------------------------------------------------------- phase 8
+def check_hits_exact(table, queries, results, label):
+    """Every hit is a live row whose score is the exact f32 L2 score of its
+    stored row (2 q.x - |x|^2 over the widened bf16 values, `scores_ref`'s
+    formula on that row alone), within F32_TOL."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+
+    dev = table.device
+    q = torch.from_numpy(queries).to(dev)
+    scores = np.concatenate([r.scores for r in results])
+    segs = np.concatenate([r.segments for r in results])
+    rows = np.concatenate([r.rows for r in results])
+    check((rows >= 0).all(), f"{label}: a query got fewer than {K} hits")
+    want = np.full(rows.shape, np.nan, np.float32)
+    for seg in table.live_segments():
+        sel = segs == seg.segment_id
+        if not sel.any():
+            continue
+        qi = torch.from_numpy(np.nonzero(sel)[0]).to(dev)
+        r = torch.from_numpy(rows[sel].astype(np.int64)).to(dev)
+        alive = seg.alive_mask_device()
+        check(alive is None or bool(alive[r].all()), f"{label}: a deleted row came back")
+        p = seg.vector("vec")
+        x = p.data[r].to(torch.float32)
+        qq = torch.nn.functional.pad(q[qi], (0, x.shape[1] - q.shape[1]))
+        want[sel] = (2.0 * (qq * x).sum(-1) - p.aux_for(Metric.L2)[r]).cpu().numpy()
+    ok = np.isclose(scores, want, **F32_TOL)
+    check(ok.all(), f"{label}: {int((~ok).sum())} hits differ from their exact f32 scores "
+          f"(worst {float(np.nanmax(np.abs(scores - want))):.6g})")
+
+
+def ivf_recall(results, gt, queries):
+    """(recall_ids@k, recall_dist@k) against the exact (scores, segments,
+    rows) `gt`, as bench.py:431-441 counts them: ids by (segment, row),
+    distances within the exact k-th one (1e-4 relative plus 1e-3)."""
+    segs = np.concatenate([r.segments for r in results])
+    rows = np.concatenate([r.rows for r in results])
+    dist = np.concatenate([r.distances for r in results])
+    gv, gs, gr = gt
+    nq, k = rows.shape
+    hits = sum(len(set(zip(segs[i].tolist(), rows[i].tolist()))
+                   & set(zip(gs[i].tolist(), gr[i].tolist()))) for i in range(nq))
+    qsq = np.einsum("ij,ij->i", queries, queries)
+    kth = (qsq - gv[:, k - 1])[:, None]  # L2 distance = |q|^2 - score
+    return hits / (nq * k), float((dist <= kth * (1 + 1e-4) + 1e-3).mean())
+
+
+def counted(names, fn):
+    """fn()'s result and how far each named counter moved in it."""
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    before = {n: GLOBAL_COUNTERS.get(n) for n in names}
+    out = fn()
+    return out, {n: GLOBAL_COUNTERS.get(n) - before[n] for n in names}
+
+
+def ivf_path(dev, t, batches, queries, gt, card, args):
+    """The IVF family on phase 3's SIFT table (1M-row segment indexed, the
+    50k-row segment scanned by the score kernel): IVFFLAT's nprobe sweep,
+    QPS at its operating point, a dyn_nprobe search, a filtered search
+    through the index's WindowMask and one that falls back to the exact
+    scan (tile_max); then IVFSQ, IVFPQ and a default MSTG one at a time."""
+    import torch
+
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.index import ivf
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, tilescan
+
+    names = ("VectorIndexSearches", "VectorBruteForceSearches", "VectorIndexFallbackToFlat",
+             "IvfWindowMaskBuilds", "IvfWindowMaskCacheHits")
+    nb = len(batches)
+
+    def search_all(params=None, flt=None, bs=batches, **kw):
+        return counted(names, lambda: [t.search("vec", qb, k=K, metric="L2", params=params,
+                                                filter=flt, **kw) for qb in bs])
+
+    if args.profile:
+        scan_ms, _, _ = device_trace(lambda qb: t.search("vec", qb, k=K, metric="L2"), batches,
+                                     os.path.join(args.out, "trace_ivf_exact_scan.json"))
+        log(f"  exact scan on this table before the index: device {scan_ms / nb:.4f} ms / search "
+            f"(batch {SIFT_BATCH})  [{card}]")
+
+    def build(name, **kw):
+        t0 = time.perf_counter()
+        t.add_vector_index(name, "vec", **kw)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        check(t.index_status(name) == {0: IndexStatus.LOADED, 1: IndexStatus.SMALL_PART},
+              f"{name} did not load: {t.index_status(name)} {t.event_log.rows()[-1:]}")
+        idx = t.loaded_index(0, "vec", Metric.L2)
+        log(f"  {type(idx).kind.value} build {secs:.2f} s ({kw}; {idx.n_clusters} clusters, "
+            f"{idx.n_windows} windows, wpp {idx.wpp}, codec {idx.codec}, index "
+            f"{idx.memory_bytes / 1e9:.4f} GB)  [{card}]")
+        return idx, secs
+
+    idx, _ = build("ivf", type="IVFFLAT", ncentroids=IVF_NCENT, metric_type="L2")
+    check(isinstance(idx, ivf.IVFFlatIndex) and idx.perm_data.dtype == torch.bfloat16,
+          "the IVFFLAT index must hold the bf16 rows")
+
+    def sweep_point(nprobe, label):
+        res, b = search_all({"nprobe": nprobe})
+        check(b["VectorIndexSearches"] == nb and b["VectorBruteForceSearches"] == nb,
+              f"{label}: the 1M segment must go through the index, the 50k one the scan: {b}")
+        check_hits_exact(t, queries, res, label)
+        return ivf_recall(res, gt, queries)
+
+    op = None
+    for nprobe in IVF_NPROBES:
+        rid, rdist = sweep_point(nprobe, f"IVFFLAT nprobe={nprobe}")
+        log(f"  IVFFLAT nprobe={nprobe}: recall_ids@{K} {rid:.4f}, recall_dist {rdist:.4f} "
+            f"({SIFT_NQ} queries; every hit exact within F32_TOL, none deleted)")
+        if rid >= IVF_RECALL_TARGET:
+            op = nprobe
+            break
+    check(op is not None, f"IVFFLAT never reached recall_ids@{K} {IVF_RECALL_TARGET}")
+
+    def search_op(qb):
+        return t.search("vec", qb, k=K, metric="L2", params={"nprobe": op})
+
+    before = distance.scores.launches
+    for qb in batches:
+        search_op(qb)
+    log(f"  IVFFLAT nprobe={op}: score launches per search "
+        f"{(distance.scores.launches - before) / nb:g} (the 50k-row segment)")
+    big = [queries[i : i + IVF_BIG_BATCH] for i in range(0, SIFT_NQ, IVF_BIG_BATCH)]
+    rate = qps(search_op, batches, SIFT_BATCH)
+    rate_big = qps(search_op, big, IVF_BIG_BATCH)
+    res_big = [search_op(qb) for qb in big]
+    check_hits_exact(t, queries, res_big, f"IVFFLAT nprobe={op} batch {IVF_BIG_BATCH}")
+    log(f"  IVFFLAT operating point nprobe={op}: QPS {rate:.1f} (batch {SIFT_BATCH}), "
+        f"{rate_big:.1f} (batch {IVF_BIG_BATCH}; recall_ids@{K} "
+        f"{ivf_recall(res_big, gt, queries)[0]:.4f})  [{card}]")
+    rid, rdist = sweep_point(IVF_DYN_NPROBE, f"IVFFLAT nprobe={IVF_DYN_NPROBE}")
+    log(f"  IVFFLAT nprobe={IVF_DYN_NPROBE} (probe list sized by its pow2 bucket, the rest "
+        f"masked): recall_ids@{K} {rid:.4f}, recall_dist {rdist:.4f}")
+
+    # a filter through the index: 10% of the 1M segment, above the fallback
+    hi, lo = IVF_FILTERS
+    flt = F("id") < hi
+    fres, b = search_all({"nprobe": op}, flt)
+    check(b["VectorIndexSearches"] == nb and b["VectorIndexFallbackToFlat"] == 0,
+          f"id < {hi} must search the 1M segment through the index: {b}")
+    check(b["IvfWindowMaskBuilds"] == 1 and b["IvfWindowMaskCacheHits"] == nb - 1,
+          f"id < {hi}: the window bitmap must be built once and then come from the cache: {b}")
+    ids = np.concatenate([t.gather(r, ["id"])["id"] for r in fres])
+    check((ids < hi).all(), f"every filtered IVF hit must pass id < {hi}")
+    check_hits_exact(t, queries, fres, f"IVFFLAT id < {hi}")
+    fgt = exact_topk(t, "vec", queries, K, Metric.L2, lambda s: s.scalar("id")[: s.n_rows] < hi)
+    log(f"  IVFFLAT nprobe={op}, id < {hi}: WindowMask built once, {b['IvfWindowMaskCacheHits']} "
+        f"cache hits, all {ids.size} hits pass; recall_ids@{K} "
+        f"{ivf_recall(fres, fgt, queries)[0]:.4f}; QPS "
+        f"{qps(lambda qb: t.search('vec', qb, k=K, metric='L2', params={'nprobe': op}, filter=flt), batches, SIFT_BATCH):.1f}"
+        f"  [{card}]")
+    # an over-selective filter: the exact masked scan, through tile_max
+    flt = F("id") < lo
+    tm = tilescan.tile_maxes.launches
+    fres, b = search_all({"nprobe": op}, flt)
+    check(b["VectorIndexFallbackToFlat"] == nb and b["VectorIndexSearches"] == 0,
+          f"id < {lo} must fall back to the exact scan: {b}")
+    check(tilescan.tile_maxes.launches > tm, f"id < {lo}: the fallback did not launch tile_max")
+    log(f"  id < {lo}: fell back to the exact scan in all {nb} searches, tile_max launches per "
+        f"search {(tilescan.tile_maxes.launches - tm) / nb:g}")
+    ids = np.concatenate([t.gather(r, ["id"])["id"] for r in fres])
+    check((ids < lo).all(), f"every fallback hit must pass id < {lo}")
+    check_recall(f"IVFFLAT id < {lo} (fallback to the exact scan)", fres,
+                 exact_topk(t, "vec", queries, K, Metric.L2,
+                            lambda s: s.scalar("id")[: s.n_rows] < lo), F32_TOL)
+    if args.profile:
+        ivf_profile(t, idx, op, batches, search_op, card, args)
+    t.drop_vector_index("ivf")
+
+    # the other kinds, one at a time, at IVFFLAT's operating nprobe
+    for name, kw in (("ivfsq", dict(type="IVFSQ", ncentroids=IVF_NCENT)),
+                     ("ivfpq", dict(type="IVFPQ", ncentroids=IVF_NCENT)),
+                     ("mstg", {})):
+        idx, _ = build(name, **kw)
+        label = f"{type(idx).kind.value} nprobe={op}"
+        rid, rdist = sweep_point(op, label)
+        log(f"  {label}: recall_ids@{K} {rid:.4f}, recall_dist {rdist:.4f}, QPS "
+            f"{qps(search_op, batches, SIFT_BATCH):.1f} (batch {SIFT_BATCH}; every hit exact "
+            f"within F32_TOL: re-ranked)  [{card}]")
+        if name == "ivfpq":
+            check(idx.perm_data.shape[1] == ivf._default_pq_m(SIFT_D) == 32,
+                  "IVFPQ at 128-d takes M = 32 by default")
+            log(f"  IVFPQ's codec limit: the exact re-rank of the {K * idx.rerank_multiple} best "
+                f"ADC candidates over all rows (every cluster probed) has recall_ids@{K} "
+                f"{pq_oracle_recall(t, idx, queries, gt, K * idx.rerank_multiple):.4f}")
+        if name == "mstg":
+            check(isinstance(idx, ivf.MSTGIndex) and idx.raw_data is
+                  t.live_segments()[0].vector("vec").data,
+                  "the default index is MSTG, re-ranking against the segment's own payload")
+            res, b = search_all()
+            check(b["VectorIndexSearches"] == nb, f"MSTG default search: {b}")
+            check_hits_exact(t, queries, res, "MSTG default params")
+            log(f"  MSTG at its default nprobe ({ivf.DEFAULT_NPROBE}): recall_ids@{K} "
+                f"{ivf_recall(res, gt, queries)[0]:.4f}")
+            res, b = search_all({"nprobe": op}, two_stage=True)
+            check(b["VectorIndexSearches"] == 0 and b["VectorBruteForceSearches"] == nb,
+                  f"two_stage_search=1: the MSTG segment takes the first-stage path: {b}")
+            check_hits_exact(t, queries, res, "MSTG two-stage")
+            log(f"  MSTG nprobe={op}, two_stage_search=1: recall_ids@{K} "
+                f"{ivf_recall(res, gt, queries)[0]:.4f}")
+        t.drop_vector_index(name)
+
+
+def pq_oracle_recall(t, idx, queries, gt, ncand):
+    """recall_ids@k of the best a PQ first stage can hand its exact
+    re-rank: the `ncand` rows of the 1M segment with the highest ADC
+    scores (decoded codes), re-scored exactly, merged with the exact top-k
+    of the scanned segments."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import quantize
+
+    seg = t.live_segments()[0]
+    p = seg.vector("vec")
+    live = idx.perm_rows >= 0
+    rows = idx.perm_rows[live].to(torch.int64)
+    dec = quantize.pq_decode_dev(idx.perm_data[live], idx.codec_a).to(torch.float32)
+    q = torch.from_numpy(queries).to(dec.device)
+    adc = 2.0 * q @ dec.T - idx.perm_aux[live][None, :]
+    alive = seg.alive_mask_device()
+    if alive is not None:
+        adc = adc.masked_fill(~alive[rows][None, :], float("-inf"))
+    cand = rows[torch.topk(adc, ncand, dim=1).indices]  # [Q, ncand] segment rows
+    del dec, adc
+    x = p.data[cand].to(torch.float32)[..., : q.shape[1]]
+    exact = 2.0 * torch.einsum("qd,qcd->qc", q, x) - p.aux_for(Metric.L2)[cand]
+    best = torch.topk(exact, K, dim=1)
+    got = [set(zip([seg.segment_id] * K, r)) for r in torch.gather(cand, 1, best.indices).tolist()]
+    gv, gs, gr = gt
+    hits = 0
+    for i in range(len(queries)):
+        want = set(zip(gs[i].tolist(), gr[i].tolist()))
+        # the scanned segments' hits are exact: count them as found
+        hits += len(want & got[i]) + sum(s != seg.segment_id for s, _ in want)
+    return hits / (len(queries) * K)
+
+
+def ivf_profile(t, idx, op, batches, search_op, card, args):
+    """--profile's ivf_flat cell (operating nprobe, batch 100), with the
+    window step's gathered bytes per search: the bf16 windows read by the
+    gather and the f32 copy the decode writes."""
+    from myscaledb_tpu_torch.index import ivf
+    from myscaledb_tpu_torch.index.base import split_dyn_nprobe
+
+    log(f"[8p] where the time goes on {card}")
+    profile_cells([("ivf_flat", search_op, batches)], PROFILE_RUNS, args.out, card)
+    (_, bucket), = split_dyn_nprobe((("nprobe", op),))[0]
+    p = min(bucket, idx.n_clusters)
+    w = int(min(idx.n_windows + p, p * idx.wpp + 4))
+    elems = SIFT_BATCH * w * ivf.WINDOW * idx.perm_data.shape[1]
+    log(f"  ivf_flat window step: {w} windows per query (nprobe bucket {p}, wpp {idx.wpp}); "
+        f"gathered per search {2 * elems / 1e6:.1f} MB of bf16 rows read and {4 * elems / 1e6:.1f} "
+        f"MB of f32 copy written; the exact scan reads {t.live_segments()[0].vector('vec').nbytes / 1e6:.1f}"
+        f" MB for the 1M segment")
+
+
+def hnswpq_path(ms, dev, t, batches, queries, card):
+    """HNSWPQ on phase 4's GIST table (after phase 6's HNSWFLAT is
+    dropped): build, the graph search at ef_s 100 with routing off, and
+    recall_ids@10 against the exact results over the rows still live."""
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import gathermv
+
+    t.drop_vector_index("h")
+    t0 = time.perf_counter()
+    t.add_vector_index("hpq", "vec", type="HNSWPQ", metric_type="Cosine", **HNSWPQ_PARAMS)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    check(t.index_status("hpq") == {0: IndexStatus.LOADED},
+          f"HNSWPQ build did not load: {t.index_status('hpq')} {t.event_log.rows()[-1:]}")
+    idx = t.loaded_index(0, "vec", Metric.COSINE)
+    check(idx.codec == "pq" and idx.nbdata is not None,
+          "HNSWPQ must hold PQ codes and node blocks for the gathermv kernel")
+    log(f"  HNSWPQ build {secs:.2f} s ({HNSWPQ_PARAMS}, M {idx.data.shape[1]}; index "
+        f"{idx.memory_bytes / 1e9:.4f} GB)  [{card}]")
+    graph = ms.Settings()
+    graph.query.cost_based_index_routing = False
+    before = gathermv.gather_block_scores.launches
+    res = [t.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph) for qb in batches]
+    sync(dev)
+    n_launch = gathermv.gather_block_scores.launches - before
+    check(n_launch > 0, "HNSWPQ's search did not launch gathermv")
+    gt = exact_topk(t, "vec", queries, K, Metric.COSINE)
+    rid, rdist = graph_recall(res, gt)
+    rate = qps(lambda qb: t.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph),
+               batches, GIST_BATCH)
+    log(f"  HNSWPQ ef_s=100: recall_ids@{K} {rid:.4f}, recall_dist {rdist:.4f} (against the "
+        f"exact results over the live rows), {n_launch} gathermv launches "
+        f"({n_launch / len(batches):g} per search), QPS {rate:.1f} "
+        f"(batch {GIST_BATCH})  [{card}]")
+    for r in res:
+        check(np.isfinite(r.distances).all(), "HNSWPQ returned a non-finite distance")
+    t.drop_vector_index("hpq")
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None):
     import argparse
@@ -921,7 +1248,7 @@ def main(argv=None):
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
     log("[3] SIFT1M-shaped exact path (1,000,000 + 50,000 rows x 128, L2, batch 100, k=10)")
-    sift, sift_batches, flt = sift_path(ms, dev)
+    sift, sift_batches, flt, sift_queries, sift_gt = sift_path(ms, dev)
     log("[4] GIST-shaped exact path (100,000 x 960, Cosine, batch 256, k=10)")
     gist, gist_batches, gist_gt = gist_path(ms, dev)
     launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
@@ -965,6 +1292,21 @@ def main(argv=None):
     log(f"[7] times on {card}")
     timing = time_kernels(dev, idx, card)
     cost_model(gist, gist_scan, graph, hb, card, args.out)
+
+    # ---- 8. the IVF family and HNSWPQ, with the launch counters zeroed
+    log(f"[8] IVF path on phase 3's table (IVFFLAT ncentroids={IVF_NCENT}, then IVFSQ, IVFPQ "
+        f"and a default MSTG; L2, k=10) and HNSWPQ on phase 4's")
+    distance.scores.launches = 0
+    tilescan.tile_maxes.launches = 0
+    gathermv.gather_block_scores.launches = 0
+    ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
+    hnswpq_path(ms, dev, gist, gist_batches, np.concatenate(gist_batches), card)
+    p8 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+          "gathermv": gathermv.gather_block_scores.launches}
+    log(f"  kernel launches on the IVF and HNSWPQ paths: {p8}")
+    for name, n in p8.items():
+        check(n > 0, f"kernel {name} was not launched on phase 8's paths")
+        launches[name] += n
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [

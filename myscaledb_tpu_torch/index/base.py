@@ -26,6 +26,30 @@ def params_key(params: Optional[Dict[str, Any]]) -> ParamsKey:
     return tuple(sorted((params or {}).items()))
 
 
+def split_dyn_nprobe(pkey: ParamsKey) -> Tuple[ParamsKey, Optional[int]]:
+    """Bucket the `nprobe` entry of a params key to the next power of two.
+
+    Returns (bucketed_pkey, actual_nprobe_or_None). An IVF search sizes its
+    probe list and window budget from the bucket and masks the probes
+    ranked at or past the actual value, as the JAX package's fused program
+    does (it compiles one program per bucket). The bucket changes which
+    windows a search reads, so the port keeps it: the same nprobe returns
+    the JAX package's rows."""
+    out = []
+    actual = None
+    for name, val in pkey:
+        if name == "nprobe":
+            try:
+                actual = max(1, int(val))
+            except (TypeError, ValueError):
+                out.append((name, val))
+                continue
+            out.append((name, 1 << (actual - 1).bit_length()))
+        else:
+            out.append((name, val))
+    return tuple(out), actual
+
+
 def check_cancel(cancel_cb) -> None:
     """Raise IndexBuildCanceledError when the build's cancel callback
     fires. Index builds call this at chunk boundaries (the index->build(...,
@@ -150,6 +174,28 @@ class VectorIndex(abc.ABC):
         """Whether the index returns approximate candidates for an exact
         re-rank (supportTwoStageSearch, VIWithDataPart.cpp:128-133)."""
         return False
+
+    def requires_two_stage(self) -> bool:
+        """Whether every search must take the executor's two-stage path.
+        In the JAX package a disk-mode MSTG does (its re-rank rows live in
+        host memory); the port has no host tier yet (ROADMAP queue 1 #9),
+        so no port index requires it."""
+        return False
+
+    def search_first_stage(
+        self,
+        queries: torch.Tensor,
+        num_candidates: int,
+        *,
+        params: Optional[Dict[str, Any]] = None,
+        mask=None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Approximate candidates (scores, rows) for an exact re-rank."""
+        raise NotImplementedError(f"{self.kind} has no first-stage search")
+
+    def compute_scores_subset(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+        """Exact scores of the given candidate rows (computeTopDistanceSubset)."""
+        raise NotImplementedError(f"{self.kind} has no exact re-rank")
 
     @property
     def memory_bytes(self) -> int:

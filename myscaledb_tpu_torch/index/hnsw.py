@@ -1,9 +1,10 @@
-"""HNSW-family graph indexes: HNSWFLAT and HNSWSQ.
+"""HNSW-family graph indexes: HNSWFLAT, HNSWSQ and HNSWPQ.
 
-Counterpart of myscaledb_tpu/index/hnsw.py (HNSWPQ waits for the PQ codec,
-ROADMAP queue 1 #5). The graph is built in batches, not by sequential
-insertion, with the same contract as hnswlib (params m / ef_c, search
-param ef_s):
+Counterpart of myscaledb_tpu/index/hnsw.py. The graph is built in
+batches, not by sequential insertion, with the same contract as hnswlib
+(params m / ef_c, search param ef_s). The payload the final re-score reads
+is the raw rows (HNSWFLAT), SQ8 codes (HNSWSQ) or PQ codes (HNSWPQ,
+ops/quantize.py); routing always uses the SQ8 traversal shadow.
 
   BUILD:
     1. candidate generation: a throwaway IVF index over the segment
@@ -298,10 +299,8 @@ class _HNSWBase(VectorIndex):
     ) -> "_HNSWBase":
         if metric not in (Metric.L2, Metric.IP, Metric.COSINE):
             raise IndexParameterError(f"HNSW does not support metric {metric}")
-        if codec not in ("raw", "sq8"):
-            raise NotImplementedError(
-                f"HNSW codec {codec!r} is not ported yet (PQ codecs: ROADMAP queue 1 #5)"
-            )
+        if codec not in ("raw", "sq8", "pq"):
+            raise IndexParameterError(f"unknown HNSW codec {codec!r}")
         params = dict(params or {})
         m = int(params.get("m", DEFAULT_M))
         ef_c = int(params.get("ef_c", DEFAULT_EF_C))
@@ -408,11 +407,18 @@ class _HNSWBase(VectorIndex):
                 aux_arr = payload.invnorm
             else:
                 aux_arr = torch.sum(rep * rep, dim=1) if metric == Metric.L2 else None
-        else:  # sq8
+        elif codec == "sq8":
             codec_a, codec_b = quantize.sq8_train_dev(rep)
             data = quantize.sq8_encode_dev(rep, codec_a, codec_b)
             dec = quantize.sq8_decode_dev(data, codec_a, codec_b).to(torch.float32)
             aux_arr = torch.sum(dec * dec, dim=1)
+        else:  # pq: M subspaces (32 unless given) of the unpadded rows
+            mm = int(params.get("M", 32))
+            if dim % mm:
+                raise IndexParameterError(f"dim {dim} not divisible by M={mm}")
+            codec_a = quantize.pq_train_dev(rep[:, :dim], mm, bits=int(params.get("bit_size", 8)))
+            data = quantize.pq_encode_dev(rep[:, :dim], codec_a)
+            aux_arr = quantize.pq_decoded_sqnorms(data, codec_a)
 
         return cls(
             data=data,
@@ -443,6 +449,8 @@ class _HNSWBase(VectorIndex):
         g = self.data[_clamped(rows)]
         if self.codec == "sq8":
             g = quantize.sq8_decode_dev(g, self.codec_a, self.codec_b)
+        elif self.codec == "pq":
+            g = quantize.pq_decode_dev(g, self.codec_a)
         return g.to(torch.float32)
 
     def _score_rows(self, q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -701,4 +709,15 @@ class HNSWSQIndex(_HNSWBase):
         return cls._build_common(
             payload, n_rows, metric=metric, dim=dim, params=params,
             settings=settings, codec="sq8", cancel_cb=cancel_cb,
+        )
+
+
+@register(IndexKind.HNSWPQ)
+class HNSWPQIndex(_HNSWBase):
+    @classmethod
+    def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None,
+              cancel_cb=None):
+        return cls._build_common(
+            payload, n_rows, metric=metric, dim=dim, params=params,
+            settings=settings, codec="pq", cancel_cb=cancel_cb,
         )

@@ -1,19 +1,32 @@
-"""IVF build side: balanced k-means over a cluster-major window layout.
+"""IVF indexes: k-means coarse quantizer over a cluster-major window
+layout, with raw (IVFFLAT), SQ8 (IVFSQ) and PQ (IVFPQ) payloads, plus
+MSTG (an SQ8 first pass and an exact re-rank).
 
-Counterpart of the build half of myscaledb_tpu/index/ivf.py, as far as
-the HNSW build needs it (its candidate generation runs over a throwaway
-IVF index, index/hnsw.py):
+Counterpart of myscaledb_tpu/index/ivf.py, device path:
 
   * centroids f32[C, D] from balanced k-means (ops/kmeans.py);
-  * ONE cluster-major permutation of the rows, `perm_data[N', D']`, with
-    per-cluster row offsets `cluster_start[C+1]`, zero padding beyond
-    rounding N up to the 512-row window size;
-  * `windows_for_probes` turns probed clusters into per-query lists of
-    512-row windows.
+  * ONE cluster-major permutation of the encoded payload,
+    `perm_data[N', D'|M]`, with per-cluster row offsets `cluster_start[C+1]`
+    and zero padding beyond rounding N up to the 512-row window size;
+  * a search ranks the centroids, turns each query's top-nprobe clusters
+    into a list of 512-row windows (`windows_for_probes`, sized to a
+    budget W), and scores the windows group by group: ONE gather of the
+    group's windows for the whole batch, the decode to f32 and ONE
+    `torch.bmm`, then a top-k merge. No loop runs per query or per window.
 
-Only the device path and the raw codec are ported. IVF search
-(`_scan_stage`, the window masks), the SQ/PQ codecs and the IVFFLAT /
-IVFSQ / IVFPQ / MSTG index kinds are ROADMAP queue 1 #5.
+The pre-filter ∩ delete bitmap applies inside the scan, by row-id lookup
+in a row-space mask or by contiguous window lookup in a `WindowMask`
+(`to_window_mask`). Cosine is normalize-then-IP.
+
+IVFSQ, IVFPQ and MSTG are two-stage: their first pass ranks candidates on
+the codes, then the top k * rerank_multiple are re-scored exactly against
+the segment's own payload (`raw_data`, a reference, never a copy). An
+index loaded from a state dict gets that reference back through
+`reattach_payload`; until then its search raises rather than serve
+quantized distances.
+
+MSTG `disk_mode=1` and host-tier payloads (the host re-rank tier) wait for
+the host tier (ROADMAP queue 1 #9).
 """
 
 from __future__ import annotations
@@ -21,15 +34,34 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as tnf
 
 from ..errors import IndexParameterError
 from ..metrics import Metric
-from ..ops import kmeans
+from ..ops import distance, kmeans, quantize
 from ..ops._cuda import round_up
-from .base import ParamsKey, VectorIndex, check_cancel
+from ..ops.topk import NEG_INF, dedup_rows
+from ..service.event_log import GLOBAL_COUNTERS
+from .base import IndexKind, ParamsKey, VectorIndex, check_cancel, params_key
+from .registry import register
 
+DEFAULT_NPROBE = 16
 WINDOW = 512  # rows per scan window
+# Bound on one group's f32 transient [Q, G * WINDOW, D'|M] (the JAX
+# package's cap, which sizes its groups): the window step gathers at most
+# this many bytes' worth of windows per bmm.
+GROUP_TRANSIENT_CAP = 512 << 20
+
+
+def _default_pq_m(dim: int) -> int:
+    """Largest power-of-2 subquantizer count <= 32 that divides dim (DDL
+    may omit M; the build adapts)."""
+    m = 32
+    while m > 1 and dim % m:
+        m //= 2
+    return m
 
 
 def default_ncentroids(n_rows: int) -> int:
@@ -114,40 +146,146 @@ def windows_for_probes(
     return torch.where(valid_w, keyw, torch.zeros_like(keyw)), valid_w
 
 
+def _pad_cols(v: torch.Tensor, r: torch.Tensor, k: int):
+    """Pad (scores, rows) [Q, kk] to [Q, k] with (-inf, -1)."""
+    if v.shape[1] < k:
+        v = tnf.pad(v, (0, k - v.shape[1]), value=NEG_INF)
+        r = tnf.pad(r, (0, k - r.shape[1]), value=-1)
+    return v, r
+
+
+def _mask_cache_key(leaf):
+    """A hashable key for a comparison-constant leaf of a window mask
+    (numpy arrays by their bytes, Python scalars by type and value); None
+    for a constant of another kind, which skips the bitmap cache."""
+    if isinstance(leaf, np.ndarray):
+        return (leaf.dtype.str, leaf.shape, leaf.tobytes())
+    if isinstance(leaf, (bool, int, float)):
+        return (type(leaf).__name__, leaf)
+    return None
+
+
 class IVFIndex(VectorIndex):
-    """The IVF layout over one segment, raw codec (the HNSW build's
-    candidate generator). Not registered for `add_vector_index`: its
-    search is ROADMAP queue 1 #5."""
+    """Shared IVF machinery; `codec` selects the payload encoding: 'raw' ->
+    IVFFLAT, 'sq8' -> IVFSQ and MSTG, 'pq' -> IVFPQ. The HNSW build also
+    uses it, unregistered, as its throwaway candidate generator."""
 
-    def __init__(
-        self,
-        *,
-        centroids: torch.Tensor,
-        csq: torch.Tensor,
-        perm_data: torch.Tensor,
-        perm_rows: torch.Tensor,
-        perm_aux: torch.Tensor,
-        cluster_start: torch.Tensor,
-        metric: Metric,
-        dim: int,
-        n_rows: int,
-        n_clusters: int,
-        n_windows: int,
-        wpp: int,
-    ):
-        self.centroids = centroids  # f32[C, D]
-        self.csq = csq  # f32[C]
-        self.perm_data = perm_data  # [N', D'] cluster-major payload
-        self.perm_rows = perm_rows  # int32[N'] original row ids (-1 pad)
-        self.perm_aux = perm_aux  # f32[N'] |x|^2 (inf on padding)
-        self.cluster_start = cluster_start  # int32[C+1] row offsets
-        self.metric = metric
-        self.dim = dim
-        self.n_rows = n_rows
-        self.n_clusters = n_clusters
-        self.n_windows = n_windows
-        self.wpp = wpp  # typical windows per probed cluster
+    _array_fields = (
+        "centroids",  # f32[C, D]
+        "csq",  # f32[C]
+        "perm_data",  # [N', D'|M] cluster-major payload (codec-encoded)
+        "perm_rows",  # int32[N'] original row ids (-1 pad)
+        "perm_aux",  # f32[N'] decoded |x|^2 (inf on padding)
+        "cluster_start",  # int32[C+1] row offsets into perm_*
+        "codec_a",  # sq8: lo[D'] / pq: codebooks[M, K, ds]
+        "codec_b",  # sq8: scale[D'] / pq: None
+        "raw_data",  # two-stage only: reference to the segment payload
+        "raw_aux",
+    )
+    _payload_refs = ("raw_data", "raw_aux")
+    _static_fields = (
+        "metric",
+        "dim",
+        "n_rows",
+        "n_clusters",
+        "n_windows",
+        "wpp",  # typical windows per probed cluster (sizes the W budget)
+        "codec",
+        "two_stage",
+        "rerank_multiple",
+    )
+    _defaults = dict(
+        codec_a=None, codec_b=None, raw_data=None, raw_aux=None, codec="raw",
+        two_stage=False, rerank_multiple=4,
+    )
+    # the executor may pass the actual nprobe beside its pow2 bucket
+    # (base.split_dyn_nprobe)
+    supports_dyn_nprobe = True
 
+    def __init__(self, **kw):
+        for f in self._array_fields + self._static_fields:
+            setattr(self, f, kw.pop(f) if f in kw else self._defaults[f])
+        if kw:
+            raise TypeError(f"unexpected fields: {sorted(kw)}")
+        # window-layout mirrors of filterable scalar columns and of the
+        # alive bitmap, keyed by (column, mutation generation), and the
+        # materialized window bitmaps of repeated filters (to_window_mask)
+        self._win_mirrors: Dict[Any, torch.Tensor] = {}
+        self._win_mask_built: Dict[Any, torch.Tensor] = {}
+
+    # --------------------------------------------------- window-space masks
+    def to_window_mask(self, dmask, segment):
+        """Re-express a row-space DeviceMask over this index's cluster-major
+        window layout (WindowMask), so the scan tests candidates by
+        contiguous window lookup instead of gathering one bit per row.
+        Column mirrors are permuted once per (column, mutation generation)
+        and cached; the built bitmap of a repeated filter is cached too.
+        Returns None when some leaf cannot be mirrored."""
+        from ..search.filters import WindowMask
+
+        _, _, _, has_alive, expr_skel = dmask.skel
+        gen = getattr(segment, "mutation_generation", 0)
+        leaves = list(dmask.leaves)
+        out: list = []
+        consts: list = []  # the comparison constants, which key the bitmap cache
+        pos = 0
+        perm = torch.clamp(self.perm_rows, min=0).to(torch.int64)
+
+        def mirror(key, src):
+            hit = self._win_mirrors.get(key)
+            if hit is None:
+                if len(self._win_mirrors) > 64:
+                    self._win_mirrors.clear()
+                hit = src[perm]
+                self._win_mirrors[key] = hit
+            return hit
+
+        if has_alive:
+            out.append(mirror(("__alive__", gen), leaves[0]))
+            pos = 1
+
+        def rec(s):
+            nonlocal pos
+            kind = s[0]
+            if kind in ("and", "or"):
+                return rec(s[1]) and rec(s[2])
+            if kind == "not":
+                return rec(s[1])
+            if kind == "lit":
+                return True
+            if kind in ("cmp", "in"):
+                if len(s) < 3:
+                    return False  # no column name: cannot key the mirror
+                col, val = leaves[pos], leaves[pos + 1]
+                pos += 2
+                out.append(mirror((s[2], gen), col))
+                out.append(val)
+                consts.append(val)
+                return True
+            return False
+
+        if expr_skel is not None and not rec(expr_skel):
+            return None
+        n_prime = int(self.perm_rows.shape[0])
+        # n_rows == capacity: layout padding is masked by the scan's own
+        # rows >= 0 test
+        wm = WindowMask(("root", n_prime, n_prime, has_alive, expr_skel), out, dmask.device)
+        vals = [_mask_cache_key(v) for v in consts]
+        if any(v is None for v in vals):
+            return wm  # a constant of another kind: skip the bitmap cache
+        ck = (expr_skel, has_alive, tuple(vals), gen)
+        hit = self._win_mask_built.get(ck)
+        if hit is None:
+            if len(self._win_mask_built) > 32:
+                self._win_mask_built.clear()
+            hit = wm.build()
+            self._win_mask_built[ck] = hit
+            GLOBAL_COUNTERS.bump("IvfWindowMaskBuilds")
+        else:
+            GLOBAL_COUNTERS.bump("IvfWindowMaskCacheHits")
+        return WindowMask(("prebuilt", n_prime, n_prime, False, None), [hit], dmask.device)
+
+    # ------------------------------------------------------------- build
     @classmethod
     def _build_common(
         cls,
@@ -159,13 +297,14 @@ class IVFIndex(VectorIndex):
         params: Dict[str, Any],
         settings,
         codec: str = "raw",
+        two_stage: bool = False,
         cancel_cb=None,
     ) -> "IVFIndex":
         if metric not in (Metric.L2, Metric.IP, Metric.COSINE):
             raise IndexParameterError(f"IVF does not support metric {metric}")
-        if codec != "raw":
+        if getattr(payload, "is_host", False):
             raise NotImplementedError(
-                f"IVF codec {codec!r} is not ported yet (ROADMAP queue 1 #5)"
+                "IVF over a host-tier payload is not ported yet (ROADMAP queue 1 #9)"
             )
         c = int(params.get("ncentroids", default_ncentroids(n_rows)))
         c = max(1, min(c, n_rows))
@@ -185,7 +324,7 @@ class IVFIndex(VectorIndex):
         npad = round_up(max(n_rows, WINDOW), WINDOW)
         dev = rep.device
 
-        # permutation and sqnorms never leave the device
+        # permutation, encode and sqnorms never leave the device
         assign = assign.to(torch.int64)
         order = torch.argsort(assign, stable=True)
         counts = torch.bincount(assign, minlength=c)
@@ -194,10 +333,34 @@ class IVFIndex(VectorIndex):
         perm_rows = torch.full((npad,), -1, dtype=torch.int32, device=dev)
         perm_rows[:n_rows] = order.to(torch.int32)
         rep_perm = rep[order]
-        perm_data = torch.zeros((npad, dpad), dtype=storage_dtype, device=dev)
-        perm_data[:n_rows] = rep_perm.to(storage_dtype)
+        codec_a = codec_b = None
+        if codec == "raw":
+            perm_data = torch.zeros((npad, dpad), dtype=storage_dtype, device=dev)
+            perm_data[:n_rows] = rep_perm.to(storage_dtype)
+            dec_sq = torch.sum(rep_perm * rep_perm, dim=1)
+        elif codec == "sq8":
+            codec_a, codec_b = quantize.sq8_train_dev(rep)
+            enc = quantize.sq8_encode_dev(rep_perm, codec_a, codec_b)
+            dec = quantize.sq8_decode_dev(enc, codec_a, codec_b).to(torch.float32)
+            dec_sq = torch.sum(dec * dec, dim=1)
+            del dec
+            perm_data = torch.zeros((npad, dpad), dtype=torch.uint8, device=dev)
+            perm_data[:n_rows] = enc
+        elif codec == "pq":
+            m = int(params.get("M", 0)) or _default_pq_m(dim)
+            if dim % m:
+                raise IndexParameterError(f"dim {dim} not divisible by M={m}")
+            codec_a = quantize.pq_train_dev(rep[:, :dim], m, bits=int(params.get("bit_size", 8)))
+            check_cancel(cancel_cb)
+            enc = quantize.pq_encode_dev(rep_perm[:, :dim], codec_a)
+            dec_sq = quantize.pq_decoded_sqnorms(enc, codec_a)
+            perm_data = torch.zeros((npad, m), dtype=torch.uint8, device=dev)
+            perm_data[:n_rows] = enc
+        else:
+            raise IndexParameterError(f"unknown IVF codec {codec!r}")
         perm_aux = torch.full((npad,), float("inf"), dtype=torch.float32, device=dev)
-        perm_aux[:n_rows] = torch.sum(rep_perm * rep_perm, dim=1)
+        perm_aux[:n_rows] = dec_sq
+        del rep_perm
         check_cancel(cancel_cb)
 
         return cls(
@@ -207,13 +370,32 @@ class IVFIndex(VectorIndex):
             perm_rows=perm_rows,
             perm_aux=perm_aux,
             cluster_start=starts.to(torch.int32),
+            codec_a=codec_a,
+            codec_b=codec_b,
+            raw_data=payload.data if two_stage else None,
+            raw_aux=payload.aux_for(metric) if two_stage else None,
             metric=metric,
             dim=dim,
             n_rows=n_rows,
             n_clusters=c,
             n_windows=npad // WINDOW,
             wpp=int(math.ceil((n_rows / max(c, 1)) / WINDOW)) + 1,
+            codec=codec,
+            two_stage=two_stage,
         )
+
+    def reattach_payload(self, payload) -> None:
+        """Re-attach the segment payload references after a state-dict
+        load: raw_data / raw_aux belong to the segment and are never
+        serialized."""
+        if not self.two_stage:
+            return
+        if getattr(payload, "is_host", False):
+            raise NotImplementedError(
+                "the host re-rank tier is not ported yet (ROADMAP queue 1 #9)"
+            )
+        self.raw_data = payload.data
+        self.raw_aux = payload.aux_for(self.metric)
 
     def cluster_heads(self) -> torch.Tensor:
         """Representative row of each cluster (entry points for graph
@@ -224,12 +406,290 @@ class IVFIndex(VectorIndex):
         heads = self.perm_rows[torch.clamp(starts, max=self.perm_rows.shape[0] - 1)]
         return torch.where(sizes > 0, heads, torch.full_like(heads, -1))
 
+    # ------------------------------------------------------------- score
+    def _decode(self, gathered: torch.Tensor) -> torch.Tensor:
+        """Gathered payload -> f32 rows for scoring. The JAX package scores
+        gathered rows in f32 too: a bf16 hi/lo split of the query measured
+        unsafe there, and the gather, not the arithmetic, bounds the step."""
+        if self.codec == "raw":
+            return gathered.to(torch.float32)
+        if self.codec == "sq8":
+            return quantize.sq8_decode_dev(gathered, self.codec_a, self.codec_b).to(torch.float32)
+        return quantize.pq_decode_dev(gathered, self.codec_a).to(torch.float32)
+
+    @staticmethod
+    def _dot(q: torch.Tensor, rows_mat: torch.Tensor) -> torch.Tensor:
+        """[Q, D] x [Q, B, D'] -> f32[Q, B]: one batched f32 matmul (exact
+        while TF32 is off, the policy `connect` sets on CUDA)."""
+        d = rows_mat.shape[-1]
+        return torch.bmm(rows_mat, q[:, :d, None])[:, :, 0]
+
+    def _nprobe(self, params: ParamsKey) -> int:
+        d = dict(params)
+        p = d.get("nprobe", DEFAULT_NPROBE)
+        # MSTG 'alpha' maps to probe width (its reference role: search
+        # expansion factor): alpha * the default probes
+        if "alpha" in d and "nprobe" not in d:
+            p = max(1, int(float(d["alpha"]) * DEFAULT_NPROBE))
+        return int(max(1, min(int(p), self.n_clusters)))
+
+    # ------------------------------------------------------------- search
     def search_t(
         self,
         queries: torch.Tensor,
         k: int,
         *,
-        mask: Optional[torch.Tensor] = None,
+        mask=None,
         params: ParamsKey = (),
+        dyn_nprobe: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        raise NotImplementedError("IVF search is not ported yet (ROADMAP queue 1 #5)")
+        if not self.two_stage:
+            return self._scan_stage(queries, k, mask=mask, params=params, dyn_nprobe=dyn_nprobe)
+        self._require_payload()
+        ncand = min(max(k * self.rerank_multiple, k), self.n_rows)
+        _, r = self._scan_stage(queries, ncand, mask=mask, params=params, dyn_nprobe=dyn_nprobe)
+        ev = self._exact_scores(queries, r)
+        v2, p2 = torch.topk(ev, min(k, ev.shape[-1]), dim=-1)
+        r2 = torch.gather(r, 1, p2)
+        r2 = torch.where(torch.isfinite(v2), r2, torch.full_like(r2, -1))
+        return _pad_cols(v2, r2, k)
+
+    def _scan_stage(
+        self,
+        queries: torch.Tensor,
+        k: int,
+        *,
+        mask=None,
+        params: ParamsKey = (),
+        dyn_nprobe: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The IVF scan over the codes: top-k (scores f32[Q, k], rows
+        int32[Q, k]) of the probed windows."""
+        from ..search.filters import WindowMask, as_mask_array
+
+        wmask = None
+        if isinstance(mask, WindowMask):
+            # the predicate over window-layout mirrors, read per window
+            wmask = mask.build().reshape(self.n_windows, WINDOW)
+            mask = None
+        else:
+            mask = as_mask_array(mask)
+        nprobe = self._nprobe(params)
+        nq = queries.shape[0]
+        q = distance.normalize_queries(queries.to(torch.float32), self.metric)
+
+        # coarse probe: the cell ranking follows the assignment geometry
+        # (rows were L2-assigned): L2 and Cosine (|q| = 1) rank by
+        # 2 q·c - |c|^2, IP (MIPS) by raw q·c
+        cs = q[:, : self.centroids.shape[1]] @ self.centroids.T
+        if self.metric in (Metric.L2, Metric.COSINE):
+            cs = 2.0 * cs - self.csq[None, :]
+        # empty clusters never take a probe slot
+        sizes = self.cluster_start[1:] - self.cluster_start[:-1]
+        cs = cs.masked_fill(~(sizes > 0)[None, :], NEG_INF)
+        probe = torch.topk(cs, nprobe, dim=1).indices  # [Q, P]
+
+        w_budget = int(min(self.n_windows + nprobe, nprobe * self.wpp + 4))
+        limit = None if dyn_nprobe is None else min(int(dyn_nprobe), nprobe)
+        widx, valid_w = windows_for_probes(
+            self.cluster_start, probe, self.n_windows, w_budget, limit=limit
+        )
+
+        kk = min(k, self.n_rows)
+        pdw = self.perm_data.view(self.n_windows, WINDOW, -1)
+        prw = self.perm_rows.view(self.n_windows, WINDOW)
+        paw = self.perm_aux.view(self.n_windows, WINDOW)
+
+        # G windows per step: one gather, one decode and one bmm for the
+        # whole batch; the whole budget in one step when its f32 transient
+        # fits the cap (at SIFT1M shapes, nprobe 2 and batch 100: 10
+        # windows, one step)
+        elem = 4 * max(1, pdw.shape[-1])
+        cap_windows = max(1, GROUP_TRANSIENT_CAP // max(1, nq * WINDOW * elem))
+        group = max(1, min(w_budget, cap_windows))
+        bv = br = None
+        for s in range(0, w_budget, group):
+            sl = widx[:, s : s + group]
+            live = valid_w[:, s : s + group]
+            rows = prw[sl].masked_fill(~live[..., None], -1).reshape(nq, -1)
+            xb = self._decode(pdw[sl]).reshape(nq, rows.shape[1], -1)
+            scores = self._dot(q, xb)
+            del xb
+            if self.metric == Metric.L2:
+                scores = 2.0 * scores - paw[sl].reshape(nq, -1)
+            valid = rows >= 0
+            if wmask is not None:
+                valid = valid & wmask[sl].reshape(nq, -1)
+            elif mask is not None:
+                valid = valid & mask[torch.clamp(rows, min=0).to(torch.int64)]
+            scores = scores.masked_fill(~valid, NEG_INF)
+            sv, sp = torch.topk(scores, min(kk, scores.shape[1]), dim=1)
+            sr = torch.gather(rows, 1, sp)
+            if bv is None:
+                bv, br = _pad_cols(sv, sr, kk)
+            else:
+                bv, npos = torch.topk(torch.cat([bv, sv], dim=1), kk, dim=1)
+                br = torch.gather(torch.cat([br, sr], dim=1), 1, npos)
+
+        # boundary windows shared by adjacent probed clusters can score a
+        # row twice: dedup before the final cut
+        bv, br, _ = dedup_rows(bv, br)
+        bv, pos = torch.topk(bv, kk, dim=1)
+        br = torch.gather(br, 1, pos)
+        br = torch.where(torch.isfinite(bv), br, torch.full_like(br, -1))
+        return _pad_cols(bv, br, k)
+
+    # ---------------------------------------------------------- two-stage
+    def supports_two_stage(self) -> bool:
+        return self.two_stage
+
+    def search_first_stage(
+        self,
+        queries: torch.Tensor,
+        num_candidates: int,
+        *,
+        params: Optional[Dict[str, Any]] = None,
+        mask=None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._scan_stage(queries, num_candidates, mask=mask, params=params_key(params))
+
+    def _require_payload(self) -> None:
+        if self.raw_data is None:
+            raise RuntimeError(
+                f"{self.kind.value} index has no segment payload to re-rank against: "
+                "call reattach_payload(segment payload) after loading it"
+            )
+
+    def _exact_scores(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+        """Exact scores of the candidate rows against the raw payload
+        (computeTopDistanceSubset), f32[Q, C]; -inf where row_ids < 0."""
+        self._require_payload()
+        safe = torch.clamp(row_ids, min=0).to(torch.int64)
+        rows = self.raw_data[safe].to(torch.float32)  # [Q, C, D']
+        q = distance.normalize_queries(queries.to(torch.float32), self.metric)
+        s = self._dot(q, rows)
+        if self.metric == Metric.L2:
+            s = 2.0 * s - self.raw_aux[safe]
+        elif self.metric == Metric.COSINE:
+            nrm = torch.linalg.vector_norm(rows, dim=-1)
+            s = s * torch.where(nrm > 0, 1.0 / torch.where(nrm > 0, nrm, torch.ones_like(nrm)), 0.0)
+        return s.masked_fill(row_ids < 0, NEG_INF)
+
+    def compute_scores_subset(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+        return self._exact_scores(queries, row_ids)
+
+    # -------------------------------------------------------------- misc
+    @property
+    def memory_bytes(self) -> int:
+        """Bytes of the index's own tensors; raw_data / raw_aux are the
+        segment's and do not count."""
+        total = 0
+        for f in self._array_fields:
+            a = getattr(self, f)
+            if a is not None and f not in self._payload_refs:
+                total += a.numel() * a.element_size()
+        return total
+
+    def state_dict(self) -> Dict[str, Any]:
+        """numpy arrays + meta, in the JAX package's layout, without the
+        payload references; a bf16 payload crosses as its stored bits
+        (uint16)."""
+        arrays = {}
+        for f in self._array_fields:
+            v = getattr(self, f)
+            if v is None or f in self._payload_refs:
+                continue
+            v = v.detach().cpu()
+            if v.dtype == torch.bfloat16:
+                arrays[f] = v.view(torch.int16).numpy().view(np.uint16)
+            else:
+                arrays[f] = v.numpy()
+        meta = {f: getattr(self, f) for f in self._static_fields}
+        meta.update(
+            kind=self.kind.value,
+            metric=self.metric.value,
+            storage_dtype=str(self.perm_data.dtype).replace("torch.", ""),
+        )
+        return {"meta": meta, "arrays": arrays}
+
+    @classmethod
+    def from_state_dict(cls, state: Dict[str, Any], *, device) -> "IVFIndex":
+        """The index from `state_dict()`'s layout on `device`, without its
+        payload references: a two-stage index needs `reattach_payload`
+        before it searches. A raw bf16 payload must arrive as its bits."""
+        meta, arrays = state["meta"], state["arrays"]
+        bf16 = "bfloat16" in meta["storage_dtype"] and meta["codec"] == "raw"
+        kw: Dict[str, Any] = {}
+        for f in cls._array_fields:
+            v = arrays.get(f)
+            if v is None or f in cls._payload_refs:
+                continue
+            a = np.array(v)
+            if f == "perm_data" and bf16:
+                if a.dtype.itemsize != 2:
+                    raise ValueError(f"a bf16 payload must cross as its 16-bit words, got {a.dtype}")
+                t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(a)
+            kw[f] = t.to(device)
+        kw.update(
+            metric=Metric(meta["metric"]),
+            dim=int(meta["dim"]),
+            n_rows=int(meta["n_rows"]),
+            n_clusters=int(meta["n_clusters"]),
+            n_windows=int(meta["n_windows"]),
+            wpp=int(meta["wpp"]),
+            codec=meta["codec"],
+            two_stage=bool(meta["two_stage"]),
+            rerank_multiple=int(meta["rerank_multiple"]),
+        )
+        return cls(**kw)
+
+
+def _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, codec, two_stage):
+    return cls._build_common(
+        payload, n_rows, metric=metric, dim=dim, params=dict(params or {}),
+        settings=settings, codec=codec, two_stage=two_stage, cancel_cb=cancel_cb,
+    )
+
+
+@register(IndexKind.IVFFLAT)
+class IVFFlatIndex(IVFIndex):
+    @classmethod
+    def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None, cancel_cb=None):
+        return _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, "raw", False)
+
+
+@register(IndexKind.IVFSQ)
+class IVFSQIndex(IVFIndex):
+    """SQ8 windows ranked, the top k * rerank_multiple re-scored exactly
+    against the raw payload (zero extra device memory: raw_data references
+    the segment's payload). The reference reports SQ-reconstructed
+    distances here; both packages report exact ones."""
+
+    @classmethod
+    def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None, cancel_cb=None):
+        return _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, "sq8", True)
+
+
+@register(IndexKind.IVFPQ)
+class IVFPQIndex(IVFIndex):
+    @classmethod
+    def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None, cancel_cb=None):
+        return _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, "pq", True)
+
+
+@register(IndexKind.MSTG)
+class MSTGIndex(IVFIndex):
+    """Multi-stage tree-graph analogue: an SQ8 IVF first pass and an exact
+    re-rank on the raw payload (two-stage)."""
+
+    @classmethod
+    def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None, cancel_cb=None):
+        params = dict(params or {})
+        if int(params.pop("disk_mode", 0) or 0):
+            raise NotImplementedError(
+                "MSTG disk_mode=1 (the host re-rank tier) is not ported yet "
+                "(ROADMAP queue 1 #9)"
+            )
+        return _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, "sq8", True)

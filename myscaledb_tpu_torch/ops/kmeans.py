@@ -86,6 +86,26 @@ def lloyd_update(
     return torch.where(empty[:, None], reseed, new)
 
 
+def kmeans_fit(
+    data: torch.Tensor,
+    *,
+    n_clusters: int,
+    n_iters: int = 10,
+    seed: int = 0,
+    init_idx: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain Lloyd's -> centroids f32[n_clusters, D], from `n_clusters`
+    distinct random rows (`init_idx`, or a permutation drawn with `seed`)."""
+    if init_idx is None:
+        init_idx = torch.randperm(
+            data.shape[0], generator=_generator(data.device, seed), device=data.device
+        )[:n_clusters]
+    cents = data[init_idx.to(device=data.device, dtype=torch.int64)].to(torch.float32)
+    for _ in range(n_iters):
+        cents = lloyd_update(cents, *lloyd_stats(data, cents))
+    return cents
+
+
 def kmeans_fit_balanced(
     data: torch.Tensor,
     *,
@@ -98,20 +118,14 @@ def kmeans_fit_balanced(
 ) -> torch.Tensor:
     """Balanced k-means -> centroids f32[n_clusters + n_extra, D].
 
-    Plain Lloyd's from `n_clusters` distinct random rows (`init_idx`, or a
-    permutation drawn with `seed`), then `n_extra` centroids seeded on the
+    `kmeans_fit` (plain Lloyd's from `n_clusters` distinct random rows,
+    `init_idx` or drawn with `seed`), then `n_extra` centroids seeded on the
     heaviest clusters proportionally to their size (systematic sampling
     over the size histogram), then `refine_iters` more Lloyd steps so the
     copies drift apart and split their donors. Centroids that end up
     owning no rows are fine: the IVF probe masks empty clusters out."""
-    n, d = data.shape
-    if init_idx is None:
-        init_idx = torch.randperm(
-            n, generator=_generator(data.device, seed), device=data.device
-        )[:n_clusters]
-    cents = data[init_idx.to(device=data.device, dtype=torch.int64)].to(torch.float32)
-    for _ in range(n_iters):
-        cents = lloyd_update(cents, *lloyd_stats(data, cents))
+    d = data.shape[1]
+    cents = kmeans_fit(data, n_clusters=n_clusters, n_iters=n_iters, seed=seed, init_idx=init_idx)
     if n_extra <= 0:
         return cents
 

@@ -1,19 +1,26 @@
-"""SQ8 scalar quantization on the device.
+"""SQ8 and PQ codecs on the device.
 
-Counterpart of myscaledb_tpu/ops/quantize.py, the device-side SQ8 codec
-only: per-dimension affine codes x ~= lo + code * scale with
-scale = (hi - lo) / 255. The HNSW traversal shadow and the HNSWSQ payload
-use it. `torch.round` rounds half to even, as `jnp.round` does, so both
-packages give the same codes for the same f32 input. The PQ codec and the
-host (numpy) variants wait for IVFPQ and the host tier (ROADMAP queue 1
-#5, #9).
+Counterpart of myscaledb_tpu/ops/quantize.py, the device-side codecs:
+
+  * SQ8: per-dimension affine codes x ~= lo + code * scale with
+    scale = (hi - lo) / 255. The HNSW traversal shadow, HNSWSQ, IVFSQ and
+    MSTG use it. `torch.round` rounds half to even, as `jnp.round` does,
+    so both packages give the same codes for the same f32 input.
+  * PQ: M subspaces of D/M dimensions, 2^bits centroids each (one
+    `kmeans_fit` per subspace), 8-bit codes. Scoring decodes the codes to
+    bf16 rows and takes the ordinary dot product (decode-then-dot), as in
+    the JAX package. IVFPQ and HNSWPQ use it.
+
+The host (numpy) variants wait for the host tier (ROADMAP queue 1 #9).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+from . import kmeans
 
 
 def sq8_train_dev(rep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -34,3 +41,65 @@ def sq8_encode_dev(rep: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor) -> 
 def sq8_decode_dev(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """uint8[..., D] -> bf16[..., D] decoded values."""
     return (codes.to(torch.float32) * scale + lo).to(torch.bfloat16)
+
+
+def pq_train_dev(
+    rep: torch.Tensor,
+    m: int,
+    *,
+    bits: int = 8,
+    n_iters: int = 12,
+    seed: int = 0,
+    init_idx: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Codebooks f32[M, 2^bits, D/M]: subspace j is `kmeans_fit` with seed
+    `seed + j` (or the initial rows `init_idx[j]`). With fewer rows than
+    2^bits, each subspace fits N centroids and repeats its last one."""
+    n, d = rep.shape
+    if d % m:
+        raise ValueError(f"dim {d} not divisible by M={m}")
+    ds = d // m
+    ksub = 1 << bits
+    ksub_eff = min(ksub, n)
+    books = []
+    for j in range(m):
+        c = kmeans.kmeans_fit(
+            rep[:, j * ds : (j + 1) * ds], n_clusters=ksub_eff, n_iters=n_iters,
+            seed=seed + j, init_idx=None if init_idx is None else init_idx[j],
+        )
+        if ksub_eff < ksub:
+            c = torch.cat([c, c[-1:].expand(ksub - ksub_eff, ds)], dim=0)
+        books.append(c)
+    return torch.stack(books, dim=0)
+
+
+def pq_encode_dev(rep: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """uint8[N, M] codes: the nearest codeword of each subspace."""
+    m, _, ds = codebooks.shape
+    cols = [
+        kmeans.assign_chunked(rep[:, j * ds : (j + 1) * ds], codebooks[j]) for j in range(m)
+    ]
+    return torch.stack(cols, dim=1).to(torch.uint8)
+
+
+def pq_codeword_sqnorms(codebooks: torch.Tensor) -> torch.Tensor:
+    """|decoded codeword|^2 per (subspace, code), f32[M, K], of the
+    bf16-rounded codewords that `pq_decode_dev` returns, so L2 scores stay
+    exact with respect to the codes."""
+    cb = codebooks.to(torch.bfloat16).to(torch.float32)
+    return torch.sum(cb * cb, dim=-1)
+
+
+def pq_decoded_sqnorms(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """|decoded row|^2, f32[N], of uint8[N, M] codes: the sum of their
+    codewords' `pq_codeword_sqnorms`."""
+    cbn = pq_codeword_sqnorms(codebooks)  # [M, K]
+    return torch.sum(torch.gather(cbn.T, 0, codes.to(torch.int64)), dim=1)
+
+
+def pq_decode_dev(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """uint8[..., M] + f32[M, K, ds] -> bf16[..., M*ds] decoded rows."""
+    m, _, ds = codebooks.shape
+    sub = torch.arange(m, device=codes.device)
+    dec = codebooks[sub, codes.to(torch.int64)]  # [..., M, ds]
+    return dec.reshape(*codes.shape[:-1], m * ds).to(torch.bfloat16)

@@ -1,12 +1,14 @@
 """Vector search execution: per-segment search + global top-k merge.
 
-Counterpart of myscaledb_tpu/search/executor.py, without two-stage search
-and the host tier. The re-expression of the reference's search-manager
+Counterpart of myscaledb_tpu/search/executor.py, without the host tier
+(ROADMAP queue 1 #9). The re-expression of the reference's search-manager
 stack:
 
   MergeTreeVSManager::vectorScan            -> per-segment search_t
   performPrefilter + DenseBitmap            -> filters.Expr -> device mask
   getTotalTopSearchResultImpl (k-way heap)  -> on-device merge across segments
+  two-stage search (first_stage_only +      -> _two_stage_run: a global
+    computeTopDistanceSubset)                  candidate cut, exact re-rank
   mergeResult (score join by label)         -> SearchResult / Table.gather
 
 Where the JAX package runs one jitted program per query, the port issues
@@ -28,13 +30,13 @@ import torch.nn.functional as tnf
 
 from ..config import Settings
 from ..errors import QueryShapeError
-from ..index.base import VectorIndex, params_key
+from ..index.base import VectorIndex, params_key, split_dyn_nprobe
 from ..index.flat import FlatIndex
 from ..metrics import Metric, score_to_distance
 from ..ops.topk import NEG_INF
 from ..service.event_log import GLOBAL_COUNTERS
 from ..service.tracing import span
-from .filters import DeviceMask, Expr, Lambda, as_mask_array
+from .filters import DeviceMask, Expr, Lambda, WindowMask, as_mask_array
 
 
 class SearchResult:
@@ -284,10 +286,6 @@ class VectorSearchExecutor:
                 f"top-k window {k} exceeds max_search_result_window="
                 f"{st.query.max_search_result_window}"
             )
-        if st.query.two_stage_search if two_stage is None else bool(two_stage):
-            raise NotImplementedError(
-                "two-stage search is not ported yet (ROADMAP queue 1 #9)"
-            )
         if st.query.use_approx_topk:
             raise NotImplementedError(
                 "approximate top-k (use_approx_topk) is not ported; see ROADMAP "
@@ -304,9 +302,11 @@ class VectorSearchExecutor:
         nq_pad = max(8, -(-nq // 8) * 8)
         dpad = segments[0].vector(column).data.shape[1]
         pkey = params_key(params)
+        use_two_stage = st.query.two_stage_search if two_stage is None else bool(two_stage)
         searchers: List[VectorIndex] = []
         masks: List[Any] = []
         seg_ids: List[int] = []
+        first_stage: List[Tuple[int, VectorIndex, Any]] = []
         for seg in segments:
             fexpr = filter
             if filter is not None and st.query.optimize_prefilter_in_search:
@@ -339,6 +339,19 @@ class VectorSearchExecutor:
                     idx = None
                     forced_exact = True
                     GLOBAL_COUNTERS.bump("VectorIndexCostRouteToScan")
+            if idx is not None and isinstance(mask, DeviceMask) and hasattr(idx, "to_window_mask"):
+                # IVF-layout indexes test the predicate over their own
+                # window-permuted column mirrors (no per-row gather)
+                wm = idx.to_window_mask(mask, seg)
+                if wm is not None:
+                    mask = wm
+            if (
+                idx is not None
+                and (use_two_stage or idx.requires_two_stage())
+                and idx.supports_two_stage()
+            ):
+                first_stage.append((seg.segment_id, idx, mask))
+                continue
             if idx is None:
                 small = forced_exact or seg.n_rows < st.table.min_rows_to_build_vector_index
                 if not small and not st.query.enable_brute_force_vector_search:
@@ -361,13 +374,23 @@ class VectorSearchExecutor:
             masks.append(mask)
             seg_ids.append(seg.segment_id)
 
-        if not searchers:  # every segment const-folded away or skipped
+        if not searchers and not first_stage:  # every segment const-folded away or skipped
             return SearchResult.empty(metric, nq, k, qsq)
 
         queries = _prep_queries(qh, nq_pad, dpad, segments[0].device)
+        if first_stage:
+            return self._two_stage_run(
+                first_stage, searchers, masks, seg_ids, queries, nq, qsq, k, metric, st, params
+            )
+        # the IVF probe list is sized from nprobe's pow2 bucket, the actual
+        # nprobe masks the probes past it (base.split_dyn_nprobe)
+        bucketed, dyn_np = split_dyn_nprobe(pkey)
         vs, rs = [], []
         for s, m in zip(searchers, masks):
-            v, r = s.search_t(queries, k, mask=as_mask_array(m), params=pkey)
+            kw = {}
+            if dyn_np is not None and getattr(s, "supports_dyn_nprobe", False):
+                kw["dyn_nprobe"] = dyn_np
+            v, r = s.search_t(queries, k, mask=_resolve_mask(m), params=bucketed, **kw)
             vs.append(v)
             rs.append(r)
         mv, mt, mr = _merge_tagged_body(tuple(vs), tuple(rs), k)
@@ -379,3 +402,51 @@ class VectorSearchExecutor:
             k=k,
             query_sqnorm=qsq,
         )
+
+    # ------------------------------------------------------------ two-stage
+    def _two_stage_run(
+        self, first_stage, searchers, masks, seg_ids, queries, nq, qsq, k, metric, st, params
+    ) -> SearchResult:
+        """Two-stage search: the first pass of every two-stage index
+        (`search_first_stage`, k * two_stage_num_reorder_multiple
+        candidates each), one global candidate cut over all of them, the
+        exact re-rank of the survivors (`compute_scores_subset`); the other
+        segments are searched as usual (at the actual nprobe) and merged
+        in."""
+        pkey = params_key(params)
+        mult = st.query.two_stage_num_reorder_multiple
+        per: List[Tuple[int, torch.Tensor, torch.Tensor]] = []
+        cand = []
+        for seg_id, idx, mask in first_stage:
+            ncand = min(max(k * mult, k), idx.n_rows)
+            v, r = idx.search_first_stage(queries, ncand, params=params, mask=mask)
+            cand.append((seg_id, idx, v, r))
+        all_vals = torch.cat([v for _, _, v, _ in cand], dim=-1)
+        ncut = min(all_vals.shape[-1], max(k * mult, k))
+        cut = torch.topk(all_vals, ncut, dim=-1).values[:, -1:]
+        for seg_id, idx, v, r in cand:
+            rows_kept = torch.where(v >= cut, r, torch.full_like(r, -1))
+            exact = idx.compute_scores_subset(queries, rows_kept)
+            v2, p2 = torch.topk(exact, min(k, exact.shape[-1]), dim=-1)
+            per.append((seg_id, v2, torch.gather(rows_kept, -1, p2)))
+        for idx, mask, sid in zip(searchers, masks, seg_ids):
+            v, r = idx.search_t(queries, k, mask=_resolve_mask(mask), params=pkey)
+            per.append((sid, v, r))
+        kk = min(k, sum(v.shape[-1] for _, v, _ in per))
+        mv, mt, mr = _merge_tagged_body(
+            tuple(v for _, v, _ in per), tuple(r for _, _, r in per), kk
+        )
+        return SearchResult(
+            metric,
+            device=(mv, mt, mr),
+            seg_ids=np.asarray([s for s, _, _ in per], dtype=np.int64),
+            nq=nq,
+            k=kk,
+            query_sqnorm=qsq,
+        )
+
+
+def _resolve_mask(mask):
+    """A WindowMask goes to its index unbuilt (the index reads it in its
+    own layout); every other mask is materialized to row space."""
+    return mask if isinstance(mask, WindowMask) else as_mask_array(mask)

@@ -33,8 +33,7 @@ class DeviceMask:
     leaves, the mirrored scalar columns (tensors on the segment's device)
     and the comparison constants. `build()` produces the bool[capacity]
     bitmap with torch ops on that device, without host evaluation of the
-    predicate or a mask upload. (WindowMask, the IVF-layout variant, is
-    ported with IVF.)"""
+    predicate or a mask upload. WindowMask is its IVF-layout variant."""
 
     def __init__(self, skel, leaves, device):
         self.skel = skel  # ("root", capacity, n_rows, has_alive, expr_skel|None)
@@ -94,9 +93,30 @@ class DeviceMask:
         return out
 
 
+class WindowMask(DeviceMask):
+    """A DeviceMask re-expressed in an index's own row layout (the IVF
+    cluster-major window permutation): the column leaves are
+    layout-permuted mirrors, so the IVF scan reads the mask window by
+    window, contiguously, instead of gathering one row-space bit per
+    candidate. skel n_rows == capacity == N' (layout padding is excluded by
+    the scan's own row-validity test).
+
+    A "prebuilt" skeleton carries the bool[N'] bitmap itself as its only
+    leaf: a repeated filter hits the index's cache of materialized window
+    bitmaps and the search does no mask arithmetic at all."""
+
+    def build(self) -> torch.Tensor:
+        if self.skel[0] == "prebuilt":
+            return self.leaves[0]
+        return super().build()
+
+
 def as_mask_array(mask):
     """Materialize a mask input (None | bool tensor | DeviceMask) to a
-    bool[capacity] device tensor (or None)."""
+    bool[capacity] device tensor (or None). A WindowMask is not a
+    row-space mask: a path that reaches here with one raises."""
+    if isinstance(mask, WindowMask):
+        raise TypeError("a window-layout mask reached a row-space path")
     if isinstance(mask, DeviceMask):
         return mask.build()
     return mask

@@ -2,7 +2,8 @@
 
 `segment_from_arrays` builds the port's `Segment` over the same stored
 bytes as a JAX segment, given its arrays as numpy. `hnsw_from_state_dict`
-builds the port's HNSW index from a JAX HNSW index's `state_dict()`. They
+and `ivf_from_state_dict` build the port's HNSW and IVF indexes from a JAX
+index's `state_dict()` (`index_from_state_dict` picks one by kind). They
 let the port search exactly what the JAX package searches (the parity
 tests use them), and are the route by which a segment or an index built
 by one package serves in the other.
@@ -102,23 +103,70 @@ def segment_from_arrays(
     return seg
 
 
+def _bf16_bits(arrays: Dict, field: str) -> Dict:
+    """`arrays` with `field` viewed as uint16 when its dtype is named
+    bfloat16 (numpy has no bf16; the bits cross, not the values)."""
+    arrays = dict(arrays)
+    v = arrays.get(field)
+    if v is not None and np.asarray(v).dtype.name == "bfloat16":
+        arrays[field] = np.asarray(v).view(np.uint16)
+    return arrays
+
+
 def hnsw_from_state_dict(state: Dict, device):
-    """The port's HNSW index (HNSWFLAT or HNSWSQ) from a JAX HNSW index's
-    `state_dict()`: {"meta": {kind, metric, dim, n_rows, m, ef_default,
-    codec, storage_dtype}, "arrays": {field: numpy array}}, every array
-    moved to `device`. A bf16 payload crosses as its stored bits."""
+    """The port's HNSW index (HNSWFLAT, HNSWSQ or HNSWPQ) from a JAX HNSW
+    index's `state_dict()`: {"meta": {kind, metric, dim, n_rows, m,
+    ef_default, codec, storage_dtype}, "arrays": {field: numpy array}},
+    every array moved to `device`. A bf16 payload crosses as its stored
+    bits."""
     from ..index import hnsw
 
-    classes = {IndexKind.HNSWFLAT.value: hnsw.HNSWFlatIndex, IndexKind.HNSWSQ.value: hnsw.HNSWSQIndex}
+    classes = {
+        IndexKind.HNSWFLAT.value: hnsw.HNSWFlatIndex,
+        IndexKind.HNSWSQ.value: hnsw.HNSWSQIndex,
+        IndexKind.HNSWPQ.value: hnsw.HNSWPQIndex,
+    }
     kind = state["meta"]["kind"]
     if kind not in classes:
-        raise NotImplementedError(
-            f"index kind {kind!r} cannot cross yet (HNSWPQ and IVF: ROADMAP queue 1 #5)"
-        )
-    arrays = dict(state["arrays"])
-    data = arrays.get("data")
-    if data is not None and np.asarray(data).dtype.name == "bfloat16":
-        arrays["data"] = np.asarray(data).view(np.uint16)
+        raise ValueError(f"{kind!r} is not an HNSW index kind")
     return classes[kind].from_state_dict(
-        {"meta": state["meta"], "arrays": arrays}, device=torch.device(device)
+        {"meta": state["meta"], "arrays": _bf16_bits(state["arrays"], "data")},
+        device=torch.device(device),
     )
+
+
+def ivf_from_state_dict(state: Dict, device, payload=None):
+    """The port's IVF index (IVFFLAT, IVFSQ, IVFPQ or MSTG) from a JAX IVF
+    index's `state_dict()`: {"meta": {kind, metric, dim, n_rows,
+    n_clusters, n_windows, wpp, codec, two_stage, rerank_multiple,
+    storage_dtype}, "arrays": {field: numpy array}}, every array moved to
+    `device`. A raw bf16 `perm_data` crosses as its stored bits. The state
+    holds no payload: a two-stage index re-attaches `payload` (the
+    segment's VectorPayload) when it is given, and raises on search until
+    it has one."""
+    from ..index import ivf
+
+    classes = {
+        IndexKind.IVFFLAT.value: ivf.IVFFlatIndex,
+        IndexKind.IVFSQ.value: ivf.IVFSQIndex,
+        IndexKind.IVFPQ.value: ivf.IVFPQIndex,
+        IndexKind.MSTG.value: ivf.MSTGIndex,
+    }
+    kind = state["meta"]["kind"]
+    if kind not in classes:
+        raise ValueError(f"{kind!r} is not an IVF index kind")
+    idx = classes[kind].from_state_dict(
+        {"meta": state["meta"], "arrays": _bf16_bits(state["arrays"], "perm_data")},
+        device=torch.device(device),
+    )
+    if payload is not None:
+        idx.reattach_payload(payload)
+    return idx
+
+
+def index_from_state_dict(state: Dict, device, payload=None):
+    """Any index kind the port can load, from its `state_dict()` (either
+    package's layout)."""
+    if state["meta"]["kind"].startswith("HNSW"):
+        return hnsw_from_state_dict(state, device)
+    return ivf_from_state_dict(state, device, payload)

@@ -14,7 +14,9 @@ Counterpart of myscaledb_tpu/storage/table.py, for the MergeTree engine:
   * gather  -> output columns of the hits
 
 Every segment and index lives on the table's explicit `device`. Index
-builds run synchronously on the caller's thread: the background build
+builds run synchronously on the caller's thread; `load_index` installs an
+index from a state dict instead (a two-stage index re-attaches its
+segment's payload after a build and after a load). The background build
 scheduler, the LRU index cache, persistence and replication are ROADMAP
 queue 1 #10 and #13. Text indexes, versioned engines, mutations and
 merges are not ported yet (ROADMAP queue 1).
@@ -32,7 +34,7 @@ import torch
 
 from ..config import Settings
 from ..errors import IndexBuildCanceledError, IndexBuildMemoryError, IndexParameterError, SchemaError
-from ..index import hnsw  # noqa: F401  (registers HNSWFLAT and HNSWSQ)
+from ..index import hnsw, ivf  # noqa: F401  (register the HNSW and IVF kinds)
 from ..index import registry
 from ..index.base import IndexDescription, IndexKind, IndexStatus, VectorIndex
 from ..metrics import Metric
@@ -46,15 +48,10 @@ from .segment import Segment
 
 _STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# Index kinds the port cannot build yet, with the ROADMAP item that ports
-# them. HNSWFLAT and HNSWSQ are the only kinds with a `build`.
+# Index kinds the port cannot build, with the reason or the ROADMAP item
+# that ports them.
 _NOT_PORTED = {
     IndexKind.FLAT: "FLAT needs no index: every index-less segment is scanned exactly",
-    IndexKind.IVFFLAT: "IVF search is ROADMAP queue 1 #5",
-    IndexKind.IVFSQ: "IVF search and the SQ codec are ROADMAP queue 1 #5",
-    IndexKind.IVFPQ: "IVF search and the PQ codec are ROADMAP queue 1 #5",
-    IndexKind.MSTG: "MSTG (IVF + two-stage re-rank) is ROADMAP queue 1 #5",
-    IndexKind.HNSWPQ: "the PQ codec is ROADMAP queue 1 #5",
     IndexKind.BINARYFLAT: "binary vectors are ROADMAP queue 1 #8",
     IndexKind.BINARYMSTG: "binary vectors are ROADMAP queue 1 #8",
 }
@@ -161,6 +158,13 @@ class Table:
             raise NotImplementedError("binary vectors are not ported yet (ROADMAP queue 1 #8)")
         if type.lower() == "default":
             type = "MSTG"
+        if (
+            type.upper() == "MSTG"
+            and "disk_mode" not in params
+            and self.settings.table.default_mstg_disk_mode
+        ):
+            # the table-level default fills an omitted disk_mode
+            params["disk_mode"] = int(self.settings.table.default_mstg_disk_mode)
         desc = registry.make_description(
             name,
             column,
@@ -174,6 +178,10 @@ class Table:
         if desc.kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"index type {desc.kind.value} is not ported yet: {_NOT_PORTED[desc.kind]}"
+            )
+        if desc.params.get("disk_mode"):
+            raise NotImplementedError(
+                "MSTG disk_mode=1 (the host re-rank tier) is not ported yet (ROADMAP queue 1 #9)"
             )
         with self._lock:
             self._index_descs[name] = desc
@@ -250,6 +258,7 @@ class Table:
                     cancel_cb=_canceled,
                 )
             elapsed = time.time() - t0
+            self._reattach(instance, seg, desc)
             with self._lock:
                 if self._slots.get(key) is not slot:  # index dropped mid-build
                     return
@@ -279,6 +288,41 @@ class Table:
                 self.name, desc.name, desc.column, EventType.BUILD_ERROR,
                 segment_id=seg.segment_id, error=msg,
             )
+
+    @staticmethod
+    def _reattach(instance: VectorIndex, seg: Segment, desc: IndexDescription) -> None:
+        """Point a two-stage index's exact re-rank at its segment's own
+        payload (a reference: the index never owns or serializes it)."""
+        if hasattr(instance, "reattach_payload"):
+            instance.reattach_payload(seg.vector(desc.column))
+
+    def load_index(self, name: str, segment_id: int, state: Dict[str, Any]) -> VectorIndex:
+        """Install index `name` of one segment from a `state_dict()` (the
+        port's or the JAX package's layout) in place of a build: the load
+        path. The index moves to the table's device and a two-stage index
+        re-attaches the segment's payload. Returns the loaded instance."""
+        from .convert import index_from_state_dict
+
+        with self._lock:
+            desc = self._index_descs.get(name)
+            seg = self._segments.get(segment_id)
+        if desc is None or seg is None:
+            raise IndexParameterError(f"no vector index {name!r} on segment {segment_id}")
+        if state["meta"]["kind"] != desc.kind.value:
+            raise IndexParameterError(
+                f"state of a {state['meta']['kind']} index cannot load as {desc.kind.value}"
+            )
+        self.event_log.record(
+            self.name, name, desc.column, EventType.LOAD_START, segment_id=segment_id
+        )
+        instance = index_from_state_dict(state, self.device)
+        self._reattach(instance, seg, desc)
+        with self._lock:
+            self._slots[(segment_id, name)] = IndexSlot(IndexStatus.LOADED, instance)
+        self.event_log.record(
+            self.name, name, desc.column, EventType.LOAD_SUCCEED, segment_id=segment_id
+        )
+        return instance
 
     def _check_build_memory(self, estimate_bytes: int) -> None:
         """Raise IndexBuildMemoryError when the build would not fit the

@@ -229,10 +229,13 @@ def jax_corpus():
     return seg, vecs, _queries(rng, vecs, 16)
 
 
-@pytest.mark.parametrize("kind,metric", [("HNSWFLAT", m) for m in METRICS] + [("HNSWSQ", "L2")])
+@pytest.mark.parametrize(
+    "kind,metric", [("HNSWFLAT", m) for m in METRICS] + [("HNSWSQ", "L2"), ("HNSWPQ", "L2")]
+)
 def test_jax_index_carried_across_searches_alike(jax_corpus, kind, metric):
     seg, vecs, q = jax_corpus
-    jcls = {"HNSWFLAT": jhnsw.HNSWFlatIndex, "HNSWSQ": jhnsw.HNSWSQIndex}[kind]
+    jcls = {"HNSWFLAT": jhnsw.HNSWFlatIndex, "HNSWSQ": jhnsw.HNSWSQIndex,
+            "HNSWPQ": jhnsw.HNSWPQIndex}[kind]
     jidx = jcls.build(
         seg.vector("vec"), len(vecs), metric=JMetric(metric), dim=D, params={"m": M, "ef_c": EF_C}
     )
@@ -253,8 +256,10 @@ def test_jax_index_carried_across_searches_alike(jax_corpus, kind, metric):
                 np.testing.assert_allclose(v, jmap[r], **TOL)
                 shared += 1
     assert shared >= 0.99 * q.shape[0] * K
-    # both packages find the true neighbours (the SQ8 codec re-scores codes)
-    assert _recall(tr, _exact_top(q, vecs, metric)) >= (0.9 if kind == "HNSWFLAT" else 0.5)
+    # both packages find the true neighbours (the SQ8 and PQ codecs re-score
+    # codes; PQ at 32 subspaces of 4 dimensions loses more)
+    assert _recall(tr, _exact_top(q, vecs, metric)) >= {"HNSWFLAT": 0.9, "HNSWSQ": 0.5,
+                                                        "HNSWPQ": 0.4}[kind]
 
 
 def _counting_kernel_route(monkeypatch):
@@ -502,11 +507,42 @@ def test_index_lifecycle_add_insert_drop():
 
 
 @pytest.mark.parametrize("kind", ["HNSWPQ", "IVFFLAT", "IVFSQ", "IVFPQ", "MSTG"])
-def test_unported_kinds_raise(kind):
-    db = tms.connect(device="cpu")
+def test_pq_and_ivf_kinds_build_and_search(kind):
+    """The kinds that waited for IVF search and the PQ codec build through
+    add_vector_index and answer through the index. The IVF kinds report
+    exact distances (IVFFLAT scans the raw rows, the others re-rank
+    exactly); HNSWPQ re-scores its PQ codes."""
+    st = tms.Settings()
+    st.table.min_rows_to_build_vector_index = 1000
+    st.query.cost_based_index_routing = False
+    db = tms.connect(st, device="cpu")
     t = db.create_table("u", tms.Schema({"id": tms.UInt64(), "vec": tms.FloatVector(D)}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #5"):
-        t.add_vector_index("i", "vec", type=kind)
+    rng, vecs = _blobs(16, 3000)
+    t.insert({"id": np.arange(3000, dtype=np.uint64), "vec": vecs})
+    params = dict(m=M, ef_c=60) if kind == "HNSWPQ" else dict(ncentroids=32)
+    t.add_vector_index("i", "vec", type=kind, metric_type="L2", **params)
+    assert t.index_status("i") == {0: IndexStatus.LOADED}
+    idx = t.loaded_index(0, "vec", Metric.L2)
+    assert type(idx).kind.value == kind
+    assert idx.codec == {"HNSWPQ": "pq", "IVFFLAT": "raw", "IVFSQ": "sq8", "IVFPQ": "pq",
+                         "MSTG": "sq8"}[kind]
+    q = _queries(rng, vecs, 16)
+    sp = {"ef_s": 100} if kind == "HNSWPQ" else {"nprobe": 8}
+    res, bumps = _bumps(lambda: t.search("vec", q, k=K, params=sp))
+    assert bumps["VectorIndexSearches"] == 1 and bumps["VectorBruteForceSearches"] == 0
+    assert (res.rows >= 0).all() and (np.diff(res.distances, axis=1) >= 0).all()
+    stored = torch.from_numpy(vecs).to(torch.bfloat16).float().numpy()
+    recall = _recall(res.rows, _exact_top(q, stored, "L2"))
+    if kind == "HNSWPQ":
+        # codec-limited: 32 subspaces of 4 dimensions, 256 codewords each
+        assert recall >= 0.4
+    else:
+        assert recall >= (0.8 if kind == "IVFPQ" else 0.9)  # 40 PQ-ranked candidates re-ranked
+        # each hit's score is its stored row's exact f32 score
+        x = stored[res.rows]
+        exact = 2.0 * np.einsum("qd,qkd->qk", q, x) - (x * x).sum(-1)
+        np.testing.assert_allclose(res.scores, exact, **TOL)
+    db.close()
 
 
 def test_table_search_routes_and_counters():

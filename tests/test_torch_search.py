@@ -132,10 +132,18 @@ def test_empty_and_k_beyond_rows():
         t.search("vec", np.ones(3, np.float32), k=3)
     with pytest.raises(tms.QueryShapeError):
         t.search("vec", q, k=0)
-    with pytest.raises(NotImplementedError):
-        t.add_vector_index("i", "vec", "IVFFLAT")
-    with pytest.raises(NotImplementedError):
-        t.search("vec", q, k=3, two_stage=True)
+    # what is still not ported raises, naming its ROADMAP item
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
+        t.add_vector_index("i", "vec", "MSTG", disk_mode=1)
+    st = tms.Settings()
+    st.query.use_approx_topk = True
+    with pytest.raises(NotImplementedError, match="queue 2 #4"):
+        t.search("vec", q, k=3, settings=st)
+    # two-stage search over segments without a two-stage index is the
+    # plain search
+    r2 = t.search("vec", q, k=8, two_stage=True)
+    np.testing.assert_array_equal(r2.rows, r.rows)
+    np.testing.assert_array_equal(r2.distances, r.distances)
 
 
 @pytest.mark.parametrize(
