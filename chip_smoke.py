@@ -17,7 +17,8 @@ of the JAX package. Phases, each of which raises on failure:
      lo half) that must fall outside it, and the kernels' own query split
      checked bit for bit against `split_query_bf16`; gathermv held to
      `gathermv.kernel_error_bound`, with a control that skips the query's
-     bf16 cast and must fall outside it;
+     bf16 cast and must fall outside it; the binary kernel, both layouts,
+     bit for bit;
   3. the SIFT1M-shaped exact path through connect / create_table / insert /
      search / delete / gather: a 1,000,000-row segment (tile-max kernel)
      and a 50,000-row segment (score kernel), recall@10 against an exact
@@ -49,12 +50,32 @@ of the JAX package. Phases, each of which raises on failure:
      under two_stage_search. Every hit must be a live row with its exact
      f32 score. Then HNSWPQ (m=32, ef_c=100) on phase 4's table, searched
      at ef_s 100 (gathermv). --profile adds the ivf_flat cell and the
-     window step's gathered bytes beside the exact scan's device time.
+     window step's gathered bytes beside the exact scan's device time;
+  9. text and hybrid search on a 1,000,000 + 50,000-row table (bench.py's
+     12-word documents, phase 3's vectors): add_fts_index (which builder
+     ran, build seconds), 1,000 three-word queries (the sparse BM25 path on
+     the 1M store), 8-word queries (the dense path), AND, a filter, an NLQ
+     phrase, RRF and RSF hybrid search, then 100 deletes. Every text hit
+     lies within its bound of an f64 BM25 of its row (and no row left out
+     of the first batch beats the k-th beyond it); each fused list equals a
+     numpy fuse of its own two legs; the vector leg launches tile_max and
+     score. Both BM25 paths on the same 100 queries (score difference,
+     device ms), text and hybrid QPS; --profile adds text_bm25 and
+     hybrid_rrf;
+ 10. binary vectors: 1,000,000 x 1,024-bit rows (the sign bits of a
+     clustered 1,024-d corpus), Hamming and Jaccard exact scans (binary
+     kernel, rows layout), then BinaryMSTG with default params (blocks
+     layout; build seconds, recall against the exact scan), a filter and
+     deletes. Hits' scores are recomputed in numpy and the first queries'
+     top-k equal a full numpy scan's. The binary kernel is compared with
+     its plain version bit for bit in phase 2 and timed here; --profile
+     adds binary_exact and binary_mstg.
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
-three over phase 8; every kernel must have launched on its path, and the
-record's launches are the sums over those paths. The last line of standard
+three over phase 8, score and tile_max over phase 9, binary over phase
+10; every kernel must have launched on its path, and the record's
+launches are the sums over those paths. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record. Without CUDA, or without the package beside this
 file, it exits non-zero and prints no result.
@@ -122,6 +143,23 @@ IVF_BIG_BATCH = 500
 IVF_FILTERS = (100_000, 5_000)
 IVF_DYN_NPROBE = 3
 HNSWPQ_PARAMS = dict(m=32, ef_c=100)
+# the text and hybrid path (bench.py::sec_hybrid_text, :580-620, at phase
+# 3's sizes): documents of 12 words from term0..term4999 drawn with seed 3,
+# 1,000 queries in batches of 100 (3 words: the sparse BM25 path on the 1M
+# store; 8 words: the dense one), a filter, and RRF / RSF at k 10
+TEXT_VOCAB, TEXT_WORDS, TEXT_SEED = 5_000, 12, 3
+TEXT_NQ, TEXT_BATCH, TEXT_LONG_WORDS = 1_000, 100, 8
+TEXT_FILTER = 100_000
+HYBRID_FUSION_K, HYBRID_WEIGHT = 60, 0.5
+# the binary path: 1,000,000 rows of 1,024 bits (1,024-d binary-quantised
+# embeddings, 128 B a row), batch 100, k 10; the share of BinaryMSTG's hits
+# at or above the exact k-th score it must reach at its default nprobe
+BIN_N, BIN_DIM, BIN_NQ, BIN_BATCH = 1_000_000, 1_024, 1_000, 100
+BIN_FILTER = 500_000
+BIN_MIN_SCORE_RECALL = 0.9
+# popcounts an H100 SM retires per clock (CUDA C++ Programming Guide,
+# throughput of native arithmetic instructions, compute capability 9.0)
+POPC_PER_CLK_PER_SM = 16
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -651,7 +689,8 @@ def profile_cells(cells, runs, out_dir, card):
     launched and the largest device shares; the device busy share (device
     time over the median unprofiled pass); and one cProfile pass for the
     host functions with the most own time. Traces and full host profiles
-    go to `out_dir`."""
+    go to `out_dir`. A cell may give its queries per batch as a fourth
+    element (else each batch's len() counts them)."""
     import cProfile
     import pstats
     import statistics
@@ -659,7 +698,7 @@ def profile_cells(cells, runs, out_dir, card):
     import torch
 
     os.makedirs(out_dir, exist_ok=True)
-    for label, search, batches in cells:
+    for label, search, batches, *per_batch in cells:
         def one_pass():
             t0 = time.perf_counter()
             for qb in batches:
@@ -667,7 +706,8 @@ def profile_cells(cells, runs, out_dir, card):
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
-        nq, nb = sum(len(qb) for qb in batches), len(batches)
+        nb = len(batches)
+        nq = per_batch[0] * nb if per_batch else sum(len(qb) for qb in batches)
         one_pass()  # warm-up
         walls = [one_pass() for _ in range(runs)]
         rates = sorted(nq / w for w in walls)
@@ -1200,6 +1240,689 @@ def hnswpq_path(ms, dev, t, batches, queries, card):
     t.drop_vector_index("hpq")
 
 
+# ---------------------------------------------------------------- phase 9
+def text_corpus(n, seed=TEXT_SEED):
+    """bench.py:586-590's documents: TEXT_WORDS words drawn uniformly from
+    term0..term4999 with `seed`, drawn in one call. Returns (docs, rng)."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"term{i}" for i in range(TEXT_VOCAB)], dtype=object)
+    picks = words[rng.integers(0, TEXT_VOCAB, (n, TEXT_WORDS))]
+    return np.array([" ".join(r) for r in picks], dtype=object), rng
+
+
+class Bm25Oracle:
+    """A numpy f64 BM25 built from the documents themselves, independent of
+    the port's analyzer, stores and statistics: each document split on
+    whitespace (the corpus is lower-case `termN` words, which the analyzer
+    keeps whole), and the term frequencies, document frequencies, lengths
+    and average length counted here over every indexed document (a store's
+    statistics cover its deleted rows too: it is immutable once built).
+    Rows are the documents' indices, which are the table's `id` values."""
+
+    def __init__(self, docs, step=100_000):
+        index, parts = {}, []
+        lens = np.empty(len(docs), np.int64)
+        for s in range(0, len(docs), step):
+            toks = [d.split() for d in docs[s : s + step]]
+            lens[s : s + len(toks)] = [len(x) for x in toks]
+            parts.append(np.fromiter((index.setdefault(w, len(index)) for x in toks for w in x),
+                                     np.int64, int(lens[s : s + len(toks)].sum())))
+        n = len(docs)
+        pairs, tf = np.unique(np.concatenate(parts) * n + np.repeat(np.arange(n), lens),
+                              return_counts=True)
+        self.index, self.n = index, n
+        self.rows = pairs % n  # ascending within each term
+        self.tf = tf.astype(np.float64)
+        self.offsets = np.searchsorted(pairs // n, np.arange(len(index) + 1))
+        self.dl = lens.astype(np.float64)
+        self.avg_len = float(lens.sum()) / n
+
+    def term(self, term):
+        """(rows, f64 contributions) of one term's postings (rows ascend)."""
+        t = self.index.get(term)
+        if t is None:
+            return np.zeros(0, np.int64), np.zeros(0)
+        s, e = self.offsets[t], self.offsets[t + 1]
+        r, tf = self.rows[s:e], self.tf[s:e]
+        df = float(e - s)
+        idf = np.log(1.0 + (self.n - df + 0.5) / (df + 0.5))
+        return r, idf * tf * 2.2 / (tf + 1.2 * (0.25 + 0.75 * self.dl[r] / self.avg_len))
+
+    def full(self, terms):
+        """(f64 score, matched-term count) of every document."""
+        score = np.zeros(self.n)
+        count = np.zeros(self.n, np.int32)
+        for tm in terms:
+            r, c = self.term(tm)
+            score[r] += c
+            count[r] += 1
+        return score, count
+
+    def at(self, terms, rows):
+        """(f64 score, matched-term count) of the given documents."""
+        score = np.zeros(len(rows))
+        count = np.zeros(len(rows), np.int32)
+        for tm in terms:
+            r, c = self.term(tm)
+            pos = np.minimum(np.searchsorted(r, rows), max(len(r) - 1, 0))
+            hit = (r[pos] == rows) if len(r) else np.zeros(len(rows), bool)
+            score[hit] += c[pos[hit]]
+            count[hit] += 1
+        return score, count
+
+    def prefix_total(self, terms, member):
+        """The sparse path's largest prefix sum in one segment (`member`:
+        bool over documents): the total of the query's candidate
+        contributions there."""
+        return float(sum(c[member[r]].sum() for r, c in map(self.term, terms)))
+
+
+def check_text(label, t, oracle, results, query_batches, *, operator="OR", row_ok=None, full=1):
+    """Every hit of `results` (one SearchResult per batch of
+    `query_batches`) is a live, qualifying document whose f32 score lies
+    within its bound of `oracle`'s f64 BM25: DENSE_RTOL of the score,
+    plus, where a segment's batch took the sparse path, the sparse bound
+    of the query's prefix total there. For the first `full` batches, no
+    qualifying document left out outscores the k-th hit by more than that
+    bound, and a query with fewer than k hits has no other qualifying
+    document. `row_ok` takes document indices. Returns the largest
+    |score - f64| / bound seen."""
+    import torch
+
+    from myscaledb_tpu_torch.text import inverted
+
+    tdef = t._text_indexes["ft"]
+    segs = t.live_segments()
+    stats = tdef.merged_stats([s.segment_id for s in segs])
+    doc = {s.segment_id: s.scalar("id")[: s.n_rows].astype(np.int64) for s in segs}
+    alive = np.zeros(oracle.n, bool)
+    member = {}
+    for s in segs:
+        alive[doc[s.segment_id]] = ~s.deleted_host()[: s.n_rows]
+        member[s.segment_id] = np.zeros(oracle.n, bool)
+        member[s.segment_id][doc[s.segment_id]] = True
+    if row_ok is not None:
+        alive &= row_ok(np.arange(oracle.n))
+    worst = 0.0
+    for b, (qs, res) in enumerate(zip(query_batches, results)):
+        routes = {s.segment_id: tdef.store(s.segment_id).plan_batch(qs, stats=stats)[3]
+                  for s in segs}
+        for i, q in enumerate(qs):
+            terms = list(dict.fromkeys(q.split()))
+            need = max(len(terms), 1) if operator == "AND" else 1
+            extra = 0.0
+            for sid, route in routes.items():
+                if route == "sparse":
+                    pm = torch.tensor([np.float32(oracle.prefix_total(terms, member[sid]))])
+                    extra = max(extra, float(inverted.sparse_error_bound(pm)[0]))
+            valid = res.valid[i]
+            got = res.scores[i][valid]
+            hit = np.full(len(got), -1, np.int64)
+            for sid in doc:
+                on = res.segments[i][valid] == sid
+                hit[on] = doc[sid][res.rows[i][valid][on]]
+            check((hit >= 0).all(), f"{label}: query {i} of batch {b} returned a row of no live "
+                  "segment")
+            sc, cnt = oracle.at(terms, hit)
+            want = np.where((cnt >= need) & (sc > 0) & alive[hit], sc, -np.inf)
+            check(np.isfinite(want).all(), f"{label}: query {i} of batch {b} returned a row that "
+                  "does not qualify (deleted, filtered or not matching)")
+            bnd = inverted.DENSE_RTOL * np.abs(want) + extra
+            if len(got):
+                err = np.abs(got - want)
+                worst = max(worst, float((err / bnd).max()))
+                check((err <= bnd).all(), f"{label}: query {i} of batch {b}: a score lies "
+                      f"{float(err.max()):.6g} from its f64 BM25 (bound {float(bnd.max()):.6g})")
+            if b >= full:
+                continue
+            sc, cnt = oracle.full(terms)
+            ok = (cnt >= need) & (sc > 0) & alive
+            ok[hit] = False
+            left = sc[ok]
+            if valid.sum() < res.k:
+                check(len(left) == 0, f"{label}: query {i} left out {len(left)} qualifying rows")
+            elif len(left):
+                kth = float(got[-1])
+                check(left.max() <= kth + inverted.DENSE_RTOL * abs(kth) + extra,
+                      f"{label}: query {i}: a row left out scores {left.max():.6g} above the "
+                      f"k-th hit's {kth:.6g}")
+    return worst
+
+
+def best_and_median_qps(search, batches, nq_per_batch, rounds=3):
+    """(best, median) QPS over `rounds` timed passes after a warm-up pass,
+    each pass ending in torch.cuda.synchronize()."""
+    import statistics
+
+    import torch
+
+    for qb in batches:
+        search(qb)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for qb in batches:
+            search(qb)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / len(batches))
+    return nq_per_batch / min(walls), nq_per_batch / statistics.median(walls)
+
+
+def numpy_fuse(vres, tres, k, fusion_type, fusion_k=HYBRID_FUSION_K, weight=HYBRID_WEIGHT):
+    """RRF / RSF of the two legs' results in numpy f32, as the reference
+    defines them: first occurrence keeps the key's place (vector leg
+    first), ties keep that order. Returns (scores, segments, rows)."""
+    nq = vres.nq
+    out_v = np.full((nq, k), -np.inf, np.float32)
+    out_s = np.full((nq, k), -1, np.int64)
+    out_r = np.full((nq, k), -1, np.int64)
+    f32 = np.float32
+    for i in range(nq):
+        fused = {}
+        for leg, res, w in ((0, vres, f32(1.0) - f32(weight)), (1, tres, f32(weight))):
+            ok = res.valid[i]
+            keys = list(zip(res.segments[i][ok].tolist(), res.rows[i][ok].tolist()))
+            if fusion_type == "rrf":
+                contrib = [f32(1.0) / (f32(fusion_k) + f32(rank)) for rank in range(1, len(keys) + 1)]
+            else:
+                s = res.scores[i][ok].astype(np.float32)
+                lo, hi = (s.min(), s.max()) if len(s) else (f32(0), f32(0))
+                span = f32(hi - lo)
+                norm = (s - lo) / (span if span > 0 else f32(1.0))
+                norm = norm if span > 1e-12 else np.ones_like(s)
+                contrib = list(norm.astype(np.float32) * w)
+            for key, c in zip(keys, contrib):
+                fused[key] = f32(fused.get(key, f32(0.0)) + f32(c))
+        ordered = sorted(fused.items(), key=lambda kv: -kv[1])[:k]  # stable: first place wins ties
+        for j, ((sg, r), v) in enumerate(ordered):
+            out_v[i, j], out_s[i, j], out_r[i, j] = v, sg, r
+    return out_v, out_s, out_r
+
+
+def text_path(ms, dev, card, args):
+    """Phase 9: full-text and hybrid search on a 1,000,000 + 50,000-row
+    table with `body String` (bench.py's 12-word documents) and
+    `vec FloatVector(128)` (phase 3's corpus), through add_fts_index,
+    insert, text_search and hybrid_search. Returns the launch counts."""
+    import torch
+
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.ops import distance, tilescan
+    from myscaledb_tpu_torch.text import inverted
+
+    n_all = SIFT_N + SIFT_SMALL_N
+    t0 = time.perf_counter()
+    docs, rng = text_corpus(n_all)
+    vecs = np.concatenate([make_corpus(SIFT_N, SIFT_D, seed=0),
+                           make_corpus(SIFT_SMALL_N, SIFT_D, seed=1, centers=corpus_centers(SIFT_D))])
+    ids = np.arange(n_all, dtype=np.uint64)
+    db = ms.connect(device=dev)
+    t = db.create_table("hybrid", ms.Schema({"id": ms.UInt64(), "body": ms.String(),
+                                              "vec": ms.FloatVector(SIFT_D)}))
+    t1 = time.perf_counter()
+    for p in (slice(0, SIFT_N), slice(SIFT_N, n_all)):
+        t.insert({"id": ids[p], "body": docs[p], "vec": vecs[p]})
+    sync(dev)
+    t2 = time.perf_counter()
+    t.add_fts_index("ft", "body")
+    sync(dev)
+    t3 = time.perf_counter()
+    tdef = t._text_indexes["ft"]
+    segs = t.live_segments()
+    stores = [tdef.store(s.segment_id) for s in segs]
+    log(f"  documents and vectors made in {t1 - t0:.2f} s, insert {t2 - t1:.2f} s; fts build "
+        f"{t3 - t2:.2f} s by the {stores[0].builder} builder ({[s.builder for s in stores]}; "
+        f"postings {[int(s.postings_rows.numel()) for s in stores]}, vocabulary "
+        f"{[len(s.vocab) for s in stores]})  [{card}]")
+    check(all(s.builder == "native" for s in stores) or all(s.builder == "python" for s in stores),
+          "the stores were built by different builders")
+    t0 = time.perf_counter()
+    oracle = Bm25Oracle(docs)
+    log(f"  f64 BM25 oracle from the {n_all:,} documents' whitespace tokens: "
+        f"{len(oracle.index):,} terms, {oracle.rows.size:,} postings, average length "
+        f"{oracle.avg_len:.4f} ({time.perf_counter() - t0:.2f} s)")
+
+    words = [f"term{i}" for i in range(TEXT_VOCAB)]
+    picks = rng.integers(0, TEXT_VOCAB, (TEXT_NQ, TEXT_LONG_WORDS))
+    texts = [" ".join(words[j] for j in r[:3]) for r in picks]
+    longs = [" ".join(words[j] for j in r) for r in picks]
+    pairs = [" ".join(words[j] for j in r[:2]) for r in picks]
+    vq = (vecs[rng.choice(n_all, TEXT_NQ, replace=False)]
+          + 0.3 * rng.standard_normal((TEXT_NQ, SIFT_D))).astype(np.float32)
+    tb = [texts[i : i + TEXT_BATCH] for i in range(0, TEXT_NQ, TEXT_BATCH)]
+    lb = [longs[i : i + TEXT_BATCH] for i in range(0, TEXT_NQ, TEXT_BATCH)]
+    pb = [pairs[i : i + TEXT_BATCH] for i in range(0, TEXT_NQ, TEXT_BATCH)]
+    vb = [vq[i : i + TEXT_BATCH] for i in range(0, TEXT_NQ, TEXT_BATCH)]
+    stats = tdef.merged_stats([s.segment_id for s in segs])
+    routes = [(s.plan_batch(tb[0], stats=stats)[3], s.plan_batch(lb[0], stats=stats)[3])
+              for s in stores]
+    log(f"  BM25 routes (3-word, 8-word queries) per segment: {routes}")
+    check(routes[0] == ("sparse", "dense") and routes[1] == ("dense", "dense"),
+          f"the 1M store must take the sparse path for 3-word queries only: {routes}")
+
+    distance.scores.launches = 0
+    tilescan.tile_maxes.launches = 0
+    res = [t.text_search("body", qb, k=K) for qb in tb]
+    sync(dev)
+    w = check_text("text OR 3-word", t, oracle, res, tb, full=1)
+    log(f"  text_search, {TEXT_NQ} 3-word queries (batch {TEXT_BATCH}): every hit within its "
+        f"bound of the f64 BM25 (worst err/bound {w:.3g}); no row left out of batch 1 beats "
+        f"the k-th beyond the bound")
+    w = check_text("text OR 8-word", t, oracle, [t.text_search("body", lb[0], k=K)], lb[:1])
+    log(f"  8-word queries (the dense path on both stores): worst err/bound {w:.3g}")
+    ares = [t.text_search("body", qb, k=K, operator="AND") for qb in pb[:2]]
+    w = check_text("text AND 2-word", t, oracle, ares, pb[:2], operator="AND", full=2)
+    n_and = sum(int(r.valid.sum()) for r in [t.text_search("body", pb[0], k=K, operator="AND")])
+    log(f"  AND over 2-word queries: worst err/bound {w:.3g}, {n_and} hits in batch 1")
+    flt = F("id") < TEXT_FILTER
+    fres = [t.text_search("body", qb, k=K, filter=flt) for qb in tb[:2]]
+    ids_f = np.concatenate([t.gather(r, ["id"])["id"][r.valid] for r in fres])
+    check((ids_f < TEXT_FILTER).all(), f"a filtered text hit fails id < {TEXT_FILTER}")
+    w = check_text("text filtered", t, oracle, fres, tb[:2], full=2,
+                   row_ok=lambda d: d < TEXT_FILTER)
+    log(f"  filter id < {TEXT_FILTER}: all {ids_f.size} hits pass, worst err/bound {w:.3g}")
+    # an NLQ phrase: two adjacent words of a document, plus a scored word
+    doc_id = int(rng.integers(n_all))
+    doc = docs[doc_id].split()
+    phrase = f"{doc[4]} {doc[5]}"
+    nres = t.text_search("body", f'"{phrase}" {doc[0]}', k=K, enable_nlq=True)
+    got = t.gather(nres, ["id", "body"])
+    hits = list(zip(got["id"][nres.valid].tolist(), got["body"][nres.valid].tolist()))
+    check(any(i == doc_id for i, _ in hits) and all(f" {phrase} " in f" {b} " for _, b in hits),
+          f"NLQ phrase {phrase!r}: hits {hits[:3]}")
+    log(f"  NLQ '\"{phrase}\" {doc[0]}': {len(hits)} hits, each holding the phrase, the source "
+        f"document among them")
+
+    # the two BM25 paths on the 1M store, the same 100 three-word queries
+    store0 = stores[0]
+    sp = store0.bm25_topk_batch(tb[0], K, stats=stats, route="sparse")
+    de = store0.bm25_topk_batch(tb[0], K, stats=stats, route="dense")
+    sv, dv = sp[0].cpu().numpy(), de[0].cpu().numpy()
+    fin = np.isfinite(dv)
+    check((np.isfinite(sv) == fin).all(), "the two paths find different numbers of hits")
+    diff = np.abs(np.sort(sv, 1) - np.sort(dv, 1))[np.sort(fin, 1)]
+    bnd = sp[4].cpu().numpy()
+    allowed = bnd[:, None] + 2 * inverted.DENSE_RTOL * np.abs(np.sort(dv, 1))
+    check((np.abs(np.sort(sv, 1) - np.sort(dv, 1)) <= allowed)[np.sort(fin, 1)].all(),
+          "the sparse path's scores lie outside their bound")
+    times = {}
+    for route in ("sparse", "dense"):
+        dms, _, nk = device_trace(
+            lambda qb: store0.bm25_topk_batch(qb, K, stats=stats, route=route), tb[:1],
+            os.path.join(args.out, f"trace_bm25_{route}.json"))
+        times[route] = (dms, nk)
+    log(f"  BM25 on the 1M store, batch {TEXT_BATCH} 3-word queries: sparse {times['sparse'][0]:.4f} "
+        f"ms device ({times['sparse'][1]} kernels), dense {times['dense'][0]:.4f} ms device "
+        f"({times['dense'][1]} kernels); max |sparse - dense| of the sorted top-{K} "
+        f"{float(diff.max()):.6g} (sparse bound {float(bnd.min()):.6g}-{float(bnd.max()):.6g}, "
+        f"{inverted.SPARSE_ULPS} ulps of the prefix total)  [{card}]")
+
+    # hybrid: each fused list against a numpy fuse of the port's own legs
+    n_cand = K * t.settings.query.hybrid_search_top_k_multiple_base
+    for ftype, kw in (("rrf", {"fusion_k": HYBRID_FUSION_K}), ("rsf", {"fusion_weight": HYBRID_WEIGHT})):
+        for qv, qt in list(zip(vb, tb))[:3]:
+            hres = t.hybrid_search("vec", "body", qv, qt, k=K, fusion_type=ftype, **kw)
+            legs = (t.search("vec", qv, k=n_cand), t.text_search("body", qt, k=n_cand))
+            nv, ns, nr = numpy_fuse(*legs, K, ftype)
+            if ftype == "rrf":
+                check(np.array_equal(hres.scores, nv) and np.array_equal(hres.segments, ns)
+                      and np.array_equal(hres.rows, nr), "RRF differs from the numpy fuse of its legs")
+            else:
+                check(np.allclose(hres.scores, nv, rtol=0, atol=1e-6),
+                      "RSF scores differ from the numpy fuse of its legs")
+                nb = np.pad(nv, ((0, 0), (1, 1)), constant_values=np.nan)
+                with np.errstate(invalid="ignore"):
+                    apart = ~(np.abs(nv - nb[:, :-2]) <= 1e-6) & ~(np.abs(nv - nb[:, 2:]) <= 1e-6)
+                apart &= np.isfinite(nv)
+                check((hres.rows[apart] == nr[apart]).all() and
+                      (hres.segments[apart] == ns[apart]).all(),
+                      "RSF ids differ from the numpy fuse of its legs")
+        log(f"  hybrid {ftype.upper()} ({kw}): 3 batches equal a numpy fuse of their own legs "
+            f"(k {K}, {n_cand} candidates a leg)")
+    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    check(launches["score"] > 0 and launches["tile_max"] > 0,
+          f"the hybrid vector leg did not launch score and tile_max: {launches}")
+
+    # deletes last: 100 of batch 1's hits, then batch 1 again
+    first = sorted({int(i) for r in res[:1] for i in t.gather(r, ["id"])["id"][r.valid]})[:100]
+    check(t.delete(F("id").isin(first)) == len(first), "delete removed another count of rows")
+    dres = [t.text_search("body", tb[0], k=K)]
+    left = set(t.gather(dres[0], ["id"])["id"][dres[0].valid].tolist())
+    check(not left & set(first), "a deleted row came back from the text search")
+    check_text("text after deletes", t, oracle, dres, tb[:1])
+    hd = t.hybrid_search("vec", "body", vb[0], tb[0], k=K, fusion_type="rrf")
+    check(not set(t.gather(hd, ["id"])["id"][hd.valid].tolist()) & set(first),
+          "a deleted row came back from the hybrid search")
+    log(f"  delete: {len(first)} of batch 1's hits deleted, none returned by text or hybrid search")
+
+    def text(qb):
+        return t.text_search("body", qb, k=K)
+
+    pairs_h = list(zip(vb, tb))
+
+    def hybrid(p):
+        return t.hybrid_search("vec", "body", p[0], p[1], k=K, fusion_type="rrf")
+
+    tq = best_and_median_qps(text, tb, TEXT_BATCH)
+    hq = best_and_median_qps(hybrid, pairs_h, TEXT_BATCH)
+    log(f"  text_search QPS (batch {TEXT_BATCH}, 3-word, k {K}): best {tq[0]:.1f}, median "
+        f"{tq[1]:.1f}; hybrid RRF QPS: best {hq[0]:.1f}, median {hq[1]:.1f}  [{card}]")
+    if args.profile:
+        log(f"[9p] where the time goes on {card}")
+        profile_cells([("text_bm25", text, tb), ("hybrid_rrf", hybrid, pairs_h, TEXT_BATCH)],
+                      PROFILE_RUNS, args.out, card)
+    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    db.drop_table("hybrid")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 10
+def binary_corpus(dev, n, dim, seed):
+    """The sign bits of a clustered dim-d corpus (make_corpus's mixture
+    around corpus_centers(dim, seed), drawn on the card), packed as
+    numpy.packbits packs them: u8[n, dim / 8] on the card."""
+    import torch
+
+    centers = torch.from_numpy(corpus_centers(dim, seed)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    weights = (2 ** torch.arange(7, -1, -1, device=dev)).to(torch.int32)
+    out = torch.empty((n, dim // 8), dtype=torch.uint8, device=dev)
+    for i in range(0, n, 100_000):
+        m = min(100_000, n - i)
+        x = centers[torch.randint(0, centers.shape[0], (m,), generator=g, device=dev)]
+        x = x + torch.randn((m, dim), generator=g, device=dev)
+        out[i : i + m] = ((x > 0).to(torch.int32).reshape(m, dim // 8, 8) * weights).sum(-1)
+    return out
+
+
+def popcount_u64(a):
+    """Bit counts of a uint64 array (numpy >= 2 has bitwise_count)."""
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(a)
+    lut = np.array([bin(i).count("1") for i in range(1 << 16)], np.uint8)
+    return sum(lut[(a >> s) & 0xFFFF] for s in (0, 16, 32, 48))
+
+
+def binary_oracle(x64, q64, metric):
+    """numpy f32 scores of packed rows viewed as uint64 words against one
+    query: -popcount(q ^ x), or |q & x| / |q | x| (1.0 when empty)."""
+    if metric == "Hamming":
+        return -popcount_u64(x64 ^ q64).sum(1, dtype=np.int64).astype(np.float32)
+    inter = popcount_u64(x64 & q64).sum(1, dtype=np.int64).astype(np.float32)
+    union = popcount_u64(x64 | q64).sum(1, dtype=np.int64).astype(np.float32)
+    return np.where(union > 0, inter / np.maximum(union, np.float32(1.0)), np.float32(1.0))
+
+
+def check_binary_hits(label, t, x64, queries, results, metric, oracle_queries=0, row_ok=None):
+    """Every hit is a live (and filter-passing) row whose score is the
+    numpy score of its packed row; for the first `oracle_queries` queries
+    the top-k scores equal a full numpy scan's exactly."""
+    seg = t.live_segments()[0]
+    ok_rows = ~seg.deleted_host()[: seg.n_rows]
+    if row_ok is not None:
+        ok_rows &= row_ok(seg)
+    q64 = queries.view(np.uint64)
+    scores = np.concatenate([r.scores for r in results])
+    rows = np.concatenate([r.rows for r in results])
+    check((rows >= 0).all(), f"{label}: a query got fewer than {K} hits")
+    check(ok_rows[rows].all(), f"{label}: a deleted or filtered-out row came back")
+    for i in range(len(queries)):
+        want = binary_oracle(x64[rows[i]], q64[i : i + 1], metric)
+        check(np.array_equal(scores[i], want), f"{label}: query {i}'s hits differ from their "
+              "recomputed scores")
+    for i in range(oracle_queries):
+        s = binary_oracle(x64, q64[i : i + 1], metric)
+        top = np.sort(s[ok_rows])[::-1][:K]
+        check(np.array_equal(scores[i], top), f"{label}: query {i}'s top-{K} scores differ from "
+              "a full numpy scan's")
+
+
+def popc_rate():
+    """Population counts per second the card can retire: 16 per clock per
+    SM (CUDA C++ Programming Guide, throughput of native arithmetic
+    instructions, compute capability 9.0) on every SM at the maximum SM
+    clock nvidia-smi reports."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLK_PER_SM * sms * mhz * 1e6, sms, mhz
+
+
+def exact_err(got, want):
+    """max |got - want|, an entry where both are -inf counting 0 (inf
+    where only one side is infinite)."""
+    import torch
+
+    d = torch.where(got == want, torch.zeros_like(got), (got - want).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def compare_binary(dev):
+    """The binary kernel against its plain version, bit for bit: the rows
+    layout at the exact scan's chunk shape and a ragged one, the blocks
+    layout at a made-up shape and a ragged one (phase 10 holds it at
+    BinaryMSTG's own); masks, rows past n_valid, empty slots and clamped
+    block ids included. Returns the largest |kernel - plain| measured."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import binary
+
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def bits(shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+
+    n_cmp, err = 0, 0.0
+    for metric in (Metric.HAMMING, Metric.JACCARD):
+        for q, n, b in ((BIN_BATCH, 65_536, BIN_DIM // 8), (300, 4_099, 13)):
+            qb, x = bits((q, b)), bits((n, b))
+            x[:3] = 0
+            mask = torch.rand(n, generator=g, device=dev) < 0.7
+            got = binary.binary_scores(qb, x, metric, n_valid=n - 7, mask=mask)
+            valid = (torch.arange(n, device=dev) < n - 7) & mask
+            want = binary.binary_scores_plain(qb, x, metric, valid)
+            check(torch.equal(got, want),
+                  f"binary rows kernel differs from its plain version: Q={q} N={n} B={b} {metric}")
+            err = max(err, exact_err(got, want))
+            n_cmp += got.numel()
+        for q, p, c, m, b in ((BIN_BATCH, 16, 64, 1_200, BIN_DIM // 8), (7, 3, 5, 257, 5)):
+            qb, x = bits((q, b)), bits((c, m, b))
+            rows = torch.randperm(c * m, generator=g, device=dev).to(torch.int32).reshape(c, m)
+            rows[:, -(m // 9 + 1):] = -1
+            blk = torch.randint(-1, c + 1, (q, p), generator=g, device=dev, dtype=torch.int32)
+            mask = torch.rand(c * m, generator=g, device=dev) < 0.6
+            got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask)
+            want = binary.binary_block_scores_plain(qb, x, blk, rows, mask, metric)
+            check(torch.equal(got, want), f"binary blocks kernel differs from its plain version: "
+                  f"Q={q} P={p} C={c} M={m} B={b} {metric}")
+            err = max(err, exact_err(got, want))
+            n_cmp += got.numel()
+    log(f"  binary   rows (Q={BIN_BATCH} N=65,536 B={BIN_DIM // 8}; Q=300 N=4,099 B=13) and blocks "
+        f"(Q={BIN_BATCH} P=16 M=1,200; Q=7 P=3 M=257 B=5), Hamming and Jaccard: {n_cmp} scores "
+        f"equal to the plain version's bit for bit (max |kernel - plain| {err:g})")
+    sync(dev)
+    return err
+
+
+def binary_path(ms, dev, card, args):
+    """Phase 10: BinaryVector(1024) search over 1,000,000 rows, exact
+    (BinaryFLAT scan) and through BinaryMSTG with default params, Hamming
+    and Jaccard, batch 100, k 10, with a filter and deletes. Returns
+    (launches, the kernel's timing record, the largest |kernel - plain|
+    at the path's shapes)."""
+    import torch
+
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import binary
+    from myscaledb_tpu_torch.ops.topk import topk_stable
+    from myscaledb_tpu_torch.search.executor import segment_mask
+    from myscaledb_tpu_torch.search.filters import as_mask_array
+
+    t0 = time.perf_counter()
+    packed_dev = binary_corpus(dev, BIN_N, BIN_DIM, seed=5)
+    packed = packed_dev.cpu().numpy()
+    del packed_dev
+    rng = np.random.default_rng(6)
+    flips = np.packbits(rng.random((BIN_NQ, BIN_DIM)) < 0.05, axis=1)
+    queries = packed[rng.choice(BIN_N, BIN_NQ, replace=False)] ^ flips
+    batches = [queries[i : i + BIN_BATCH] for i in range(0, BIN_NQ, BIN_BATCH)]
+    t1 = time.perf_counter()
+    db = ms.connect(device=dev)
+    t = db.create_table("bin", ms.Schema({"id": ms.UInt64(), "bv": ms.BinaryVector(BIN_DIM)}))
+    t.insert({"id": np.arange(BIN_N, dtype=np.uint64), "bv": packed})
+    sync(dev)
+    t2 = time.perf_counter()
+    seg = t.live_segments()[0]
+    log(f"  {BIN_N} x {BIN_DIM}-bit rows made in {t1 - t0:.2f} s, inserted in {t2 - t1:.2f} s "
+        f"(payload {tuple(seg.vector('bv').data.shape)} u8 = "
+        f"{seg.vector('bv').data.numel() / 1e6:.1f} MB on the card)")
+    x64 = packed.view(np.uint64)
+    binary.binary_scores.launches = 0
+    binary.binary_block_scores.launches = 0
+    exact = {}
+    for metric in ("Hamming", "Jaccard"):
+        res = [t.search("bv", qb, k=K, metric=metric) for qb in batches]
+        check_binary_hits(f"{metric} exact scan", t, x64, queries, res, metric, oracle_queries=20)
+        exact[metric] = res
+        rate = best_and_median_qps(lambda qb: t.search("bv", qb, k=K, metric=metric), batches,
+                                   BIN_BATCH)
+        log(f"  {metric} exact scan: every hit's score recomputed, the first 20 queries' top-{K} "
+            f"equal a full numpy scan's; QPS best {rate[0]:.1f}, median {rate[1]:.1f} "
+            f"(batch {BIN_BATCH})  [{card}]")
+    if args.profile:
+        log(f"[10p] where the time goes on {card}")
+        profile_cells([("binary_exact", lambda qb: t.search("bv", qb, k=K), batches[:4])],
+                      PROFILE_RUNS, args.out, card)
+    n_scan = binary.binary_scores.launches
+    check(n_scan > 0, "the exact binary scan did not launch the kernel")
+    log(f"  rows-layout launches over the exact scans: {n_scan} (one per 64k-row chunk of "
+        f"each search)")
+    flt = F("id") < BIN_FILTER
+    fres = [t.search("bv", qb, k=K, filter=flt) for qb in batches[:2]]
+    check_binary_hits("Hamming filtered", t, x64, queries[: 2 * BIN_BATCH], fres, "Hamming",
+                      oracle_queries=5, row_ok=lambda s: s.scalar("id")[: s.n_rows] < BIN_FILTER)
+    log(f"  filter id < {BIN_FILTER}: every hit passes and is exact")
+
+    t0 = time.perf_counter()
+    t.add_vector_index("bm", "bv", type="BinaryMSTG")
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    check(t.index_status("bm") == {0: IndexStatus.LOADED},
+          f"BinaryMSTG did not load: {t.index_status('bm')} {t.event_log.rows()[-1:]}")
+    idx = t.loaded_index(0, "bv", Metric.HAMMING)
+    log(f"  BinaryMSTG build {build_s:.2f} s ({idx.n_clusters} clusters, bucket capacity "
+        f"{idx.bucket_cap}, {idx.n_overflow} rows in overflow; index "
+        f"{idx.memory_bytes / 1e9:.4f} GB)  [{card}]")
+    blocks_before = binary.binary_block_scores.launches
+    mres = [t.search("bv", qb, k=K) for qb in batches]
+    check(binary.binary_block_scores.launches - blocks_before == len(batches),
+          "BinaryMSTG must score its buckets in one blocks-layout launch per search")
+    check_binary_hits("BinaryMSTG", t, x64, queries, mres, "Hamming")
+    ev = np.concatenate([r.scores for r in exact["Hamming"]])
+    mv = np.concatenate([r.scores for r in mres])
+    er = np.concatenate([r.rows for r in exact["Hamming"]])
+    mr = np.concatenate([r.rows for r in mres])
+    rid = np.mean([len(set(a.tolist()) & set(b.tolist())) / K for a, b in zip(mr, er)])
+    rscore = float((mv >= ev[:, -1:]).mean())
+    rate = best_and_median_qps(lambda qb: t.search("bv", qb, k=K), batches, BIN_BATCH)
+    log(f"  BinaryMSTG at its default nprobe: recall_ids@{K} {rid:.4f}, hits at or above the "
+        f"exact k-th score {rscore:.4f}; QPS best {rate[0]:.1f}, median {rate[1]:.1f}  [{card}]")
+    check(rscore >= BIN_MIN_SCORE_RECALL, f"BinaryMSTG finds too few of the exact top-{K}")
+    # deletes last: every query's best hit
+    gone = sorted({int(r) for r in mr[:, 0]})
+    check(t.delete(F("id").isin(gone)) == len(gone), "delete removed another count of rows")
+    jres = [t.search("bv", qb, k=K, metric="Jaccard") for qb in batches]  # the exact scan
+    check_binary_hits("Jaccard after deletes", t, x64, queries, jres, "Jaccard", oracle_queries=5)
+    dres = [t.search("bv", qb, k=K) for qb in batches]
+    check(not set(np.concatenate([r.rows for r in dres]).ravel().tolist()) & set(gone),
+          "a deleted row came back from the BinaryMSTG search")
+    log(f"  delete: {len(gone)} rows deleted, none returned by the exact or BinaryMSTG search")
+    launches = binary.binary_scores.launches + binary.binary_block_scores.launches
+    log(f"  binary kernel launches on phase 10: rows layout {binary.binary_scores.launches}, "
+        f"blocks layout {binary.binary_block_scores.launches}")
+    check(binary.binary_block_scores.launches > 0, "BinaryMSTG did not launch the blocks layout")
+
+    # times, at the main path's shapes
+    rate, sms, mhz = popc_rate()
+    qd = torch.from_numpy(queries[:BIN_BATCH]).to(dev)
+    xd = seg.vector("bv").data[:65_536]
+    w = BIN_DIM // 32
+    call = lambda: binary.binary_scores(qd, xd, Metric.HAMMING)  # noqa: E731
+    rec = dict(
+        ms=cuda_time_ms(call),
+        plain_ms=cuda_time_ms(lambda: binary.binary_scores_plain(qd, xd, Metric.HAMMING), iters=3,
+                              warmup=1),
+        library_ms=None,  # torch has no popcount: no one call computes it
+    )
+    nbytes = xd.numel() + qd.numel() + 4 * BIN_BATCH * 65_536
+    b_s, o_s = nbytes / PEAK_BYTES_PER_S, BIN_BATCH * 65_536 * w / rate
+    rec["bound_ms"], rec["bound_by"] = 1e3 * max(b_s, o_s), ("bytes" if b_s >= o_s else "operations")
+    log(f"  binary   rows Q={BIN_BATCH} N=65,536 B={BIN_DIM // 8} Hamming: kernel {rec['ms']:.4f} ms,"
+        f" plain {rec['plain_ms']:.4f} ms, library n/a, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: {BIN_BATCH * 65_536 * w / 1e6:.1f}M popcounts at {rate / 1e12:.3f}e12/s "
+        f"= 16 x {sms} SMs x {mhz:.0f} MHz; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it)  [{card}]")
+    # the blocks layout at the search's own inputs: its probe, its buckets
+    # and its mask (the filter's after the deletes), and the overflow scan's
+    nprobe = idx._nprobe(())
+    qbits = binary.unpack_bits_f32(qd, BIN_DIM)
+    probe = topk_stable(2.0 * (qbits @ idx.centroids.T) - idx.csq[None, :], nprobe)[1].contiguous()
+    smask = as_mask_array(segment_mask(seg, flt))
+    omask = torch.logical_and(idx.over_rows >= 0,
+                              smask[torch.clamp(idx.over_rows, min=0).to(torch.int64)])
+    opad = idx.over_data.shape[0]
+    perr, n_cmp = 0.0, 0
+    for metric in (Metric.HAMMING, Metric.JACCARD):
+        for m in (None, smask):
+            got = binary.binary_block_scores(qd, idx.bucket_data, probe, idx.bucket_rows, metric,
+                                             mask=m)
+            want = binary.binary_block_scores_plain(qd, idx.bucket_data, probe, idx.bucket_rows,
+                                                    m, metric)
+            check(torch.equal(got, want), f"binary blocks kernel differs from its plain version "
+                  f"at BinaryMSTG's shape ({metric}, mask {m is not None})")
+            perr, n_cmp = max(perr, exact_err(got, want)), n_cmp + got.numel()
+        for m in (None, omask):
+            got = binary.binary_scores(qd, idx.over_data, metric, n_valid=idx.n_overflow, mask=m)
+            valid = torch.arange(opad, device=dev) < idx.n_overflow
+            want = binary.binary_scores_plain(qd, idx.over_data, metric,
+                                              valid if m is None else valid & m)
+            check(torch.equal(got, want), f"binary rows kernel differs from its plain version on "
+                  f"BinaryMSTG's overflow rows ({metric}, mask {m is not None})")
+            perr, n_cmp = max(perr, exact_err(got, want)), n_cmp + got.numel()
+    log(f"  binary   blocks Q={BIN_BATCH} P={nprobe} C={idx.n_clusters} M={idx.bucket_cap} and "
+        f"overflow rows N={opad} (n_valid {idx.n_overflow}), Hamming and Jaccard, with and "
+        f"without the filtered search's mask: {n_cmp} scores equal to the plain version's bit "
+        f"for bit (max |kernel - plain| {perr:g})")
+    bcall = lambda: binary.binary_block_scores(  # noqa: E731
+        qd, idx.bucket_data, probe, idx.bucket_rows, Metric.HAMMING)
+    bms = cuda_time_ms(bcall)
+    bplain = cuda_time_ms(lambda: binary.binary_block_scores_plain(
+        qd, idx.bucket_data, probe, idx.bucket_rows, None, Metric.HAMMING), iters=3, warmup=1)
+    # bytes: each bucket the probe reads once (payload and row ids), the
+    # queries, the probe and the output; popcounts: one a word a slot
+    n_blk = int(torch.unique(probe).numel())
+    bpop = BIN_BATCH * nprobe * idx.bucket_cap * w
+    bbytes = (n_blk * idx.bucket_cap * (BIN_DIM // 8 + 4) + qd.numel() + 4 * probe.numel()
+              + 4 * BIN_BATCH * nprobe * idx.bucket_cap)
+    bbound = 1e3 * max(bbytes / PEAK_BYTES_PER_S, bpop / rate)
+    log(f"  binary   blocks Q={BIN_BATCH} P={nprobe} M={idx.bucket_cap} B={BIN_DIM // 8} Hamming: "
+        f"kernel {bms:.4f} ms, plain {bplain:.4f} ms, bound {bbound:.4f} ms "
+        f"({'bytes' if bbytes / PEAK_BYTES_PER_S >= bpop / rate else 'operations'}: "
+        f"{bbytes / 1e6:.1f} MB over the {n_blk} distinct buckets probed, "
+        f"{bpop / 1e6:.1f}M popcounts; {100 * bbound / bms:.1f}% of it)  [{card}]")
+    if args.profile:
+        profile_cells([("binary_mstg", lambda qb: t.search("bv", qb, k=K), batches)],
+                      PROFILE_RUNS, args.out, card)
+    db.drop_table("bin")
+    return launches, rec, perr
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None):
     import argparse
@@ -1243,6 +1966,7 @@ def main(argv=None):
     log("[2] kernels vs plain versions on the card")
     errs = compare_kernels(dev)
     errs["gathermv"] = compare_gathermv(dev)
+    errs["binary"] = compare_binary(dev)
 
     # ---- 3./4. the exact paths, with their launch counters zeroed
     distance.scores.launches = 0
@@ -1308,6 +2032,21 @@ def main(argv=None):
         check(n > 0, f"kernel {name} was not launched on phase 8's paths")
         launches[name] += n
 
+    # ---- 9. text and hybrid search (score and tile_max zeroed inside)
+    log(f"[9] text and hybrid path ({SIFT_N:,} + {SIFT_SMALL_N:,} rows: body String of "
+        f"{TEXT_WORDS} words from {TEXT_VOCAB:,}, vec FloatVector({SIFT_D}); batch {TEXT_BATCH}, k={K})")
+    p9 = text_path(ms, dev, card, args)
+    log(f"  kernel launches on the text and hybrid path: {p9}")
+    for name, n in p9.items():
+        launches[name] += n
+
+    # ---- 10. binary vectors (the binary counters zeroed inside)
+    log(f"[10] binary path ({BIN_N:,} x BinaryVector({BIN_DIM}), Hamming and Jaccard, exact scan "
+        f"then BinaryMSTG; batch {BIN_BATCH}, k={K})")
+    launches["binary"], timing["binary"], perr = binary_path(ms, dev, card, args)
+    errs["binary"] = max(errs["binary"], perr)
+    check(launches["binary"] > 0, "kernel binary was not launched on the binary path")
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
         {"name": "score", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/score.cu",
@@ -1322,6 +2061,10 @@ def main(argv=None):
          "replaces": "myscaledb_tpu/ops/gathermv.py:52",
          "launches": launches["gathermv"], "max_abs_err": errs["gathermv"],
          **{k: timing["gathermv"][k] for k in keys}},
+        {"name": "binary", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/binary.cu",
+         "replaces": "myscaledb_tpu/ops/binary.py:27",
+         "launches": launches["binary"], "max_abs_err": errs["binary"],
+         **{k: timing["binary"][k] for k in keys}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

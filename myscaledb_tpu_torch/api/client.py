@@ -80,6 +80,25 @@ class Database:
         with self._lock:
             return sorted(self._tables)
 
+    def fts_index_stats(self, table: str, column_or_index: str, query: str = "") -> dict:
+        """ftsIndex(db, table, col, query) analogue: table-level BM25 corpus
+        statistics (total docs/tokens, per-query-term doc freq), the
+        payload a distributed initiator aggregates and passes back as
+        `text_search(..., stats_override=...)` (TableFunctionFtsIndex.cpp:
+        112-116)."""
+        from ..search.text_executor import TextSearchExecutor
+
+        t = self.table(table)
+        tdef = TextSearchExecutor(t)._resolve(column_or_index)
+        stats = tdef.merged_stats([s.segment_id for s in t.live_segments()])
+        terms = tdef.analyzer.tokenize(query) if query else []
+        return {
+            "total_docs": stats.total_docs,
+            "total_tokens": stats.total_tokens,
+            "avg_doc_len": stats.avg_doc_len,
+            "doc_freq": {tm: stats.doc_freq.get(tm, 0) for tm in terms},
+        }
+
     def close(self) -> None:
         with self._lock:
             self._tables.clear()

@@ -170,6 +170,10 @@ class _Library:
         lib.msd_tile_max.restype = ci
         lib.msd_gathermv.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.msd_gathermv.restype = ci
+        lib.msd_binary_rows.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.msd_binary_rows.restype = ci
+        lib.msd_binary_blocks.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.msd_binary_blocks.restype = ci
         return lib
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of myscaledb_tpu/ops/topk.py, exact branch only. All
 selection happens on max-is-better scores (metrics.py); missing slots
-are padded with (-inf, -1).
+are padded with (-inf, -1). The vector paths select with `torch.topk`;
+the text and fusion paths, whose scores tie exactly as a rule, select
+with `topk_stable`, which orders ties as `jax.lax.top_k` does.
 """
 
 from __future__ import annotations
@@ -30,6 +32,29 @@ def topk_scores(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     kk = min(k, scores.shape[-1])
     vals, idx = torch.topk(scores, kk, dim=-1)
     return _pad_k(vals, idx.to(torch.int32), k)
+
+
+def _ordered_bits(scores: torch.Tensor) -> torch.Tensor:
+    """int64 keys in the order of the f32 `scores` (IEEE bits with the
+    negatives' magnitude bits flipped, so that signed integer order is
+    float order)."""
+    b = scores.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b).to(torch.int64)
+
+
+def topk_stable(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k along the last axis that breaks exact ties as
+    `jax.lax.top_k` does: the lower position first. One `torch.topk` over
+    int64 keys, the score's ordered bits in the high half and
+    (n - 1 - position) in the low half, so equal scores rank by position
+    (`torch.topk` itself promises no order among ties). Returns (values
+    f32[..., k], idx int32[..., k]), padded as `topk_scores`."""
+    n = scores.shape[-1]
+    kk = min(k, n)
+    rev = (n - 1) - torch.arange(n, dtype=torch.int64, device=scores.device)
+    keys = (_ordered_bits(scores) << 32) | rev
+    idx = torch.topk(keys, kk, dim=-1).indices  # keys are distinct: no ties left
+    return _pad_k(torch.gather(scores, -1, idx), idx.to(torch.int32), k)
 
 
 WIDE_SUB = 128  # rows per reduction sub-tile (wide_exact_topk)

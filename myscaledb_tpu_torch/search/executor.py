@@ -31,11 +31,13 @@ import torch.nn.functional as tnf
 from ..config import Settings
 from ..errors import QueryShapeError
 from ..index.base import VectorIndex, params_key, split_dyn_nprobe
+from ..index.binary import BinaryFlatIndex
 from ..index.flat import FlatIndex
 from ..metrics import Metric, score_to_distance
-from ..ops.topk import NEG_INF
+from ..ops.topk import NEG_INF, topk_stable
 from ..service.event_log import GLOBAL_COUNTERS
 from ..service.tracing import span
+from ..storage.schema import BinaryVector
 from .filters import DeviceMask, Expr, Lambda, WindowMask, as_mask_array
 
 
@@ -111,11 +113,12 @@ class SearchResult:
         return np.where(self.valid, d, np.inf).astype(np.float32)
 
 
-def _merge_tagged_body(vals_t, rows_t, k):
+def _merge_tagged_body(vals_t, rows_t, k, *, stable: bool = False):
     """The global tagged top-k merge across per-segment (vals, rows) lists
     (the k-way merge, getTotalTopSearchResultImpl analogue). Returns
     (vals f32[Q,k], tag int32[Q,k] — position in the tuple, rows
-    int32[Q,k])."""
+    int32[Q,k]). `stable` orders exact ties as `jax.lax.top_k` does
+    (`topk_stable`); the vector paths take `torch.topk`."""
     vals = torch.cat(vals_t, dim=-1)
     rows = torch.cat(rows_t, dim=-1)
     tag = torch.cat(
@@ -123,7 +126,11 @@ def _merge_tagged_body(vals_t, rows_t, k):
         dim=-1,
     )
     kk = min(k, vals.shape[-1])
-    mv, pos = torch.topk(vals, kk, dim=-1)
+    if stable:
+        mv, pos = topk_stable(vals, kk)
+        pos = pos.to(torch.int64)
+    else:
+        mv, pos = torch.topk(vals, kk, dim=-1)
     mr = torch.gather(rows, -1, pos)
     mt = torch.gather(tag, -1, pos)
     bad = torch.logical_or(~torch.isfinite(mv), mr < 0)
@@ -134,6 +141,13 @@ def _merge_tagged_body(vals_t, rows_t, k):
         mt = tnf.pad(mt, (0, k - kk), value=-1)
         mr = tnf.pad(mr, (0, k - kk), value=-1)
     return mv, mt, mr
+
+
+def merge_tagged_topk(vals_t, rows_t, k):
+    """The global tagged merge for host callers (the text path), with
+    exact ties ordered as the JAX package's `merge_tagged_topk` orders
+    them: lower position in the concatenation first."""
+    return _merge_tagged_body(tuple(vals_t), tuple(rows_t), k, stable=True)
 
 
 def _as_query_batch(query, dim: int):
@@ -151,10 +165,30 @@ def _as_query_batch(query, dim: int):
 
 
 def _prep_queries(q: np.ndarray, nq_pad: int, dpad: int, device) -> torch.Tensor:
-    """Upload the raw batch once and pad it to [nq_pad, dpad] f32 on the
-    device (the JAX package folds the same cast + pad into its program)."""
+    """Upload the raw batch once and pad it to [nq_pad, dpad] (f32, or
+    packed u8 bits with dpad = the row's byte count) on the device (the
+    JAX package folds the same cast + pad into its program)."""
     qd = torch.from_numpy(q).to(device)
     return tnf.pad(qd, (0, dpad - q.shape[1], 0, nq_pad - q.shape[0])).contiguous()
+
+
+def _as_binary_query_batch(query, vtype) -> Tuple[np.ndarray, int]:
+    """Binary query: packed uint8 [*, dim/8] or bool [*, dim] -> packed
+    host u8 [Q, dim/8]."""
+    if isinstance(query, torch.Tensor):
+        query = query.detach().cpu().numpy()
+    q = np.asarray(query)
+    if q.ndim == 1:
+        q = q[None, :]
+    if q.dtype == np.bool_:
+        if q.ndim != 2 or q.shape[1] != vtype.dim:
+            raise QueryShapeError(f"binary query must be [*, {vtype.dim}] bits")
+        q = np.packbits(q, axis=1)
+    else:
+        q = q.astype(np.uint8, copy=False)
+        if q.ndim != 2 or q.shape[1] != vtype.nbytes:
+            raise QueryShapeError(f"binary query must be packed [*, {vtype.nbytes}] uint8")
+    return np.ascontiguousarray(q), q.shape[0]
 
 
 # (segment uid, filter repr, mutation generation) -> device mask. Repeated
@@ -292,7 +326,12 @@ class VectorSearchExecutor:
                 "queue 2 #4"
             )
         metric = metric or t.index_metric_for(column)
-        qh, nq, qsq = _as_query_batch(query, vtype.dim)
+        is_binary = isinstance(vtype, BinaryVector)
+        if is_binary:
+            qh, nq = _as_binary_query_batch(query, vtype)
+            qsq = None
+        else:
+            qh, nq, qsq = _as_query_batch(query, vtype.dim)
         GLOBAL_COUNTERS.bump("VectorSearchQueries", nq)
 
         segments = t.live_segments()
@@ -360,13 +399,18 @@ class VectorSearchExecutor:
                     GLOBAL_COUNTERS.bump("VectorSearchSegmentsSkipped")
                     continue
                 payload = seg.vector(column)
-                idx = FlatIndex(
-                    payload.data,
-                    payload.aux_for(metric),
-                    metric=metric,
-                    dim=vtype.dim,
-                    n_rows=seg.n_rows,
-                )
+                if is_binary:
+                    idx = BinaryFlatIndex(
+                        payload.data, metric=metric, dim=vtype.dim, n_rows=seg.n_rows
+                    )
+                else:
+                    idx = FlatIndex(
+                        payload.data,
+                        payload.aux_for(metric),
+                        metric=metric,
+                        dim=vtype.dim,
+                        n_rows=seg.n_rows,
+                    )
                 GLOBAL_COUNTERS.bump("VectorBruteForceSearches")
             else:
                 GLOBAL_COUNTERS.bump("VectorIndexSearches")

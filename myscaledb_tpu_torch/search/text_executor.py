@@ -1,0 +1,585 @@
+"""Text & hybrid search execution over a table's segments.
+
+Counterpart of myscaledb_tpu/search/text_executor.py. Re-expresses
+MergeTreeTextSearchManager / MergeTreeHybridSearchManager:
+
+  * table-consistent BM25: per-segment stats merged BEFORE scoring
+    (getStatisticForTextSearch, ReadWithHybridSearch.cpp:89-209);
+  * per-segment BM25 top-k on the segment's device with the pre-filter ∩
+    delete bitmap (bm25SearchWithFilter contract);
+  * a global merge across segments by score (exact ties: lower segment
+    position, then lower row, as in the JAX package);
+  * hybrid: vector leg + text leg, each fetching
+    k × hybrid_search_top_k_multiple_base candidates
+    (ExpressionAnalyzer.cpp:1217), fused with RRF or RSF on the device.
+
+The fts store of a segment is built when the segment is inserted (or when
+the index is added), on the caller's thread: the JAX package's background
+build with build-on-demand waits for the port's scheduler (ROADMAP queue 1
+#10).
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..errors import QueryShapeError, SchemaError
+from ..metrics import Metric, score_ascending_better
+from ..service.event_log import GLOBAL_COUNTERS
+from ..text.analyzer import Analyzer
+from ..text.inverted import BM25Stats, InvertedIndex
+from .executor import SearchResult, merge_tagged_topk, segment_mask
+from .filters import Expr, as_mask_array
+from .fusion import rrf_fuse_t, rsf_fuse_t
+
+
+class TextIndexDefinition:
+    """One fts index over one or more string columns (the
+    `INDEX name(col, ...) TYPE fts('{json}')` DDL analogue)."""
+
+    def __init__(self, name: str, columns: List[str], params: Optional[Dict[str, Any]] = None):
+        self.name = name
+        self.columns = list(columns)
+        self.analyzer = Analyzer(params)
+        self.params = dict(params or {})
+        self._stores: Dict[int, InvertedIndex] = {}
+        self._lock = threading.Lock()
+        self._stats_cache = None  # (segment-id key, merged BM25Stats)
+
+    def _build_store(self, segment) -> InvertedIndex:
+        texts = [segment.scalar(c)[: segment.n_rows] for c in self.columns]
+        store = InvertedIndex.build(
+            texts, segment.capacity, analyzer=self.analyzer, device=segment.device
+        )
+        GLOBAL_COUNTERS.bump("FTSIndexBuilds")
+        return store
+
+    def on_new_segment(self, segment) -> None:
+        """Build and register the fts store for a segment. (Deletes need
+        no hook: a search masks deleted rows through the alive bitmap.)"""
+        store = self._build_store(segment)
+        with self._lock:
+            self._stores[segment.segment_id] = store
+            self._stats_cache = None
+
+    def store(self, segment_id: int) -> Optional[InvertedIndex]:
+        with self._lock:
+            return self._stores.get(segment_id)
+
+    def nlq_mask(self, segment, store, phrases, negs) -> np.ndarray:
+        """bool[n_rows] rows satisfying the NLQ structure: every quoted
+        phrase present (adjacency over the device token stream, or a host
+        verify) and no excluded term present."""
+        m = np.ones(segment.n_rows, bool)
+        for ph in phrases:
+            toks = self.analyzer.tokenize(ph)
+            if not toks:
+                continue
+            if len(toks) > 1:
+                # device path: adjacency over the token stream (the stream
+                # concatenates this index's columns, the join the host
+                # verifier builds below)
+                bm = store.phrase_bitmap(toks)
+                if bm is not None:
+                    GLOBAL_COUNTERS.bump("FTSDevicePhraseChecks")
+                    m &= bm
+                    continue
+            cand = store.term_bitmap(toks[0])
+            for tk in toks[1:]:
+                cand = cand & store.term_bitmap(tk)
+            if len(toks) > 1:
+                ver = np.zeros(segment.n_rows, bool)
+                for i in np.nonzero(cand)[0]:
+                    tt = self.analyzer.tokenize(
+                        " ".join(str(segment.scalar(c)[i]) for c in self.columns)
+                    )
+                    ver[i] = any(
+                        tt[j : j + len(toks)] == toks for j in range(len(tt) - len(toks) + 1)
+                    )
+                cand = ver
+            m &= cand
+        for ng in negs:
+            for tk in self.analyzer.tokenize(ng):
+                m &= ~store.term_bitmap(tk)
+        return m
+
+    def merged_stats(self, segment_ids) -> BM25Stats:
+        """Table-level BM25 statistics over `segment_ids`, cached per
+        segment set (stores are immutable once built)."""
+        key = tuple(segment_ids)
+        with self._lock:
+            cached = self._stats_cache
+            if cached is not None and cached[0] == key:
+                return cached[1]
+            parts = [self._stores[s].stats for s in segment_ids if s in self._stores]
+            out = BM25Stats.merge(parts) if parts else BM25Stats(0, 0, {})
+            self._stats_cache = (key, out)
+            return out
+
+
+class _FtsFilterBase(Expr):
+    """Base for string-function predicates accelerated by an fts index
+    (MergeTreeConditionTantivy atoms, MergeTreeIndexTantivy.h:141-180).
+    The bitmap is candidate generation plus exact verification: term
+    bitmaps cut the row set, the predicate verifies only candidates."""
+
+    def __init__(self, table, column: str):
+        self._table = table
+        self.column = column
+
+    def _tdef(self):
+        for d in self._table._text_indexes.values():
+            if self.column in d.columns:
+                return d
+        return None
+
+    def _tokens(self) -> List[List[str]]:
+        """DNF of token groups: a row is a candidate when ALL tokens of ANY
+        group appear in it. [] = no index cut possible (scan everything)."""
+        raise NotImplementedError
+
+    def _verify(self, text: str) -> bool:
+        raise NotImplementedError
+
+    def _needs_verify(self) -> bool:
+        return True
+
+    def evaluate(self, segment) -> np.ndarray:
+        tdef = self._tdef()
+        groups = self._tokens()
+        if tdef is not None and groups:
+            store = tdef.store(segment.segment_id)
+            if store is not None:
+                cand = np.zeros(segment.n_rows, bool)
+                for grp in groups:
+                    if not grp:
+                        continue
+                    g = store.term_bitmap(grp[0])
+                    for tk in grp[1:]:
+                        g &= store.term_bitmap(tk)
+                    cand |= g
+                GLOBAL_COUNTERS.bump("FTSAcceleratedFilters")
+                if not self._needs_verify():
+                    return cand
+                out = np.zeros(segment.n_rows, bool)
+                idx = np.nonzero(cand)[0]
+                if len(idx):
+                    col = segment.scalar(self.column)
+                    out[idx] = [self._verify(str(col[i])) for i in idx]
+                return out
+        # no index cut: verify every row
+        col = segment.scalar(self.column)[: segment.n_rows]
+        return np.fromiter(
+            (self._verify(str(v)) for v in col), dtype=bool, count=segment.n_rows
+        )
+
+    def columns(self):
+        return {self.column}
+
+
+class _TokenFilter(_FtsFilterBase):
+    """hasToken(col, 'tok'): the ffi_query_term[s]_bitmap role."""
+
+    def __init__(self, table, column: str, token: str):
+        super().__init__(table, column)
+        self.token = token
+        an = self._tdef().analyzer if self._tdef() else Analyzer()
+        self._toks = an.tokenize(token)
+
+    def _tokens(self):
+        return [self._toks] if self._toks else []
+
+    def _needs_verify(self) -> bool:
+        return False  # token containment IS the predicate
+
+    def _verify(self, text: str) -> bool:
+        return set(self._toks) <= set(Analyzer().tokenize(text))
+
+    def evaluate(self, segment):
+        if not self._toks:
+            return np.zeros(segment.n_rows, bool)
+        return super().evaluate(segment)
+
+    def __repr__(self):
+        return f"hasToken({self.column}, {self.token!r})"
+
+
+class _LikeFilter(_FtsFilterBase):
+    """col LIKE '%pattern%' accelerated by token bitmaps: the pattern's
+    complete inner tokens must all appear in a matching row, so their
+    bitmap intersection is a safe candidate set; a real LIKE match then
+    verifies candidates."""
+
+    def __init__(self, table, column: str, pattern: str, negate: bool = False):
+        super().__init__(table, column)
+        self.pattern = pattern
+        self.negate = negate
+        rx = re.escape(pattern).replace("%", ".*").replace("_", ".")
+        self._rx = re.compile(f"^{rx}$", re.DOTALL)
+        an = self._tdef().analyzer if self._tdef() else Analyzer()
+        # complete tokens only: pieces between wildcards, without the edge
+        # fragments that may be partial words
+        self._toks = []
+        inner = [p for p in pattern.split("%")[1:-1] if p and "_" not in p]
+        for piece in inner:
+            toks = an.tokenize(piece)
+            if len(toks) >= 3:
+                self._toks.extend(toks[1:-1])
+
+    def _tokens(self):
+        # negated LIKE cannot use candidate cuts (complement semantics)
+        return [self._toks] if self._toks and not self.negate else []
+
+    def _verify(self, text: str) -> bool:
+        hit = self._rx.match(text) is not None
+        return (not hit) if self.negate else hit
+
+    def __repr__(self):
+        kw = "NOT LIKE" if self.negate else "LIKE"
+        return f"fts:{self.column} {kw} {self.pattern!r}"
+
+
+class _MultiSearchAnyFilter(_FtsFilterBase):
+    """multiSearchAny(col, needles): substring-any, candidates from the
+    union of each needle's inner-token bitmaps, substring verify."""
+
+    def __init__(self, table, column: str, needles: List[str]):
+        super().__init__(table, column)
+        self.needles = [str(n) for n in needles]
+        an = self._tdef().analyzer if self._tdef() else Analyzer()
+        self._groups = []
+        self._cuttable = True
+        for n in self.needles:
+            toks = an.tokenize(n)
+            # safe only when the needle's inner tokens are whole words
+            inner = toks[1:-1] if len(toks) >= 3 else []
+            if inner:
+                self._groups.append(inner)
+            else:
+                self._cuttable = False  # some needle has no safe cut
+
+    def _tokens(self):
+        return self._groups if self._cuttable else []
+
+    def _verify(self, text: str) -> bool:
+        return any(n in text for n in self.needles)
+
+    def __repr__(self):
+        return f"multiSearchAny({self.column}, {self.needles!r})"
+
+
+class _PhraseFilter(_FtsFilterBase):
+    """Sentence/phrase predicate (ffi_query_sentence_bitmap role): the
+    store's token-stream adjacency when the index covers exactly this
+    column, else candidates from the phrase's term bitmaps and an
+    adjacency verify on the host."""
+
+    def __init__(self, table, column: str, phrase: str):
+        super().__init__(table, column)
+        self.phrase = phrase
+        self._an = self._tdef().analyzer if self._tdef() else Analyzer()
+        self._toks = self._an.tokenize(phrase)
+
+    def _tokens(self):
+        return [self._toks] if self._toks else []
+
+    def _verify(self, text: str) -> bool:
+        toks = self._an.tokenize(text)
+        n, m = len(toks), len(self._toks)
+        if m == 0:
+            return True
+        return any(toks[i : i + m] == self._toks for i in range(n - m + 1))
+
+    def evaluate(self, segment):
+        if not self._toks:
+            return np.ones(segment.n_rows, bool)
+        tdef = self._tdef()
+        # a multi-column store concatenates its columns into one stream
+        if tdef is not None and list(tdef.columns) == [self.column]:
+            store = tdef.store(segment.segment_id)
+            if store is not None:
+                bm = store.phrase_bitmap(self._toks)
+                if bm is not None:
+                    GLOBAL_COUNTERS.bump("FTSAcceleratedFilters")
+                    GLOBAL_COUNTERS.bump("FTSDevicePhraseChecks")
+                    return bm
+        return super().evaluate(segment)
+
+    def __repr__(self):
+        return f"hasPhrase({self.column}, {self.phrase!r})"
+
+
+class _RegexTokenFilter(_FtsFilterBase):
+    """Regex term bitmap (ffi_regex_term_bitmap role): rows containing at
+    least one vocabulary term matching the regex."""
+
+    def __init__(self, table, column: str, pattern: str):
+        super().__init__(table, column)
+        self.pattern = pattern
+        self._rx = re.compile(pattern)
+
+    def evaluate(self, segment) -> np.ndarray:
+        tdef = self._tdef()
+        if tdef is not None:
+            store = tdef.store(segment.segment_id)
+            if store is not None:
+                out = np.zeros(segment.n_rows, bool)
+                for term in store.vocab:
+                    if self._rx.fullmatch(term):
+                        out |= store.term_bitmap(term)
+                GLOBAL_COUNTERS.bump("FTSAcceleratedFilters")
+                return out
+        an = Analyzer()
+        col = segment.scalar(self.column)[: segment.n_rows]
+        return np.fromiter(
+            (any(self._rx.fullmatch(tk) for tk in an.tokenize(str(v))) for v in col),
+            dtype=bool,
+            count=segment.n_rows,
+        )
+
+    def __repr__(self):
+        return f"hasTokenMatching({self.column}, {self.pattern!r})"
+
+
+def fts_token_filter(table, column: str, token: str) -> Expr:
+    return _TokenFilter(table, column, token)
+
+
+def fts_like_filter(table, column: str, pattern: str, negate: bool = False) -> Expr:
+    return _LikeFilter(table, column, pattern, negate)
+
+
+def fts_multi_search_any(table, column: str, needles: List[str]) -> Expr:
+    return _MultiSearchAnyFilter(table, column, needles)
+
+
+def fts_phrase_filter(table, column: str, phrase: str) -> Expr:
+    return _PhraseFilter(table, column, phrase)
+
+
+def fts_regex_filter(table, column: str, pattern: str) -> Expr:
+    return _RegexTokenFilter(table, column, pattern)
+
+
+def parse_nlq(query: str):
+    """Natural-language query structure (the tantivy NLQ subset the
+    reference exposes via enable_nlq, VSDescription.h:80-88): quoted
+    phrases must match adjacently, '-term' excludes, the rest are
+    ordinary scored terms. Returns (bm25_text, phrases, excluded)."""
+    phrases = re.findall(r'"([^"]*)"', query)
+    rest = re.sub(r'"[^"]*"', " ", query)
+    negs = re.findall(r"(?:^|\s)-([\w]+)", rest)
+    rest = re.sub(r"(?:^|\s)-[\w]+", " ", rest)
+    bm25_text = (rest + " " + " ".join(phrases)).strip()
+    return bm25_text, phrases, negs
+
+
+class TextSearchExecutor:
+    def __init__(self, table):
+        self.table = table
+
+    def _resolve(self, column_or_index: str) -> TextIndexDefinition:
+        t = self.table
+        tdef = t._text_indexes.get(column_or_index)
+        if tdef is not None:
+            return tdef
+        for d in t._text_indexes.values():
+            if column_or_index in d.columns:
+                return d
+        raise SchemaError(
+            f"no fts index covering {column_or_index!r}; add one with add_fts_index()"
+        )
+
+    def run(
+        self,
+        column_or_index: str,
+        query,
+        k: Optional[int],
+        *,
+        filter: Optional[Expr] = None,
+        operator: str = "OR",
+        stats_override: Optional[BM25Stats] = None,
+        enable_nlq: bool = False,
+        settings=None,
+    ) -> SearchResult:
+        """textsearch() analogue: BM25 top-k, scores descending.
+
+        `query` may be one string or a list of strings (batched: one
+        program per segment scores all queries). stats_override: corpus
+        statistics injected by a distributed initiator, in place of the
+        table's own. The result is device-lazy like vector search."""
+        t = self.table
+        st = settings or t.settings
+        queries = [query] if isinstance(query, str) else list(query)
+        nq = len(queries)
+        if nq == 0:
+            raise QueryShapeError("query batch is empty")
+        k = int(k if k is not None else st.query.default_topk)
+        if k <= 0:
+            raise QueryShapeError("k must be positive")
+        if k > st.query.max_search_result_window:
+            raise QueryShapeError(
+                f"top-k window {k} exceeds max_search_result_window="
+                f"{st.query.max_search_result_window}"
+            )
+        tdef = self._resolve(column_or_index)
+        GLOBAL_COUNTERS.bump("TextSearchQueries", nq)
+        segments = t.live_segments()
+        seg_ids = [s.segment_id for s in segments]
+        stats = stats_override if stats_override is not None else tdef.merged_stats(seg_ids)
+
+        parsed = [parse_nlq(q) for q in queries] if enable_nlq else None
+        need_nlq = parsed is not None and any(p or n for _, p, n in parsed)
+        bm25_queries = [p[0] for p in parsed] if parsed is not None else queries
+
+        vals_t: List[torch.Tensor] = []
+        rows_t: List[torch.Tensor] = []
+        tags_t: List[torch.Tensor] = []
+        tags: List[int] = []
+        for seg in segments:
+            store = tdef.store(seg.segment_id)
+            if store is None:
+                continue
+            mask = segment_mask(seg, filter)
+            if need_nlq:
+                base = as_mask_array(mask)
+                extra = np.zeros((nq, seg.capacity), bool)
+                for qi, (_, phrases, negs) in enumerate(parsed):
+                    extra[qi, : seg.n_rows] = tdef.nlq_mask(seg, store, phrases, negs)
+                mask = torch.from_numpy(extra).to(seg.device)
+                if base is not None:
+                    mask = torch.logical_and(mask, base[None, :])
+            vals, rows, seg_tags, _terms, _bound = store.bm25_topk_batch(
+                bm25_queries, k, stats=stats, operator=operator, mask=mask
+            )
+            vals_t.append(vals)
+            rows_t.append(rows)
+            tags_t.append(seg_tags)
+            tags.append(seg.segment_id)
+        if not vals_t:
+            return SearchResult.empty(Metric.IP, nq, k)
+        if len(vals_t) == 1:
+            # the tag column already came from the scoring program
+            mv, mr, mt = vals_t[0], rows_t[0], tags_t[0]
+        else:
+            mv, mt, mr = merge_tagged_topk(vals_t, rows_t, k)
+        # BM25 score is bigger-better: exposed under the IP (similarity)
+        # convention
+        return SearchResult(
+            Metric.IP, device=(mv, mt, mr), seg_ids=np.asarray(tags, dtype=np.int64), nq=nq, k=k
+        )
+
+
+def _fuse_device(
+    vleg, vtag_map, tleg, ttag_map, *, k, fusion_type, fusion_k, fusion_weight, vec_asc, nq
+):
+    """Device hybrid fusion: slice off the query padding ([:nq]), remap
+    each leg's segment tags into one tag space (`*_tag_map`: int32 over a
+    leg's tag positions), and fuse (RRF / RSF) over (tag, row) pairs."""
+    (vvals, vtags, vrows), (tvals, ttags, trows) = (
+        tuple(a[:nq] for a in leg) for leg in (vleg, tleg)
+    )
+
+    def remap(tags, rows, tag_map):
+        neg = torch.full_like(tags, -1)
+        uni = torch.where(tags >= 0, tag_map[torch.clamp(tags, min=0).to(torch.int64)], neg)
+        ok = torch.logical_and(uni >= 0, rows >= 0)
+        return torch.where(ok, uni, neg), torch.where(ok, rows, torch.full_like(rows, -1))
+
+    vt, vr = remap(vtags, vrows, vtag_map)
+    tt, tr = remap(ttags, trows, ttag_map)
+    if fusion_type == "rrf":
+        return rrf_fuse_t(vt, vr, tt, tr, k, fusion_k=fusion_k)
+    return rsf_fuse_t(
+        vt, vr, vvals, tt, tr, tvals, k, fusion_weight=fusion_weight, vec_ascending_better=vec_asc
+    )
+
+
+class HybridSearchExecutor:
+    def __init__(self, table):
+        self.table = table
+
+    def run(
+        self,
+        vector_column: str,
+        text_column_or_index: str,
+        vector_query,
+        text_query,
+        k: Optional[int],
+        *,
+        fusion_type: str = "rsf",
+        fusion_weight: Optional[float] = None,
+        fusion_k: Optional[int] = None,
+        filter: Optional[Expr] = None,
+        operator: str = "OR",
+        params: Optional[Dict[str, Any]] = None,
+        settings=None,
+    ) -> SearchResult:
+        """hybridsearch() analogue: both legs fetch k×multiple_base
+        candidates, fused on the device (RRF: Σ1/(k+rank); RSF:
+        direction-aware min-max, HybridSearchUtils.cpp:164,212-313), scores
+        descending.
+
+        Batched: vector_query may be [Q, D] with text_query a matching list
+        of Q strings (or one string shared by all). Device-lazy: no host
+        sync until results are read."""
+        t = self.table
+        st = settings or t.settings
+        k = int(k if k is not None else st.query.default_topk)
+        n_cand = min(
+            k * st.query.hybrid_search_top_k_multiple_base, st.query.max_search_result_window
+        )
+        ftype = fusion_type.lower()
+        if ftype not in ("rrf", "rsf"):
+            raise QueryShapeError(f"fusion_type must be rrf or rsf, got {fusion_type!r}")
+
+        vres = t.search(vector_column, vector_query, n_cand, filter=filter, params=params,
+                        settings=st)
+        nq = vres.nq
+        GLOBAL_COUNTERS.bump("HybridSearchQueries", nq)
+        tq = [text_query] * nq if isinstance(text_query, str) else list(text_query)
+        if len(tq) != nq:
+            raise QueryShapeError(f"text_query batch ({len(tq)}) must match vector batch ({nq})")
+        tres = TextSearchExecutor(t).run(
+            text_column_or_index, tq, n_cand, filter=filter, operator=operator, settings=st
+        )
+
+        # one segment-id table for both legs' tag spaces
+        v_ids = vres._seg_ids if vres._seg_ids is not None else np.zeros(0, np.int64)
+        t_ids = tres._seg_ids if tres._seg_ids is not None else np.zeros(0, np.int64)
+        uni = np.unique(np.concatenate([v_ids, t_ids]))
+        if len(uni) == 0:
+            uni = np.asarray([-1], np.int64)  # both legs empty: sentinel
+        dev = t.device
+
+        def tag_map(ids):
+            m = np.searchsorted(uni, ids).astype(np.int32) if len(ids) else np.asarray([-1], np.int32)
+            return torch.from_numpy(m).to(dev)
+
+        def leg(res):
+            if res._device is not None:
+                return res._device  # possibly query-padded ([nq_pad, k])
+            # a host result here is SearchResult.empty: every slot invalid
+            return (
+                torch.full((nq, res.k), float("-inf"), dtype=torch.float32, device=dev),
+                torch.full((nq, res.k), -1, dtype=torch.int32, device=dev),
+                torch.full((nq, res.k), -1, dtype=torch.int32, device=dev),
+            )
+
+        fv, ftag, frow = _fuse_device(
+            leg(vres), tag_map(v_ids), leg(tres), tag_map(t_ids),
+            k=k,
+            fusion_type=ftype,
+            fusion_k=int(fusion_k if fusion_k is not None else st.query.hybrid_search_fusion_k),
+            fusion_weight=float(
+                st.query.hybrid_search_fusion_weight if fusion_weight is None else fusion_weight
+            ),
+            vec_asc=score_ascending_better(vres.metric),
+            nq=nq,
+        )
+        return SearchResult(Metric.IP, device=(fv, ftag, frow), seg_ids=uni, nq=nq, k=k)

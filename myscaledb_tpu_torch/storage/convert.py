@@ -1,12 +1,14 @@
 """Carry a segment's or an index's state across from the JAX package.
 
 `segment_from_arrays` builds the port's `Segment` over the same stored
-bytes as a JAX segment, given its arrays as numpy. `hnsw_from_state_dict`
-and `ivf_from_state_dict` build the port's HNSW and IVF indexes from a JAX
-index's `state_dict()` (`index_from_state_dict` picks one by kind). They
-let the port search exactly what the JAX package searches (the parity
-tests use them), and are the route by which a segment or an index built
-by one package serves in the other.
+bytes as a JAX segment, given its arrays as numpy. `hnsw_from_state_dict`,
+`ivf_from_state_dict` and `binary_from_state_dict` build the port's HNSW,
+IVF and binary indexes from a JAX index's `state_dict()`
+(`index_from_state_dict` picks one by kind); `inverted_from_state_dict`
+builds a segment's fts store from a JAX `InvertedIndex.state_dict()`.
+They let the port search exactly what the JAX package searches (the
+parity tests use them), and are the route by which a segment or an index
+built by one package serves in the other.
 
 numpy has no bfloat16, so a bf16 payload crosses as raw bits: the caller
 passes `np.asarray(x).view(np.uint16)` (or an array whose dtype is named
@@ -23,7 +25,7 @@ import torch
 
 from ..errors import SchemaError
 from ..index.base import IndexKind
-from .schema import FloatVector, Schema
+from .schema import BinaryVector, Schema
 from .segment import Segment, upload_payload
 
 
@@ -56,17 +58,24 @@ def segment_from_arrays(
     """Build a Segment on `device` from one segment's numpy arrays.
 
     vectors: column -> {"data": f32 or uint16 (bf16 bits) [capacity, D_pad],
-             "sqnorm": f32[capacity], "invnorm": f32[capacity]}
+             "sqnorm": f32[capacity], "invnorm": f32[capacity]} for a float
+             column, {"data": u8[capacity, dim/8]} for a binary one (a JAX
+             segment's "popcnt" is not carried: no path of the port reads it)
     scalars: column -> [n_rows] host column
     deleted: optional bool[capacity] delete bitmap (True = deleted)
     """
     device = torch.device(device)
-    want_vec = {c for c, t in schema.columns.items() if isinstance(t, FloatVector)}
+    want_vec = set(schema.vector_columns())
     if set(vectors) != want_vec or set(scalars) != set(schema.columns) - want_vec:
         raise SchemaError("arrays do not match the schema's columns")
     payloads = {}
     dtypes = set()
     for cname, arrs in vectors.items():
+        if isinstance(schema.columns[cname], BinaryVector):
+            payloads[cname] = _binary_payload(
+                cname, schema.columns[cname], arrs, capacity, device, server_settings
+            )
+            continue
         codes = _payload_codes(cname, arrs["data"])
         if codes.shape[0] != capacity:
             raise SchemaError(
@@ -77,7 +86,9 @@ def segment_from_arrays(
         inv = np.array(arrs["invnorm"], dtype=np.float32)
         if sq.shape != (capacity,) or inv.shape != (capacity,):
             raise SchemaError(f"norms of {cname!r} must be f32[{capacity}]")
-        payloads[cname] = upload_payload(cname, codes, sq, inv, device, server_settings)
+        payloads[cname] = upload_payload(
+            cname, codes, {"sqnorm": sq, "invnorm": inv}, device, server_settings
+        )
     for cname, col in scalars.items():
         if len(col) != n_rows:
             raise SchemaError(f"column {cname} has {len(col)} rows, expected {n_rows}")
@@ -101,6 +112,16 @@ def segment_from_arrays(
         if len(rows):
             seg.delete_rows(rows)
     return seg
+
+
+def _binary_payload(cname, ctype, arrs, capacity, device, server_settings):
+    """A binary column's packed u8 payload."""
+    data = np.array(arrs["data"], dtype=np.uint8)
+    if data.shape != (capacity, ctype.nbytes):
+        raise SchemaError(
+            f"binary payload of {cname!r} must be u8[{capacity}, {ctype.nbytes}], got {data.shape}"
+        )
+    return upload_payload(cname, torch.from_numpy(data), {}, device, server_settings)
 
 
 def _bf16_bits(arrays: Dict, field: str) -> Dict:
@@ -164,9 +185,46 @@ def ivf_from_state_dict(state: Dict, device, payload=None):
     return idx
 
 
+def binary_from_state_dict(state: Dict, device, payload=None):
+    """The port's binary index from a JAX binary index's `state_dict()`.
+    BinaryMSTG: {"meta": {kind, metric, dim, n_rows, n_clusters,
+    bucket_cap, n_overflow}, "arrays": {centroids, csq, bucket_data,
+    bucket_rows, over_data, over_rows}}, moved to `device`. BinaryFLAT
+    holds no arrays of its own: it is rebuilt over `payload` (the
+    segment's VectorPayload), which it then needs."""
+    from ..index import binary
+    from ..metrics import Metric
+
+    meta = state["meta"]
+    kind = meta["kind"]
+    if kind == IndexKind.BINARYMSTG.value:
+        return binary.BinaryMSTGIndex.from_state_dict(state, device=torch.device(device))
+    if kind == IndexKind.BINARYFLAT.value:
+        if payload is None:
+            raise ValueError("a BinaryFLAT index is rebuilt over its segment's payload")
+        return binary.BinaryFlatIndex(
+            payload.data, metric=Metric(meta["metric"]), dim=meta["dim"], n_rows=meta["n_rows"]
+        )
+    raise ValueError(f"{kind!r} is not a binary index kind")
+
+
+def inverted_from_state_dict(state: Dict, device):
+    """A segment's fts store (`text/inverted.py::InvertedIndex`) from a JAX
+    `InvertedIndex.state_dict()`: {"meta": {capacity, n_rows,
+    total_tokens, analyzer}, "arrays": {term_offsets, postings_rows,
+    postings_tf, doc_len, terms, token_stream}}, the postings moved to
+    `device`."""
+    from ..text.inverted import InvertedIndex
+
+    return InvertedIndex.from_state_dict(state, device=torch.device(device))
+
+
 def index_from_state_dict(state: Dict, device, payload=None):
     """Any index kind the port can load, from its `state_dict()` (either
     package's layout)."""
-    if state["meta"]["kind"].startswith("HNSW"):
+    kind = state["meta"]["kind"]
+    if kind.startswith("HNSW"):
         return hnsw_from_state_dict(state, device)
+    if kind.startswith("Binary"):
+        return binary_from_state_dict(state, device, payload)
     return ivf_from_state_dict(state, device, payload)

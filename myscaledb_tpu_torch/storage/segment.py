@@ -5,7 +5,8 @@ Counterpart of myscaledb_tpu/storage/segment.py. A segment is:
   * a device-resident, statically-shaped vector payload per vector column
     (`f32|bf16[capacity, D_pad]`, rows >= n_rows are zero padding), plus
     precomputed per-row metric auxiliaries (|x|^2, 1/|x|) so scans never
-    recompute norms;
+    recompute norms; a binary column holds its packed bits
+    (`u8[capacity, dim/8]`) and each row's popcount (`int32[capacity]`);
   * host-resident scalar columns (numpy) for filtering and result gather;
   * a delete bitmap (lightweight DELETE, intersected into every search).
 
@@ -39,9 +40,9 @@ def _pad_dim(d: int) -> int:
 class VectorPayload:
     """Tensors for one vector column of a segment, on the segment's device."""
 
-    data: torch.Tensor  # [capacity, D_pad] storage dtype
-    sqnorm: Optional[torch.Tensor] = None  # f32[capacity] |x|^2
-    invnorm: Optional[torch.Tensor] = None  # f32[capacity] 1/|x|
+    data: torch.Tensor  # [capacity, D_pad] storage dtype, or u8 packed bits
+    sqnorm: Optional[torch.Tensor] = None  # f32[capacity] |x|^2 (float cols)
+    invnorm: Optional[torch.Tensor] = None  # f32[capacity] 1/|x| (float cols)
 
     def aux_for(self, metric: Metric) -> Optional[torch.Tensor]:
         if metric == Metric.L2:
@@ -91,15 +92,16 @@ def payload_norms(stored: np.ndarray):
 def upload_payload(
     cname: str,
     codes: torch.Tensor,
-    sqnorm: np.ndarray,
-    invnorm: np.ndarray,
+    aux: Dict[str, np.ndarray],
     device: torch.device,
     server_settings=None,
 ) -> VectorPayload:
     """Admit one vector column's stored payload against the device budget
-    (storage/hbm.py) and move it, with its norms, to `device`."""
+    (storage/hbm.py) and move it, with its per-row auxiliaries (`aux`:
+    sqnorm and invnorm of a float column, none for a binary one), to
+    `device`."""
     capacity = codes.shape[0]
-    est = codes.numel() * codes.element_size() + capacity * 8
+    est = codes.numel() * codes.element_size() + capacity * 4 * len(aux)
     if not GOVERNOR.admit(est, device, server_settings):
         raise MemoryError(
             f"vector column {cname!r} ({est} bytes) does not fit the "
@@ -109,8 +111,7 @@ def upload_payload(
     try:
         payload = VectorPayload(
             data=codes.to(device),
-            sqnorm=torch.from_numpy(sqnorm).to(device),
-            invnorm=torch.from_numpy(invnorm).to(device),
+            **{name: torch.from_numpy(a).to(device) for name, a in aux.items()},
         )
     except BaseException:
         GOVERNOR.release(est)
@@ -182,11 +183,6 @@ class Segment:
         n_rows = None
         validated: Dict[str, np.ndarray] = {}
         for cname, ctype in schema.columns.items():
-            if isinstance(ctype, BinaryVector):
-                raise NotImplementedError(
-                    f"BinaryVector column {cname!r}: binary vectors are not "
-                    "ported yet (ROADMAP queue 1 #8)"
-                )
             v = ctype.validate(columns[cname])
             if n_rows is None:
                 n_rows = len(v)
@@ -204,6 +200,14 @@ class Segment:
         scalars: Dict[str, np.ndarray] = {}
         for cname, ctype in schema.columns.items():
             v = validated[cname]
+            if isinstance(ctype, BinaryVector):
+                buf = np.zeros((capacity, ctype.nbytes), dtype=np.uint8)
+                buf[:n_rows] = v
+                # no per-row popcounts: the binary kernel counts every bit it needs
+                vectors[cname] = upload_payload(
+                    cname, torch.from_numpy(buf), {}, device, server_settings
+                )
+                continue
             if not isinstance(ctype, FloatVector):
                 scalars[cname] = v
                 continue
@@ -218,7 +222,7 @@ class Segment:
             stored = codes.to(torch.float32).numpy() if bf16_store else buf
             sq, inv = payload_norms(stored)
             vectors[cname] = upload_payload(
-                cname, codes, sq, inv, device, server_settings
+                cname, codes, {"sqnorm": sq, "invnorm": inv}, device, server_settings
             )
         seg = cls(
             segment_id,
@@ -234,8 +238,9 @@ class Segment:
         # a vector column returns what was inserted, independent of the
         # bf16 scoring payload
         if bf16_store:
-            for cname in vectors:
-                seg._exact_f32[cname] = np.asarray(validated[cname], dtype=np.float32)
+            for cname, ctype in schema.columns.items():
+                if isinstance(ctype, FloatVector):
+                    seg._exact_f32[cname] = np.asarray(validated[cname], dtype=np.float32)
         return seg
 
     # --------------------------------------------------------------- access

@@ -12,14 +12,18 @@ Counterpart of myscaledb_tpu/storage/table.py, for the MergeTree engine:
   * lightweight DELETE -> per-segment delete bitmaps intersected into
     every search
   * gather  -> output columns of the hits
+  * add_fts_index -> an fts store per segment; text_search (BM25) and
+    hybrid_search (RRF / RSF) through search/text_executor.py, and the
+    fts-accelerated string predicates (has_token, like, ...) as filters
 
 Every segment and index lives on the table's explicit `device`. Index
-builds run synchronously on the caller's thread; `load_index` installs an
-index from a state dict instead (a two-stage index re-attaches its
-segment's payload after a build and after a load). The background build
-scheduler, the LRU index cache, persistence and replication are ROADMAP
-queue 1 #10 and #13. Text indexes, versioned engines, mutations and
-merges are not ported yet (ROADMAP queue 1).
+builds, vector and fts alike, run synchronously on the caller's thread;
+`load_index` installs an index from a state dict instead (a two-stage
+index re-attaches its segment's payload after a build and after a load).
+The background build scheduler, the LRU index cache, persistence
+(fts_indexes.json among it) and replication are ROADMAP queue 1 #10 and
+#13. Versioned engines, mutations and merges are not ported yet (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from ..config import Settings
 from ..errors import IndexBuildCanceledError, IndexBuildMemoryError, IndexParameterError, SchemaError
-from ..index import hnsw, ivf  # noqa: F401  (register the HNSW and IVF kinds)
+from ..index import binary, hnsw, ivf  # noqa: F401  (register the index kinds)
 from ..index import registry
 from ..index.base import IndexDescription, IndexKind, IndexStatus, VectorIndex
 from ..metrics import Metric
@@ -52,8 +56,6 @@ _STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # that ports them.
 _NOT_PORTED = {
     IndexKind.FLAT: "FLAT needs no index: every index-less segment is scanned exactly",
-    IndexKind.BINARYFLAT: "binary vectors are ROADMAP queue 1 #8",
-    IndexKind.BINARYMSTG: "binary vectors are ROADMAP queue 1 #8",
 }
 
 
@@ -95,6 +97,7 @@ class Table:
         self._next_segment_id = 0
         self._index_descs: Dict[str, IndexDescription] = {}
         self._slots: Dict[tuple, IndexSlot] = {}  # (segment_id, index_name)
+        self._text_indexes: Dict[str, Any] = {}  # name -> TextIndexDefinition
         self.event_log = event_log if event_log is not None else EventLog()
         self._executor = VectorSearchExecutor(self)
 
@@ -126,6 +129,10 @@ class Table:
             descs = list(self._index_descs.values())
         for desc in descs:
             self._schedule_build(seg, desc)
+        with self._lock:
+            tdefs = list(self._text_indexes.values())
+        for tdef in tdefs:
+            tdef.on_new_segment(seg)
         GLOBAL_COUNTERS.bump("InsertedSegments")
         GLOBAL_COUNTERS.bump("InsertedRows", seg.n_rows)
         return seg_id
@@ -154,10 +161,10 @@ class Table:
             if d is not None:
                 raise IndexParameterError(f"column {column!r} already has vector index {d.name!r}")
         vtype = self.schema.require_vector(column)
-        if isinstance(vtype, BinaryVector):
-            raise NotImplementedError("binary vectors are not ported yet (ROADMAP queue 1 #8)")
+        is_binary = isinstance(vtype, BinaryVector)
         if type.lower() == "default":
-            type = "MSTG"
+            # TYPE DEFAULT: the column's search type decides
+            type = "BinaryMSTG" if is_binary else "MSTG"
         if (
             type.upper() == "MSTG"
             and "disk_mode" not in params
@@ -170,8 +177,8 @@ class Table:
             column,
             type,
             vtype.dim,
-            is_binary_column=False,
-            default_metric=self.settings.table.float_vector_search_metric_type,
+            is_binary_column=is_binary,
+            default_metric=self._default_metric_name(is_binary),
             params=params,
             strict=self.settings.table.vector_index_parameter_check,
         )
@@ -315,7 +322,7 @@ class Table:
         self.event_log.record(
             self.name, name, desc.column, EventType.LOAD_START, segment_id=segment_id
         )
-        instance = index_from_state_dict(state, self.device)
+        instance = index_from_state_dict(state, self.device, seg.vector(desc.column))
         self._reattach(instance, seg, desc)
         with self._lock:
             self._slots[(segment_id, name)] = IndexSlot(IndexStatus.LOADED, instance)
@@ -361,9 +368,133 @@ class Table:
         #10.)"""
         return True
 
-    def add_fts_index(self, name: str, columns, params=None):
-        raise NotImplementedError(
-            "full-text indexes are not ported yet (ROADMAP queue 1 #7)"
+    # ----------------------------------------------------------------- fts
+    def add_fts_index(self, name: str, columns, params: Optional[Dict[str, Any]] = None):
+        """INDEX name(col, ...) TYPE fts('{json}') analogue. Builds a store
+        for every existing segment now, and for every later segment at
+        insert time, on the caller's thread."""
+        from ..search.text_executor import TextIndexDefinition
+
+        if isinstance(columns, str):
+            columns = [columns]
+        for c in columns:
+            t = self.schema.require(c)
+            if t.name != "String":
+                raise SchemaError(f"fts index requires String columns, {c} is {t}")
+        with self._lock:
+            if name in self._text_indexes:
+                raise IndexParameterError(f"fts index {name!r} already exists")
+            tdef = TextIndexDefinition(name, columns, params)
+            self._text_indexes[name] = tdef
+        for seg in self.live_segments():
+            tdef.on_new_segment(seg)
+        self.event_log.record(self.name, name, ",".join(columns), EventType.DEFINITION_CREATED)
+        return tdef
+
+    def drop_fts_index(self, name: str) -> None:
+        with self._lock:
+            tdef = self._text_indexes.pop(name, None)
+        if tdef is None:
+            raise IndexParameterError(f"no fts index named {name!r}")
+        self.event_log.record(self.name, name, ",".join(tdef.columns), EventType.DEFINITION_DROPPED)
+
+    def has_token(self, column: str, token: str) -> Expr:
+        """hasToken(col, 'tok') predicate, accelerated by the fts index
+        when one covers the column; tokenize-and-scan otherwise."""
+        from ..search.text_executor import fts_token_filter
+
+        return fts_token_filter(self, column, token)
+
+    def like(self, column: str, pattern: str, negate: bool = False) -> Expr:
+        """col [NOT] LIKE pattern, fts-accelerated: whole inner tokens of
+        the pattern cut the candidate set, the real LIKE verifies."""
+        from ..search.text_executor import fts_like_filter
+
+        return fts_like_filter(self, column, pattern, negate)
+
+    def multi_search_any(self, column: str, needles) -> Expr:
+        """multiSearchAny(col, needles): substring-any, fts-accelerated."""
+        from ..search.text_executor import fts_multi_search_any
+
+        return fts_multi_search_any(self, column, list(needles))
+
+    def has_phrase(self, column: str, phrase: str) -> Expr:
+        """Phrase predicate: the phrase's tokens appear adjacent in order."""
+        from ..search.text_executor import fts_phrase_filter
+
+        return fts_phrase_filter(self, column, phrase)
+
+    def has_token_matching(self, column: str, regex: str) -> Expr:
+        """Regex term predicate: some token of the row matches the regex."""
+        from ..search.text_executor import fts_regex_filter
+
+        return fts_regex_filter(self, column, regex)
+
+    def text_search(
+        self,
+        column_or_index: str,
+        query,
+        k: Optional[int] = None,
+        *,
+        filter: Optional[Expr] = None,
+        operator: str = "OR",
+        stats_override=None,
+        final: bool = False,
+        enable_nlq: bool = False,
+        settings: Optional[Settings] = None,
+    ) -> SearchResult:
+        """textsearch()(col, 'query') analogue: BM25 top-k, descending. A
+        list of strings is a batch. enable_nlq activates the
+        natural-language subset: quoted phrases must match adjacently,
+        '-term' excludes."""
+        from ..search.text_executor import TextSearchExecutor
+
+        t0 = time.time()
+        if final:
+            raise SchemaError("FINAL requires a Replacing/Collapsing engine table")
+        st = settings or self.settings
+        res = TextSearchExecutor(self).run(
+            column_or_index, query, k, filter=filter, operator=operator,
+            stats_override=stats_override, enable_nlq=enable_nlq, settings=st,
+        )
+        self._log_query("text_search", column_or_index, res.nq, res.k, t0)
+        return res
+
+    def hybrid_search(
+        self,
+        vector_column: str,
+        text_column: str,
+        vector_query,
+        text_query,
+        k: Optional[int] = None,
+        *,
+        fusion_type: str = "rsf",
+        fusion_weight: Optional[float] = None,
+        fusion_k: Optional[int] = None,
+        filter: Optional[Expr] = None,
+        operator: str = "OR",
+        params: Optional[Dict[str, Any]] = None,
+        final: bool = False,
+        settings: Optional[Settings] = None,
+    ) -> SearchResult:
+        """hybridsearch('fusion_type=...')(vec, text, [q], 'text') analogue."""
+        from ..search.text_executor import HybridSearchExecutor
+
+        t0 = time.time()
+        if final:
+            raise SchemaError("FINAL requires a Replacing/Collapsing engine table")
+        res = HybridSearchExecutor(self).run(
+            vector_column, text_column, vector_query, text_query, k,
+            fusion_type=fusion_type, fusion_weight=fusion_weight, fusion_k=fusion_k,
+            filter=filter, operator=operator, params=params, settings=settings or self.settings,
+        )
+        self._log_query("hybrid_search", vector_column, res.nq, res.k, t0)
+        return res
+
+    def _log_query(self, kind: str, column: str, nq: int, k: int, t0: float) -> None:
+        GLOBAL_QUERY_LOG.record(
+            kind, table=self.name, column=column, nq=nq, k=k, rows_read=self.n_rows,
+            duration_ms=(time.time() - t0) * 1e3,
         )
 
     def loaded_index(self, segment_id: int, column: str, metric: Metric):
@@ -383,18 +514,18 @@ class Table:
         with self._lock:
             return next((d for d in self._index_descs.values() if d.column == column), None)
 
+    def _default_metric_name(self, binary: bool) -> str:
+        tset = self.settings.table
+        return tset.binary_vector_search_metric_type if binary else tset.float_vector_search_metric_type
+
     def index_metric_for(self, column: str) -> Metric:
         """Metric used for a column: its index's metric, else the table
-        default (float_vector_search_metric_type)."""
+        default (float_ or binary_vector_search_metric_type)."""
         desc = self._index_desc(column)
         if desc is not None:
             return desc.metric
-        vtype = self.schema.require_vector(column)
-        if isinstance(vtype, BinaryVector):
-            raise NotImplementedError(
-                "binary vectors are not ported yet (ROADMAP queue 1 #8)"
-            )
-        return Metric.parse(self.settings.table.float_vector_search_metric_type)
+        binary = isinstance(self.schema.require_vector(column), BinaryVector)
+        return Metric.parse(self._default_metric_name(binary), binary=binary)
 
     # -------------------------------------------------------------- search
     def search(
@@ -432,15 +563,7 @@ class Table:
             two_stage=two_stage,
         )
         k_eff = int(k if k is not None else (settings or self.settings).query.default_topk)
-        GLOBAL_QUERY_LOG.record(
-            "vector_search",
-            table=self.name,
-            column=column,
-            nq=res.nq,
-            k=k_eff,
-            rows_read=self.n_rows,
-            duration_ms=(time.time() - t0) * 1e3,
-        )
+        self._log_query("vector_search", column, res.nq, k_eff, t0)
         return res
 
     def gather(self, result: SearchResult, columns: List[str]) -> Dict[str, np.ndarray]:

@@ -24,8 +24,10 @@ def _run(code, cwd=REPO, **env):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, myscaledb_tpu_torch, myscaledb_tpu_torch.storage.convert\n"
-        "from myscaledb_tpu_torch.ops import _cuda, bruteforce, gathermv, kmeans, quantize\n"
-        "from myscaledb_tpu_torch.index import hnsw, ivf\n"
+        "from myscaledb_tpu_torch.ops import _cuda, binary, bruteforce, gathermv, kmeans, quantize\n"
+        "from myscaledb_tpu_torch.index import binary, hnsw, ivf\n"
+        "from myscaledb_tpu_torch.text import analyzer, inverted, native\n"
+        "from myscaledb_tpu_torch.search import fusion, text_executor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'myscaledb_tpu'))\n"
         "assert not bad, bad\n"
@@ -103,7 +105,7 @@ def test_no_quiet_fallback_for_other_devices():
 
     import myscaledb_tpu_torch as ms
     from myscaledb_tpu_torch.metrics import Metric
-    from myscaledb_tpu_torch.ops import distance, gathermv, tilescan
+    from myscaledb_tpu_torch.ops import binary, distance, gathermv, tilescan
 
     q = torch.empty((8, 128), device="meta")
     x = torch.empty((256, 128), device="meta")
@@ -119,3 +121,12 @@ def test_no_quiet_fallback_for_other_devices():
         tilescan.tile_maxes(q, x, aux, m8, metric=Metric.L2)
     with pytest.raises(ValueError, match="unsupported device"):
         ms.connect(device="meta")
+    qb = torch.empty((8, 16), dtype=torch.uint8, device="meta")
+    xb = torch.empty((256, 16), dtype=torch.uint8, device="meta")
+    blocks = torch.empty((4, 64, 16), dtype=torch.uint8, device="meta")
+    blk = torch.empty((8, 2), dtype=torch.int32, device="meta")
+    brows = torch.empty((4, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        binary.binary_scores(qb, xb, Metric.HAMMING)
+    with pytest.raises(ValueError, match="unsupported device"):
+        binary.binary_block_scores(qb, blocks, blk, brows, Metric.JACCARD)

@@ -25,7 +25,7 @@ import torch
 
 from myscaledb_tpu_torch.index import hnsw
 from myscaledb_tpu_torch.metrics import Metric
-from myscaledb_tpu_torch.ops import distance, gathermv, tilescan
+from myscaledb_tpu_torch.ops import binary, distance, gathermv, tilescan
 from myscaledb_tpu_torch.storage.schema import FloatVector, Schema, UInt64
 from myscaledb_tpu_torch.storage.segment import Segment
 
@@ -320,3 +320,101 @@ def test_hnsw_search_launches_gathermv_every_iteration(cuda_device, m, ef_s, k):
     stored = seg.vector("vec").data[:2000, :128].float().cpu().numpy()[np.maximum(r, 0)]
     exact = 2.0 * np.einsum("qd,qkd->qk", q.numpy(), stored) - (stored**2).sum(-1)
     np.testing.assert_allclose(v[live], exact[live], rtol=2e-4, atol=2e-3)
+
+
+BIN_METRICS = [Metric.HAMMING, Metric.JACCARD]
+
+
+def _bits(g, shape, device, density=0.5):
+    """Random packed bytes whose bits are set with probability `density`."""
+    bits = (torch.rand((*shape, 8), generator=g, device=device) < density).to(torch.uint8)
+    return (bits << torch.arange(8, dtype=torch.uint8, device=device)).sum(-1, dtype=torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("metric", BIN_METRICS)
+@pytest.mark.parametrize("q,n,b", [(1, 1, 4), (13, 1000, 128), (100, 65_536, 128), (17, 4099, 5),
+                                   (33, 777, 13), (300, 2048, 129), (8, 300, 256)])
+def test_binary_rows_kernel_vs_plain(cuda_device, metric, q, n, b, masked):
+    """The shared-base layout: ragged Q (past a 16-query tile), N (past a
+    256-row block) and B (not a multiple of 4: the byte tail), all-zero
+    rows, rows past n_valid and masked rows; bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(q * n + b)
+    qb = _bits(g, (q, b), cuda_device)
+    x = _bits(g, (n, b), cuda_device, density=0.2)
+    x[: min(n, 3)] = 0
+    qb[0] = 0
+    mask = (torch.rand(n, generator=g, device=cuda_device) < 0.7) if masked else None
+    n_valid = max(0, n - 5)
+    before = binary.binary_scores.launches
+    got = binary.binary_scores(qb, x, metric, n_valid=n_valid, mask=mask)
+    assert binary.binary_scores.launches == before + 1
+    valid = torch.arange(n, device=cuda_device) < n_valid
+    if mask is not None:
+        valid &= mask
+    want = binary.binary_scores_plain(qb, x, metric, valid)
+    assert torch.equal(got, want)
+    if n_valid < n:
+        assert bool((got[:, n_valid:] == float("-inf")).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", BIN_METRICS)
+@pytest.mark.parametrize("q,p,c,m,b", [(100, 16, 64, 2000, 128), (7, 3, 5, 257, 5), (300, 1, 2, 64, 128),
+                                       (1, 4, 4, 1, 12)])
+def test_binary_blocks_kernel_vs_plain(cuda_device, metric, q, p, c, m, b):
+    """Per-query blocks, read in place: ragged Q, P blocks per query, M
+    (past a 256-row block) and B; empty slots (row -1), block ids out of
+    [0, C) (clamped, as the plain version does) and a row mask; bit for
+    bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(q + p + c + m + b)
+    qb = _bits(g, (q, b), cuda_device)
+    x = _bits(g, (c, m, b), cuda_device)
+    rows = torch.randperm(c * m, generator=g, device=cuda_device).to(torch.int32).reshape(c, m)
+    rows[:, -max(1, m // 9):] = -1
+    blk = torch.randint(-1, c + 1, (q, p), generator=g, device=cuda_device, dtype=torch.int32)
+    for mask in (None, torch.rand(c * m, generator=g, device=cuda_device) < 0.6):
+        before = binary.binary_block_scores.launches
+        got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask)
+        assert binary.binary_block_scores.launches == before + 1
+        want = binary.binary_block_scores_plain(qb, x, blk, rows, mask, metric)
+        assert got.shape == (q, p * m)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", BIN_METRICS)
+def test_binary_index_search_on_the_card(cuda_device, metric):
+    """BinaryFLAT and BinaryMSTG built and searched on the card launch the
+    kernel (rows layout for the scan and the overflow, blocks layout for
+    the buckets) and find the CPU's top-k scores exactly."""
+    from myscaledb_tpu_torch.index import binary as bidx
+    from myscaledb_tpu_torch.storage.schema import BinaryVector
+
+    rng = np.random.default_rng(5)
+    protos = rng.random((16, 512)) < 0.5
+    bits = protos[rng.integers(0, 16, 20_000)] ^ (rng.random((20_000, 512)) < 0.1)
+    schema = Schema({"id": UInt64(), "bv": BinaryVector(512)})
+    cols = {"id": np.arange(20_000, dtype=np.uint64), "bv": np.packbits(bits, axis=1)}
+    q = torch.from_numpy(np.packbits(bits[:32] ^ (rng.random((32, 512)) < 0.05), axis=1))
+    for cls in (bidx.BinaryFlatIndex, bidx.BinaryMSTGIndex):
+        card = cls.build(Segment.from_columns(0, schema, cols, device=cuda_device).vector("bv"),
+                         20_000, metric=metric, dim=512)
+        if cls is bidx.BinaryMSTGIndex:  # the card's build, carried to the CPU
+            host = cls.from_state_dict(card.state_dict(), device="cpu")
+            params = (("nprobe", card.n_clusters),)  # every bucket: no probe near-ties
+        else:
+            host = cls.build(Segment.from_columns(0, schema, cols, device="cpu").vector("bv"),
+                             20_000, metric=metric, dim=512)
+            params = ()
+        before = (binary.binary_scores.launches, binary.binary_block_scores.launches)
+        v, _ = card.search_t(q.to(cuda_device), 10, params=params)
+        rows_launches = binary.binary_scores.launches - before[0]
+        block_launches = binary.binary_block_scores.launches - before[1]
+        if cls is bidx.BinaryMSTGIndex:
+            assert block_launches == 1 and rows_launches == (1 if card.n_overflow else 0)
+        else:
+            assert rows_launches == 1 and block_launches == 0
+        want, _ = host.search_t(q, 10, params=params)
+        assert torch.equal(v.cpu(), want)
