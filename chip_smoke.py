@@ -30,7 +30,8 @@ of the JAX package. Phases, each of which raises on failure:
      (traces and host profiles under --out);
   6. the HNSW path on phase 4's table: add_vector_index(HNSWFLAT, m=32,
      ef_c=100, Cosine), graph searches at ef_s 50 / 100 / 200 (gathermv
-     kernel) with recall against phase 4's exact results and QPS, a
+     kernel) with recall against phase 4's exact results and QPS, the
+     kernels a graph batch launches at ef_s 100 (one profiled pass), a
      filtered search, the routed default search and a search after
      deletes (--profile adds the graph search's cell);
   7. times: each kernel beside its plain version, the library call that
@@ -65,20 +66,24 @@ of the JAX package. Phases, each of which raises on failure:
  10. binary vectors: 1,000,000 x 1,024-bit rows (the sign bits of a
      clustered 1,024-d corpus), Hamming and Jaccard exact scans (binary
      kernel, rows layout), then BinaryMSTG with default params (blocks
-     layout; build seconds, recall against the exact scan), a filter and
-     deletes. Hits' scores are recomputed in numpy and the first queries'
-     top-k equal a full numpy scan's. The binary kernel is compared with
-     its plain version bit for bit in phase 2 and timed here; --profile
-     adds binary_exact and binary_mstg.
+     layout: the grouping kernel, then the scoring kernel; build seconds,
+     recall against the exact scan), a filter and deletes. Hits' scores
+     are recomputed in numpy and the first queries' top-k equal a full
+     numpy scan's. The binary kernels are compared with their plain
+     versions bit for bit in phase 2, and here at BinaryMSTG's own inputs
+     (both metrics, with and without the mask and the slots' bit counts)
+     and under skewed probes; the rows layout, the blocks call of each
+     metric and the grouping alone are timed beside their bounds;
+     --profile adds binary_exact and binary_mstg.
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
-three over phase 8, score and tile_max over phase 9, binary over phase
-10; every kernel must have launched on its path, and the record's
-launches are the sums over those paths. The last line of standard
-output is {"ok": true, "device": {...}}; the line before it is the
-per-kernel JSON record. Without CUDA, or without the package beside this
-file, it exits non-zero and prints no result.
+three over phase 8, score and tile_max over phase 9, the binary rows
+layout, blocks layout and grouping over phase 10; every kernel must have
+launched on its path, and the record's launches are the sums over those
+paths. The last line of standard output is {"ok": true, "device": {...}};
+the line before it is the per-kernel JSON record. Without CUDA, or without
+the package beside this file, it exits non-zero and prints no result.
 """
 
 import json
@@ -157,9 +162,23 @@ HYBRID_FUSION_K, HYBRID_WEIGHT = 60, 0.5
 BIN_N, BIN_DIM, BIN_NQ, BIN_BATCH = 1_000_000, 1_024, 1_000, 100
 BIN_FILTER = 500_000
 BIN_MIN_SCORE_RECALL = 0.9
+# (skew, Q, P, C, M) of the blocks layout's skewed-probe checks: every pair
+# on one bucket; every pair on its own bucket; C = 1; Q * P = 91, not a
+# multiple of 16; P = 12 > C = 4, with repeats
+SKEW_CASES = [("one", BIN_BATCH, 16, 64, 300), ("distinct", 40, 8, 320, 257),
+              ("uniform", 9, 5, 1, 100), ("uniform", 13, 7, 20, 96), ("uniform", 9, 12, 4, 513)]
 # popcounts an H100 SM retires per clock (CUDA C++ Programming Guide,
 # throughput of native arithmetic instructions, compute capability 9.0)
 POPC_PER_CLK_PER_SM = 16
+# csrc/binary.cu: the buckets the grouping counts in shared memory
+# (BG_SMEM_BUCKETS) and the step of a group's queries (BB_QSTEP)
+GROUP_SMEM_BUCKETS = 2_048
+BB_QSTEP = 4
+# calls of the blocks layout in phase 10's trace, and the launch fields of
+# a kernel event that it prints
+BLOCKS_TRACE_CALLS = 20
+LAUNCH_KEYS = ("grid", "block", "registers per thread", "shared memory", "blocks per SM",
+               "warps per SM", "est. achieved occupancy %")
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -549,10 +568,12 @@ def graph_recall(results, gt):
     return hits / (nq * k), float((dist <= kth * (1 + 1e-4) + 1e-4).mean())
 
 
-def hnsw_path(ms, dev, t, batches, gt, card):
+def hnsw_path(ms, dev, t, batches, gt, card, out_dir):
     """Build HNSWFLAT on phase 4's table and search it through the table's
-    entry points. Returns (graph settings, the batches searched, the
-    index, ef_s -> (recall_ids, recall_dist, QPS))."""
+    entry points; one profiled pass at ef_s 100 counts the kernels a graph
+    batch launches (its trace goes to `out_dir`). Returns (graph settings,
+    the batches searched, the index, ef_s -> (recall_ids, recall_dist,
+    QPS))."""
     from myscaledb_tpu_torch import F
     from myscaledb_tpu_torch.index import hnsw
     from myscaledb_tpu_torch.index.base import IndexStatus
@@ -601,6 +622,13 @@ def hnsw_path(ms, dev, t, batches, gt, card):
                   f"ef_s={ef}: a graph search returned fewer than {K} hits")
     check(curve[100][0] >= HNSW_MIN_RECALL,
           f"graph recall_ids@{K} {curve[100][0]:.4f} < {HNSW_MIN_RECALL} at ef_s=100")
+    # what the per-iteration dedup of the neighbours costs: kernels a batch
+    dev_ms, _, n_kernels = device_trace(
+        lambda qb: t.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph), hb,
+        os.path.join(out_dir, "trace_hnsw_kernels.json"))
+    log(f"  graph ef_s=100: {n_kernels / len(hb):.1f} kernels / search (batch {GIST_BATCH}), "
+        f"device {dev_ms / len(hb):.4f} ms / search, recall_ids@{K} {curve[100][0]:.4f} "
+        f"(limit {HNSW_MIN_RECALL})  [{card}]")
 
     flt = F("id") < 50_000
     before = GLOBAL_COUNTERS.get("VectorIndexSearches")
@@ -1692,6 +1720,34 @@ def popc_rate():
     return POPC_PER_CLK_PER_SM * sms * mhz * 1e6, sms, mhz
 
 
+def kernel_timeline(fn, reps, trace_path, part):
+    """The kernels whose name holds `part` of `reps` calls of `fn`, in
+    device order, from a torch.profiler chrome trace (written to
+    `trace_path`) taken while the device first sleeps for SLEEP_CYCLES, so
+    that the host's enqueue does not show between them: [(name, start us,
+    duration us, args)]. The args hold what the profiler read of each
+    launch (grid, block, registers per thread, blocks per SM, estimated
+    achieved occupancy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ks = sorted((e for e in events if e.get("cat") == "kernel" and part in e["name"]),
+                key=lambda e: e["ts"])
+    check(ks, f"{trace_path}: the profiler saw no {part}* kernel")
+    return [(e["name"], float(e["ts"]), float(e["dur"]), e.get("args", {})) for e in ks]
+
+
 def exact_err(got, want):
     """max |got - want|, an entry where both are -inf counting 0 (inf
     where only one side is infinite)."""
@@ -1706,7 +1762,9 @@ def compare_binary(dev):
     layout at the exact scan's chunk shape and a ragged one, the blocks
     layout at a made-up shape and a ragged one (phase 10 holds it at
     BinaryMSTG's own); masks, rows past n_valid, empty slots and clamped
-    block ids included. Returns the largest |kernel - plain| measured."""
+    block ids included. The blocks layout's Jaccard takes the slots' bit
+    counts and is held to the two-popcount plain version. Returns the
+    largest |kernel - plain| measured."""
     import torch
 
     from myscaledb_tpu_torch.metrics import Metric
@@ -1736,7 +1794,8 @@ def compare_binary(dev):
             rows[:, -(m // 9 + 1):] = -1
             blk = torch.randint(-1, c + 1, (q, p), generator=g, device=dev, dtype=torch.int32)
             mask = torch.rand(c * m, generator=g, device=dev) < 0.6
-            got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask)
+            got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask,
+                                             popcnt=binary.row_popcounts(x))
             want = binary.binary_block_scores_plain(qb, x, blk, rows, mask, metric)
             check(torch.equal(got, want), f"binary blocks kernel differs from its plain version: "
                   f"Q={q} P={p} C={c} M={m} B={b} {metric}")
@@ -1749,12 +1808,88 @@ def compare_binary(dev):
     return err
 
 
+def compare_group(blk, c, label):
+    """The grouping kernel against group_probes_plain under torch.equal:
+    the pair order and the groups up to the count. Returns the largest
+    |kernel - plain| over them (0)."""
+    import torch
+
+    from myscaledb_tpu_torch.ops import binary
+
+    pairs, groups, count = binary.group_probes(blk, c)
+    wp, wg, wc = binary.group_probes_plain(blk, c)
+    n = int(wc[0])
+    check(torch.equal(count, wc) and torch.equal(pairs, wp) and torch.equal(groups[:n], wg[:n]),
+          f"binary grouping kernel differs from group_probes_plain ({label})")
+    err = max(exact_err(pairs.float(), wp.float()), exact_err(groups[:n].float(), wg[:n].float()))
+    log(f"  binary   grouping {label} (Q={blk.shape[0]} P={blk.shape[1]} C={c}): {blk.numel()} "
+        f"pairs in {n} groups, equal to group_probes_plain")
+    return err
+
+
+def compare_blocks_skewed(dev):
+    """The grouped blocks layout under skewed probes, bit for bit with its
+    plain version: all queries on one bucket, every pair on its own
+    bucket, C = 1, Q * P not a multiple of 16, P > C with repeats, each at
+    B = 128 and a ragged B = 13, both metrics, with and without a mask
+    (Jaccard from the slots' bit counts, held to the two-popcount plain
+    version; Hamming with and without them, which it does not read); and
+    the grouping kernel alone at 10^5 pairs over 65,536 buckets, spread and
+    all on one. Returns the largest |kernel - plain|."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import binary
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def probes(case, q, p, c):
+        if case == "one":
+            return torch.full((q, p), c // 2, dtype=torch.int32, device=dev)
+        if case == "distinct":
+            return torch.randperm(c, generator=g, device=dev)[: q * p].reshape(q, p).to(torch.int32)
+        return torch.randint(-2, c + 2, (q, p), generator=g, device=dev, dtype=torch.int32)
+
+    err, n_cmp = 0.0, 0
+    for case, q, p, c, m in SKEW_CASES:
+        blk = probes(case, q, p, c)
+        err = max(err, compare_group(blk, c, f"skew {case}"))
+        for b in (BIN_DIM // 8, 13):
+            qb = torch.randint(0, 256, (q, b), generator=g, device=dev, dtype=torch.uint8)
+            x = torch.randint(0, 256, (c, m, b), generator=g, device=dev, dtype=torch.uint8)
+            x[0, :2] = 0
+            qb[0] = 0
+            rows = torch.randperm(c * m, generator=g, device=dev).to(torch.int32).reshape(c, m)
+            rows[:, -(m // 9 + 1):] = -1
+            pc = binary.row_popcounts(x)
+            for mask in (None, torch.rand(c * m, generator=g, device=dev) < 0.6):
+                for metric in (Metric.HAMMING, Metric.JACCARD):
+                    want = binary.binary_block_scores_plain(qb, x, blk, rows, mask, metric)
+                    for popcnt in ((None, pc) if metric == Metric.HAMMING else (pc,)):
+                        got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask,
+                                                         popcnt=popcnt)
+                        check(torch.equal(got, want), f"binary blocks kernel differs from its plain "
+                              f"version: skew {case} Q={q} P={p} C={c} M={m} B={b} {metric} mask "
+                              f"{mask is not None} popcnt {popcnt is not None}")
+                        err, n_cmp = max(err, exact_err(got, want)), n_cmp + got.numel()
+    for case in ("uniform", "one"):
+        err = max(err, compare_group(probes(case, 6_250, 16, 65_536), 65_536, f"skew {case}"))
+    log(f"  binary   blocks under skewed probes ({', '.join(c[0] for c in SKEW_CASES)}; B = 128 and "
+        f"13; both metrics, with and without mask; Hamming with and without bit counts): {n_cmp} "
+        f"scores equal to the plain version's bit for bit (max |kernel - plain| {err:g})")
+    sync(dev)
+    return err
+
+
 def binary_path(ms, dev, card, args):
     """Phase 10: BinaryVector(1024) search over 1,000,000 rows, exact
     (BinaryFLAT scan) and through BinaryMSTG with default params, Hamming
     and Jaccard, batch 100, k 10, with a filter and deletes. Returns
-    (launches, the kernel's timing record, the largest |kernel - plain|
-    at the path's shapes)."""
+    (launches, timing records and largest |kernel - plain| at the path's
+    shapes, each by kernel: binary (rows layout), binary_blocks (grouping
+    and scoring) and binary_group)."""
+    import statistics
+
     import torch
 
     from myscaledb_tpu_torch import F
@@ -1786,6 +1921,7 @@ def binary_path(ms, dev, card, args):
     x64 = packed.view(np.uint64)
     binary.binary_scores.launches = 0
     binary.binary_block_scores.launches = 0
+    binary.group_probes.launches = 0
     exact = {}
     for metric in ("Hamming", "Jaccard"):
         res = [t.search("bv", qb, k=K, metric=metric) for qb in batches]
@@ -1820,10 +1956,11 @@ def binary_path(ms, dev, card, args):
     log(f"  BinaryMSTG build {build_s:.2f} s ({idx.n_clusters} clusters, bucket capacity "
         f"{idx.bucket_cap}, {idx.n_overflow} rows in overflow; index "
         f"{idx.memory_bytes / 1e9:.4f} GB)  [{card}]")
-    blocks_before = binary.binary_block_scores.launches
+    blocks_before = (binary.binary_block_scores.launches, binary.group_probes.launches)
     mres = [t.search("bv", qb, k=K) for qb in batches]
-    check(binary.binary_block_scores.launches - blocks_before == len(batches),
-          "BinaryMSTG must score its buckets in one blocks-layout launch per search")
+    check((binary.binary_block_scores.launches - blocks_before[0],
+           binary.group_probes.launches - blocks_before[1]) == (len(batches), len(batches)),
+          "BinaryMSTG must group its probes and score its buckets in one launch each per search")
     check_binary_hits("BinaryMSTG", t, x64, queries, mres, "Hamming")
     ev = np.concatenate([r.scores for r in exact["Hamming"]])
     mv = np.concatenate([r.scores for r in mres])
@@ -1844,10 +1981,13 @@ def binary_path(ms, dev, card, args):
     check(not set(np.concatenate([r.rows for r in dres]).ravel().tolist()) & set(gone),
           "a deleted row came back from the BinaryMSTG search")
     log(f"  delete: {len(gone)} rows deleted, none returned by the exact or BinaryMSTG search")
-    launches = binary.binary_scores.launches + binary.binary_block_scores.launches
-    log(f"  binary kernel launches on phase 10: rows layout {binary.binary_scores.launches}, "
-        f"blocks layout {binary.binary_block_scores.launches}")
-    check(binary.binary_block_scores.launches > 0, "BinaryMSTG did not launch the blocks layout")
+    launches = {"binary": binary.binary_scores.launches,
+                "binary_blocks": binary.binary_block_scores.launches,
+                "binary_group": binary.group_probes.launches}
+    log(f"  binary kernel launches on phase 10: rows layout {launches['binary']}, blocks layout "
+        f"{launches['binary_blocks']}, grouping {launches['binary_group']}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the binary path")
 
     # times, at the main path's shapes
     rate, sms, mhz = popc_rate()
@@ -1868,8 +2008,9 @@ def binary_path(ms, dev, card, args):
         f" plain {rec['plain_ms']:.4f} ms, library n/a, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: {BIN_BATCH * 65_536 * w / 1e6:.1f}M popcounts at {rate / 1e12:.3f}e12/s "
         f"= 16 x {sms} SMs x {mhz:.0f} MHz; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it)  [{card}]")
-    # the blocks layout at the search's own inputs: its probe, its buckets
-    # and its mask (the filter's after the deletes), and the overflow scan's
+    # the blocks layout at the search's own inputs: its probe, its buckets,
+    # its slots' bit counts and its mask (the filter's after the deletes),
+    # and the overflow scan's
     nprobe = idx._nprobe(())
     qbits = binary.unpack_bits_f32(qd, BIN_DIM)
     probe = topk_stable(2.0 * (qbits @ idx.centroids.T) - idx.csq[None, :], nprobe)[1].contiguous()
@@ -1880,13 +2021,16 @@ def binary_path(ms, dev, card, args):
     perr, n_cmp = 0.0, 0
     for metric in (Metric.HAMMING, Metric.JACCARD):
         for m in (None, smask):
-            got = binary.binary_block_scores(qd, idx.bucket_data, probe, idx.bucket_rows, metric,
-                                             mask=m)
             want = binary.binary_block_scores_plain(qd, idx.bucket_data, probe, idx.bucket_rows,
                                                     m, metric)
-            check(torch.equal(got, want), f"binary blocks kernel differs from its plain version "
-                  f"at BinaryMSTG's shape ({metric}, mask {m is not None})")
-            perr, n_cmp = max(perr, exact_err(got, want)), n_cmp + got.numel()
+            for pc in ((None, idx.bucket_popcnt) if metric == Metric.HAMMING
+                       else (idx.bucket_popcnt,)):
+                got = binary.binary_block_scores(qd, idx.bucket_data, probe, idx.bucket_rows,
+                                                 metric, mask=m, popcnt=pc)
+                check(torch.equal(got, want), f"binary blocks kernel differs from its plain version "
+                      f"at BinaryMSTG's shape ({metric}, mask {m is not None}, popcnt "
+                      f"{pc is not None})")
+                perr, n_cmp = max(perr, exact_err(got, want)), n_cmp + got.numel()
         for m in (None, omask):
             got = binary.binary_scores(qd, idx.over_data, metric, n_valid=idx.n_overflow, mask=m)
             valid = torch.arange(opad, device=dev) < idx.n_overflow
@@ -1897,30 +2041,125 @@ def binary_path(ms, dev, card, args):
             perr, n_cmp = max(perr, exact_err(got, want)), n_cmp + got.numel()
     log(f"  binary   blocks Q={BIN_BATCH} P={nprobe} C={idx.n_clusters} M={idx.bucket_cap} and "
         f"overflow rows N={opad} (n_valid {idx.n_overflow}), Hamming and Jaccard, with and "
-        f"without the filtered search's mask: {n_cmp} scores equal to the plain version's bit "
-        f"for bit (max |kernel - plain| {perr:g})")
-    bcall = lambda: binary.binary_block_scores(  # noqa: E731
-        qd, idx.bucket_data, probe, idx.bucket_rows, Metric.HAMMING)
-    bms = cuda_time_ms(bcall)
-    bplain = cuda_time_ms(lambda: binary.binary_block_scores_plain(
-        qd, idx.bucket_data, probe, idx.bucket_rows, None, Metric.HAMMING), iters=3, warmup=1)
-    # bytes: each bucket the probe reads once (payload and row ids), the
-    # queries, the probe and the output; popcounts: one a word a slot
+        f"without the filtered search's mask (Jaccard from the slots' bit counts, Hamming with "
+        f"and without them): {n_cmp} scores equal to the plain version's bit for bit (max "
+        f"|kernel - plain| {perr:g})")
+    gerr = compare_group(probe, idx.n_clusters, "BinaryMSTG's probe")
+    skew_err = compare_blocks_skewed(dev)
+    perr = max(perr, skew_err)
+
+    # the blocks call (grouping and scoring) for each metric, with its bound:
+    # bytes = each distinct bucket the probe reads once (payload, row ids
+    # and, for Jaccard, the slots' bit counts), the queries, the probe and
+    # the output; popcounts = one a word a slot, for both metrics (Jaccard's
+    # union comes from the bit counts)
     n_blk = int(torch.unique(probe).numel())
     bpop = BIN_BATCH * nprobe * idx.bucket_cap * w
-    bbytes = (n_blk * idx.bucket_cap * (BIN_DIM // 8 + 4) + qd.numel() + 4 * probe.numel()
-              + 4 * BIN_BATCH * nprobe * idx.bucket_cap)
-    bbound = 1e3 * max(bbytes / PEAK_BYTES_PER_S, bpop / rate)
-    log(f"  binary   blocks Q={BIN_BATCH} P={nprobe} M={idx.bucket_cap} B={BIN_DIM // 8} Hamming: "
-        f"kernel {bms:.4f} ms, plain {bplain:.4f} ms, bound {bbound:.4f} ms "
-        f"({'bytes' if bbytes / PEAK_BYTES_PER_S >= bpop / rate else 'operations'}: "
-        f"{bbytes / 1e6:.1f} MB over the {n_blk} distinct buckets probed, "
-        f"{bpop / 1e6:.1f}M popcounts; {100 * bbound / bms:.1f}% of it)  [{card}]")
+    blocks = {}
+    for metric in (Metric.HAMMING, Metric.JACCARD):
+        call = lambda: binary.binary_block_scores(  # noqa: E731
+            qd, idx.bucket_data, probe, idx.bucket_rows, metric, popcnt=idx.bucket_popcnt)
+        r = dict(ms=cuda_time_ms(call),
+                 plain_ms=cuda_time_ms(lambda: binary.binary_block_scores_plain(
+                     qd, idx.bucket_data, probe, idx.bucket_rows, None, metric), iters=3, warmup=1),
+                 library_ms=None)  # torch has no popcount: no one call computes it
+        per_slot = BIN_DIM // 8 + 4 + (4 if metric == Metric.JACCARD else 0)
+        bbytes = (n_blk * idx.bucket_cap * per_slot + qd.numel() + 4 * probe.numel()
+                  + 4 * BIN_BATCH * nprobe * idx.bucket_cap)
+        b_s, o_s = bbytes / PEAK_BYTES_PER_S, bpop / rate
+        r["bound_ms"], r["bound_by"] = 1e3 * max(b_s, o_s), ("bytes" if b_s >= o_s else "operations")
+        blocks[metric] = r
+        log(f"  binary   blocks Q={BIN_BATCH} P={nprobe} M={idx.bucket_cap} B={BIN_DIM // 8} "
+            f"{metric.value} (grouping + scoring): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library n/a, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{bbytes / 1e6:.1f} MB over the {n_blk} distinct buckets probed, {bpop / 1e6:.1f}M "
+            f"popcounts at {rate / 1e12:.3f}e12/s; {100 * r['bound_ms'] / r['ms']:.1f}% of it)  "
+            f"[{card}]")
+    # the grouping alone: its bytes are the probe read and the pairs and
+    # groups written
+    pairs, groups, count = binary.group_probes(probe, idx.n_clusters)
+    n_groups = int(count[0])
+    gbytes = 4 * probe.numel() + 4 * pairs.numel() + 12 * n_groups + 4
+    grec = dict(ms=cuda_time_ms(lambda: binary.group_probes(probe, idx.n_clusters)),
+                plain_ms=cuda_time_ms(lambda: binary.group_probes_plain(probe, idx.n_clusters),
+                                      iters=3, warmup=1),
+                library_ms=None,  # no one call sorts and cuts into groups
+                bound_ms=1e3 * gbytes / PEAK_BYTES_PER_S, bound_by="bytes")
+    log(f"  binary   grouping Q={BIN_BATCH} P={nprobe} C={idx.n_clusters}: {n_groups} groups over "
+        f"{n_blk} buckets; kernel {grec['ms']:.4f} ms, plain {grec['plain_ms']:.4f} ms, bound "
+        f"{grec['bound_ms']:.6f} ms (bytes: {gbytes} B; one block, bound by its latency)  [{card}]")
+    # the grouping's shared-memory path against its global counting sort on
+    # the same pairs, in turns: C passed one past the buckets the shared-
+    # memory path takes sends them down the global path (the extra buckets
+    # stay empty, so the result is the same)
+    cg = GROUP_SMEM_BUCKETS + 1
+    out_g = binary.group_probes(probe, cg)
+    check(torch.equal(out_g[2], count) and torch.equal(out_g[0], pairs)
+          and torch.equal(out_g[1][:n_groups], groups[:n_groups]),
+          "the grouping's global path differs from its shared-memory path")
+    paths = {"shared": [], "global": []}
+    for _ in range(2):
+        paths["shared"].append(cuda_time_ms(lambda: binary.group_probes(probe, idx.n_clusters)))
+        paths["global"].append(cuda_time_ms(lambda: binary.group_probes(probe, cg)))
+    log(f"  binary   grouping at BinaryMSTG's probe, in turns: shared-memory path "
+        f"{', '.join(f'{v:.4f}' for v in paths['shared'])} ms, global counting sort (C passed as "
+        f"{cg}) {', '.join(f'{v:.4f}' for v in paths['global'])} ms  [{card}]")
+
+    # where a Hamming blocks call's time goes on the device: a trace of
+    # BLOCKS_TRACE_CALLS calls, each call's grouping kernel, the gap to its
+    # scoring kernel, the scoring kernel and the gap to the next call
+    ks = kernel_timeline(lambda: binary.binary_block_scores(
+        qd, idx.bucket_data, probe, idx.bucket_rows, Metric.HAMMING), BLOCKS_TRACE_CALLS,
+        os.path.join(args.out, "trace_binary_blocks.json"), "binary_group")
+    kind = ["g" if "binary_group_kernel" in k[0] else "s" for k in ks]
+    grp = [k for k, c in zip(ks, kind) if c == "g"]
+    sco = [k for k, c in zip(ks, kind) if c == "s"]
+    # neighbours in the timeline: a grouping then its scoring kernel, a
+    # scoring kernel then the next call's grouping, and one call's grouping
+    # to the next's
+    pairs_gs = [(a, b) for a, b, x, y in zip(ks, ks[1:], kind, kind[1:]) if (x, y) == ("g", "s")]
+    pairs_sg = [(a, b) for a, b, x, y in zip(ks, ks[1:], kind, kind[1:]) if (x, y) == ("s", "g")]
+    calls = [(a, c) for a, c, x, y, z in zip(ks, ks[2:], kind, kind[1:], kind[2:])
+             if (x, y, z) == ("g", "s", "g")]
+    check(len(pairs_gs) >= BLOCKS_TRACE_CALLS // 2 and pairs_sg and calls,
+          f"the trace of the blocks call holds {len(grp)} grouping and {len(sco)} scoring kernels "
+          f"in an order that pairs too few of them")
+    med = statistics.median
+    log(f"  binary   blocks call traced ({BLOCKS_TRACE_CALLS} Hamming calls, the device first "
+        f"asleep; the trace holds {len(grp)} grouping and {len(sco)} scoring kernels; median us): "
+        f"grouping kernel {med(g[2] for g in grp):.2f}, gap {med(b[1] - a[1] - a[2] for a, b in pairs_gs):.2f}, "
+        f"scoring kernel {med(c[2] for c in sco):.2f}, gap to the next call's grouping "
+        f"{med(b[1] - a[1] - a[2] for a, b in pairs_sg):.2f}; a call start to start "
+        f"{med(c[1] - a[1] for a, c in calls):.2f}  [{card}]")
+    for name, k in (("grouping", grp[0]), ("scoring", sco[0])):
+        log(f"  binary   {name} kernel launch as the profiler read it: " + ", ".join(
+            f"{key} {k[3][key]}" for key in LAUNCH_KEYS if key in k[3]))
+    # how the persistent scoring blocks split the work: item i is group
+    # i % n_groups, tile i // n_groups, taken by block i % grid
+    grid = int(sco[0][3].get("grid", [0])[0])
+    gl = groups[:n_groups].cpu().numpy()
+    tiles = -(-idx.bucket_cap // binary.BLOCK_ROWS)
+    tile_rows = np.minimum(binary.BLOCK_ROWS, idx.bucket_cap - binary.BLOCK_ROWS * np.arange(tiles))
+    item_q, item_rows = np.tile(gl[:, 2], tiles), np.repeat(tile_rows, n_groups)
+    need = item_q * item_rows  # (query, row) pairs an item scores
+    issued = -(-item_q // BB_QSTEP) * BB_QSTEP * item_rows
+    if grid > 0:
+        owner = np.arange(need.size) % grid
+        per_block = np.bincount(owner, weights=need, minlength=grid)
+        n_items = np.bincount(owner, minlength=grid)
+        log(f"  binary   scoring work split: {need.size} items ({n_groups} groups of "
+            f"{gl[:, 2].mean():.2f} queries on average x {tiles} tiles) over {grid} persistent "
+            f"blocks: items a block {n_items.min()} / {n_items.mean():.2f} / {n_items.max()} "
+            f"(min / mean / max); (query, row) pairs a block mean / busiest "
+            f"{per_block.mean() / per_block.max():.3f}; popcounts issued / needed "
+            f"{issued.sum() / need.sum():.3f} (queries in steps of {BB_QSTEP})")
+    timing = {"binary": rec, "binary_blocks": blocks[Metric.HAMMING], "binary_group": grec}
+    errs = {"binary": perr, "binary_blocks": perr, "binary_group": gerr}
     if args.profile:
         profile_cells([("binary_mstg", lambda qb: t.search("bv", qb, k=K), batches)],
                       PROFILE_RUNS, args.out, card)
     db.drop_table("bin")
-    return launches, rec, perr
+    return launches, timing, errs
 
 
 # ---------------------------------------------------------------- main
@@ -2002,7 +2241,7 @@ def main(argv=None):
     # ---- 6. the HNSW path, with the gathermv launch counter zeroed
     log("[6] HNSW path on phase 4's table (HNSWFLAT m=32 ef_c=100, Cosine, batch 256, k=10)")
     gathermv.gather_block_scores.launches = 0
-    graph, hb, idx, _ = hnsw_path(ms, dev, gist, gist_batches, gist_gt, card)
+    graph, hb, idx, _ = hnsw_path(ms, dev, gist, gist_batches, gist_gt, card, args.out)
     launches["gathermv"] = gathermv.gather_block_scores.launches
     log(f"  gathermv launches on the HNSW path: {launches['gathermv']}")
     check(launches["gathermv"] > 0, "kernel gathermv was not launched on the HNSW path")
@@ -2043,9 +2282,12 @@ def main(argv=None):
     # ---- 10. binary vectors (the binary counters zeroed inside)
     log(f"[10] binary path ({BIN_N:,} x BinaryVector({BIN_DIM}), Hamming and Jaccard, exact scan "
         f"then BinaryMSTG; batch {BIN_BATCH}, k={K})")
-    launches["binary"], timing["binary"], perr = binary_path(ms, dev, card, args)
-    errs["binary"] = max(errs["binary"], perr)
-    check(launches["binary"] > 0, "kernel binary was not launched on the binary path")
+    p10, t10, e10 = binary_path(ms, dev, card, args)
+    launches.update(p10)
+    timing.update(t10)
+    errs["binary_blocks"] = max(errs["binary"], e10["binary_blocks"])
+    errs["binary"] = max(errs["binary"], e10["binary"])
+    errs["binary_group"] = e10["binary_group"]
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
@@ -2065,6 +2307,14 @@ def main(argv=None):
          "replaces": "myscaledb_tpu/ops/binary.py:27",
          "launches": launches["binary"], "max_abs_err": errs["binary"],
          **{k: timing["binary"][k] for k in keys}},
+        {"name": "binary_blocks", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/binary.cu",
+         "replaces": "myscaledb_tpu/index/binary.py:182",
+         "launches": launches["binary_blocks"], "max_abs_err": errs["binary_blocks"],
+         **{k: timing["binary_blocks"][k] for k in keys}},
+        {"name": "binary_group", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/binary.cu",
+         "replaces": "myscaledb_tpu/index/binary.py:223",
+         "launches": launches["binary_group"], "max_abs_err": errs["binary_group"],
+         **{k: timing["binary_group"][k] for k in keys}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,13 @@ Jaccard, scored by the popcount kernel (ops/binary.py, csrc/binary.cu).
 BinaryMSTG: the coarse quantizer clusters the unpacked {0, 1} float view
 of the rows with k-means (probing by L2 on the bits is probing by
 expected Hamming distance), while the bucket payloads stay packed uint8.
-A search scores each query's `nprobe` buckets in place, in one launch of
-the kernel's blocks layout, and the rows that overflowed the bucket
-capacity through its rows layout; `torch.topk` selects.
+A search scores each query's `nprobe` buckets in place through the
+kernel's blocks layout (the (query, probe) pairs grouped by bucket, then
+one scoring launch), and the rows that overflowed the bucket capacity
+through its rows layout; `torch.topk` selects. Each slot's bit count,
+`bucket_popcnt`, is derived from `bucket_data` whenever an index is made
+(a build or a state dict, the JAX package's included), so that Jaccard
+takes one popcount a word; it is not part of the state.
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ class BinaryMSTGIndex(VectorIndex):
             setattr(self, f, kw.pop(f))
         if kw:
             raise TypeError(f"unexpected fields {sorted(kw)}")
+        self.bucket_popcnt = binops.row_popcounts(self.bucket_data)  # int32[C, cap]
 
     @classmethod
     def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None, cancel_cb=None):
@@ -184,9 +189,10 @@ class BinaryMSTGIndex(VectorIndex):
         cs = 2.0 * (qbits @ self.centroids.T) - self.csq[None, :]
         _, probe = topk_stable(cs, nprobe)  # the probe order of jax.lax.top_k
         kk = min(k, self.bucket_cap)
-        # every probed bucket of every query in one launch, read in place
+        # every probed bucket of every query, read in place
         scores = binops.binary_block_scores(
-            queries, self.bucket_data, probe, self.bucket_rows, self.metric, mask=mask
+            queries, self.bucket_data, probe, self.bucket_rows, self.metric, mask=mask,
+            popcnt=self.bucket_popcnt,
         )  # [Q, nprobe * cap]
         bv, pos = topk_scores(scores, kk)
         slot_rows = self.bucket_rows.index_select(0, probe.reshape(-1).to(torch.int64))

@@ -52,6 +52,8 @@ DEFAULT_M = 32
 DEFAULT_EF_C = 100
 DEFAULT_EF_S = 64
 BEAM = 8  # nodes expanded per iteration per query
+# search_t's per-row state: seen in an earlier iteration, or not yet
+KNOWN, UNSEEN = 0, 255
 # Iteration budget: iters = max(ITER_MIN, ceil(ITER_FACTOR * ef / BEAM)).
 ITER_FACTOR = 1.5
 ITER_MIN = 4
@@ -556,11 +558,17 @@ class _HNSWBase(VectorIndex):
         erows = self.entry_rows[ecl].to(torch.int64)
         escores = score_t(erows)
 
-        # frontier [Q, ef] of distinct rows (a KNOWN bitmap kills repeats
-        # at entry), plus a result pool of the best `rp` candidates seen,
-        # re-scored exactly at the end. Entries are deduplicated and sorted
-        # by score so the cut to ef keeps the nearest; only the survivors
-        # are marked known.
+        # frontier [Q, ef] of distinct rows, plus a result pool of the best
+        # `rp` candidates seen, re-scored exactly at the end. Entries are
+        # deduplicated and sorted by score so the cut to ef keeps the
+        # nearest; only the survivors are marked known. `seen` u8[Q, N + 1]
+        # (the last column a sink for -1) is KNOWN (0) for a row seen in an
+        # earlier iteration, UNSEEN (255) for one not seen yet and, within
+        # an iteration, the number (1..beam) of the first expanded node
+        # whose neighbours hold it: a neighbour enters the pool and the
+        # frontier only from that node, so two expanded nodes that share it
+        # put it in once (a node's own neighbours are distinct rows: the
+        # prune blocks a repeat at distance 0).
         npad = self.neighbors.shape[0]
         escores, erows, _ = dedup_rows(escores, erows, None)
         pos0 = torch.topk(escores, escores.shape[1], dim=1).indices
@@ -572,12 +580,13 @@ class _HNSWBase(VectorIndex):
         fv = tnf.pad(escores, (0, pad), value=NEG_INF)[:, :ef]
         fr = tnf.pad(erows, (0, pad), value=-1)[:, :ef]
         fe = torch.zeros((nq, ef), dtype=torch.bool, device=dev)
-        known = torch.zeros((nq, npad + 1), dtype=torch.bool, device=dev)  # last col = sink
-        sink = torch.full_like(fr, npad)
-        known.scatter_(1, torch.where(fr >= 0, fr, sink), True)
+        seen = torch.full((nq, npad + 1), UNSEEN, dtype=torch.uint8, device=dev)
+        seen.scatter_(1, torch.where(fr >= 0, fr, npad), KNOWN)
         wide = max(0, rp - erows.shape[1])
         rv, pos = torch.topk(tnf.pad(res_mask(erows, escores), (0, wide), value=NEG_INF), rp, dim=1)
         rr = torch.gather(tnf.pad(erows, (0, wide), value=-1), 1, pos)
+        m = self.neighbors.shape[1]
+        node = (torch.arange(beam * m, device=dev) // m + 1).to(torch.uint8).expand(nq, -1)
 
         for _ in range(iters):
             # expand the best `beam` unexpanded frontier slots
@@ -594,17 +603,18 @@ class _HNSWBase(VectorIndex):
                 nbrs = self.neighbors[_clamped(exp_rows)].to(torch.int64)
                 nbrs = nbrs.masked_fill((exp_rows < 0)[..., None], -1).reshape(nq, -1)
                 ns = score_t(nbrs)
-            # kill already-known neighbours at entry
-            slot = torch.where(nbrs >= 0, nbrs, torch.full_like(nbrs, npad))
-            seen = torch.gather(known, 1, slot)
-            ns = ns.masked_fill(seen, NEG_INF)
-            nbrs = nbrs.masked_fill(seen, -1)
-            known.scatter_(1, torch.where(seen, torch.full_like(slot, npad), slot), True)
+            # kill the neighbours known before this iteration and the
+            # copies of a row held by a later expanded node than its first
+            col = torch.where(nbrs >= 0, nbrs, npad)
+            seen.scatter_reduce_(1, col, node, "amin")
+            repeat = torch.gather(seen, 1, col) != node
+            ns = ns.masked_fill(repeat, NEG_INF)
+            nbrs = nbrs.masked_fill(repeat, -1)
+            seen.scatter_(1, col, KNOWN)
             # result pool: top-rp merge of masked scores
             rv, pos2 = torch.topk(torch.cat([rv, res_mask(nbrs, ns)], dim=1), rp, dim=1)
             rr = torch.gather(torch.cat([rr, nbrs], dim=1), 1, pos2)
-            # frontier merge (intra-iteration duplicates resolve in the
-            # final dedup)
+            # frontier merge: its rows stay distinct
             fv, npos = torch.topk(torch.cat([fv, ns], dim=1), ef, dim=1)
             fr = torch.gather(torch.cat([fr, nbrs], dim=1), 1, npos)
             fe = torch.gather(torch.cat([fe, torch.zeros_like(ns, dtype=torch.bool)], dim=1), 1, npos)

@@ -172,7 +172,9 @@ class _Library:
         lib.msd_gathermv.restype = ci
         lib.msd_binary_rows.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.msd_binary_rows.restype = ci
-        lib.msd_binary_blocks.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.msd_binary_group.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp]
+        lib.msd_binary_group.restype = ci
+        lib.msd_binary_blocks.argtypes = [vp] * 9 + [ci] * 7 + [vp]
         lib.msd_binary_blocks.restype = ci
         return lib
 

@@ -9,12 +9,17 @@ Counterpart of myscaledb_tpu/ops/binary.py. Vectors are packed uint8 rows
 
 The JAX package counts bits with `lax.population_count`; torch has none.
 `binary_scores` (one shared base, `msd_binary_rows`) and
-`binary_block_scores` (per-query blocks, `msd_binary_blocks`) send a CUDA
-tensor to the hand-written kernel (see csrc/binary.cu for what bounds it)
-and a CPU tensor to their plain versions, a 256-entry popcount table over
-bytes. There is no fallback from one to the other. Both fuse the row mask:
-a row that is not searchable scores -inf. Scores are integers or an f32
-quotient of two, so the kernel equals its plain version bit for bit.
+`binary_block_scores` (per-query blocks: `group_probes`, which orders the
+(query, probe) pairs by bucket with `msd_binary_group`, then
+`msd_binary_blocks`, which scores each bucket tile against a group of up
+to 16 of its queries) send a CUDA tensor to the hand-written kernels (see
+csrc/binary.cu for what bounds them) and a CPU tensor to their plain
+versions, a 256-entry popcount table over bytes. There is no fallback from
+one to the other. Both fuse the row mask: a row that is not searchable
+scores -inf. The blocks layout takes each slot's bit count (`popcnt`), so
+that Jaccard's union is |q| + |x| - |q & x|: one popcount a word. Scores
+are integers or an f32 quotient of two, so the kernels equal their plain
+versions bit for bit (and the one-popcount Jaccard the two-popcount one).
 """
 
 from __future__ import annotations
@@ -24,25 +29,45 @@ from typing import Optional, Tuple
 import torch
 
 from ..metrics import Metric
-from ._cuda import LIBRARY, check_launch, stream_ptr
+from ._cuda import LIBRARY, cdiv, check_launch, stream_ptr
 from .topk import NEG_INF, merge_topk_lists, topk_scores
 
 DEFAULT_CHUNK_ROWS = 64 * 1024
 METRIC_CODES = {Metric.HAMMING: 0, Metric.JACCARD: 1}
 # the plain version's [Q, rows, B] byte tensors are cut to this many bytes
 PLAIN_BLOCK_BYTES = 1 << 25
+# (query, probe) pairs of one group of the blocks layout, and the bucket
+# rows of one work item (csrc/binary.cu's BN_QT and BB_ROWS)
+QT = 16
+BLOCK_ROWS = 256
+# buckets the grouping kernel takes: its sort key holds a bucket id in 21 bits
+MAX_BUCKETS = (1 << 21) - 1
 
 
 def _lut(device) -> torch.Tensor:
     return torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32, device=device)
 
 
-def _counts_plain(q: torch.Tensor, x: torch.Tensor, metric: Metric):
+def row_popcounts(x: torch.Tensor) -> torch.Tensor:
+    """int32[...]: the number of set bits of each packed row of u8
+    x[..., B], in slices of at most PLAIN_BLOCK_BYTES."""
+    out = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
+    flat, dst = x.reshape(-1, x.shape[-1]), out.reshape(-1)
+    step = max(1, PLAIN_BLOCK_BYTES // max(1, x.shape[-1]))
+    for s in range(0, flat.shape[0], step):
+        v = flat[s : s + step]
+        v = v - ((v >> 1) & 0x55)
+        v = (v & 0x33) + ((v >> 2) & 0x33)
+        dst[s : s + step] = ((v + (v >> 4)) & 0x0F).sum(-1, dtype=torch.int32)
+    return out
+
+
+def _counts_plain(q: torch.Tensor, x: torch.Tensor, metric: Metric, union: bool = True):
     """(a, u) int32[..., Q?, N]: for q u8[..., Q, B] and x u8[..., N, B]
     (leading dims broadcast), Hamming: a = popcount(q ^ x), u unused;
-    Jaccard: a = |q & x|, u = |q | x|. Summed over bytes with a lookup
-    table, in blocks of rows so no [Q, N, B] tensor exceeds
-    PLAIN_BLOCK_BYTES."""
+    Jaccard: a = |q & x|, u = |q | x| (None when not `union`). Summed over
+    bytes with a lookup table, in blocks of rows so no [Q, N, B] tensor
+    exceeds PLAIN_BLOCK_BYTES."""
     lut = _lut(q.device)
     qe = q[..., :, None, :]
     n, b = x.shape[-2], x.shape[-1]
@@ -54,7 +79,8 @@ def _counts_plain(q: torch.Tensor, x: torch.Tensor, metric: Metric):
             a_parts.append(lut[(qe ^ xe).to(torch.int64)].sum(-1, dtype=torch.int32))
         else:
             a_parts.append(lut[(qe & xe).to(torch.int64)].sum(-1, dtype=torch.int32))
-            u_parts.append(lut[(qe | xe).to(torch.int64)].sum(-1, dtype=torch.int32))
+            if union:
+                u_parts.append(lut[(qe | xe).to(torch.int64)].sum(-1, dtype=torch.int32))
     a = torch.cat(a_parts, dim=-1)
     return a, (torch.cat(u_parts, dim=-1) if u_parts else None)
 
@@ -151,19 +177,89 @@ def binary_scores(
 binary_scores.launches = 0
 
 
+def group_bound(n_pairs: int, c: int) -> int:
+    """Most groups `n_pairs` pairs over `c` buckets can make: a bucket with
+    n pairs makes ceil(n / QT) <= n / QT + 1."""
+    return cdiv(n_pairs, QT) + min(c, n_pairs)
+
+
+def group_probes_plain(blk: torch.Tensor, c: int, qt: int = QT):
+    """The blocks layout's grouping in torch ops. For blk int32[Q, P]
+    (clamped to [0, c)), pair i = q * P + p: (pairs int32[Q * P], the pairs
+    ordered by (bucket, i); groups int32[group_bound, 3], each bucket's run
+    cut into (bucket, first place in pairs, count <= qt), in bucket order,
+    rows past the count -1; count int32[1], the number of groups)."""
+    dev = blk.device
+    b = torch.clamp(blk.reshape(-1).to(torch.int64), 0, c - 1)
+    n = b.numel()
+    pairs = torch.sort(b, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(b, minlength=c)
+    first = torch.cumsum(counts, 0) - counts
+    per = (counts + qt - 1) // qt
+    bucket = torch.repeat_interleave(torch.arange(c, device=dev), per)
+    k = torch.arange(bucket.numel(), device=dev) - (torch.cumsum(per, 0) - per)[bucket]
+    groups = torch.full((group_bound(n, c), 3), -1, dtype=torch.int32, device=dev)
+    groups[: bucket.numel()] = torch.stack(
+        [bucket, first[bucket] + k * qt, torch.clamp(counts[bucket] - k * qt, max=qt)], 1
+    ).to(torch.int32)
+    return pairs, groups, torch.tensor([bucket.numel()], dtype=torch.int32, device=dev)
+
+
+def group_probes(blk: torch.Tensor, c: int):
+    """`group_probes_plain(blk, c)`'s (pairs, groups, count), by one launch
+    of `msd_binary_group` on a CUDA tensor: the count stays on the device
+    and the groups' rows past it are not written."""
+    if blk.dtype != torch.int32 or blk.dim() != 2:
+        raise TypeError(f"blk must be int32[Q, P], got {blk.dtype} {list(blk.shape)}")
+    if not 1 <= c <= MAX_BUCKETS:
+        raise ValueError(f"the grouping takes 1 to {MAX_BUCKETS} buckets, got {c}")
+    if blk.device.type == "cpu":
+        return group_probes_plain(blk, c)
+    if blk.device.type != "cuda":
+        raise ValueError(f"unsupported device {blk.device}")
+    _kernel_ready(blk)
+    n = blk.numel()
+    if n >= 1 << 31:
+        raise ValueError(f"too many (query, probe) pairs: {n}")
+    bound = group_bound(n, c)
+    # one allocation: pairs [n], groups [bound, 3], count [1], scratch [c]
+    buf = torch.empty(n + 3 * bound + 1 + c, dtype=torch.int32, device=blk.device)
+    pairs, groups = buf[:n], buf[n : n + 3 * bound].view(bound, 3)
+    count, cursor = buf[n + 3 * bound : n + 3 * bound + 1], buf[n + 3 * bound + 1 :]
+    if n == 0:
+        count.zero_()
+        return pairs, groups, count
+    err = LIBRARY.get().msd_binary_group(
+        blk.data_ptr(), n, c, cursor.data_ptr(), pairs.data_ptr(), groups.data_ptr(),
+        count.data_ptr(), stream_ptr(blk.device),
+    )
+    check_launch("msd_binary_group", err)
+    group_probes.launches += 1
+    return pairs, groups, count
+
+
+group_probes.launches = 0
+
+
 def binary_block_scores_plain(
     q: torch.Tensor, x: torch.Tensor, blk: torch.Tensor, rows: torch.Tensor,
-    mask: Optional[torch.Tensor], metric: Metric,
+    mask: Optional[torch.Tensor], metric: Metric, popcnt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The blocks layout's math in torch ops: gather each query's P blocks
     (`index_select` of x[clamp(blk)]) and score them; slots whose row id
-    is < 0 or whose row `mask` drops score -inf."""
+    is < 0 or whose row `mask` drops score -inf. With `popcnt` (int32[C,
+    M], each slot's bit count), Jaccard's union is |q| + |x| - |q & x|, as
+    in the kernel; without it, |q | x| (the two-popcount reference)."""
     _check_metric(metric)
     nq, p = blk.shape
     c, m, b = x.shape
     cl = torch.clamp(blk.reshape(-1).to(torch.int64), 0, c - 1)
     xb = x.index_select(0, cl).reshape(nq, p * m, b)
-    a, u = _counts_plain(q[:, None, :], xb, metric)  # [Q, 1, P*M]
+    one_pass = metric == Metric.JACCARD and popcnt is not None
+    a, u = _counts_plain(q[:, None, :], xb, metric, union=not one_pass)  # [Q, 1, P*M]
+    if one_pass:
+        xn = popcnt.index_select(0, cl).reshape(nq, 1, p * m)
+        u = row_popcounts(q)[:, None, None] + xn - a
     s = _finish(a, u, metric)[:, 0, :]
     r = rows.index_select(0, cl).reshape(nq, p * m)
     valid = r >= 0
@@ -182,10 +278,13 @@ def binary_block_scores(
     metric: Metric,
     *,
     mask: Optional[torch.Tensor] = None,  # bool|u8[N] over segment rows
+    popcnt: Optional[torch.Tensor] = None,  # int32[C, M]: each slot's bit count
 ) -> torch.Tensor:
     """f32[Q, P*M]: query q against the M rows of each of its P blocks
     x[blk[q, p]], read in place; a slot with row id < 0, or whose row
-    `mask` drops, scores -inf."""
+    `mask` drops, scores -inf. Jaccard needs `popcnt` (one popcount a
+    word); Hamming does not read it. On a CUDA tensor: `group_probes`,
+    then one launch of `msd_binary_blocks`."""
     _check_metric(metric)
     _check_u8(q, x)
     if q.dim() != 2 or x.dim() != 3 or q.shape[1] != x.shape[2]:
@@ -196,12 +295,16 @@ def binary_block_scores(
         )
     if blk.dtype != torch.int32 or rows.dtype != torch.int32:
         raise TypeError("blk and rows must be int32")
-    if x.device.type == "cpu":
-        return binary_block_scores_plain(q, x, blk, rows, mask, metric)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    pc = popcnt if metric == Metric.JACCARD else None
+    if metric == Metric.JACCARD and (popcnt is None or popcnt.shape != rows.shape
+                                     or popcnt.dtype != torch.int32 or popcnt.device != x.device):
+        raise ValueError(f"Jaccard needs popcnt int32{list(rows.shape)} on {x.device}")
+    if x.device.type == "cpu":
+        return binary_block_scores_plain(q, x, blk, rows, mask, metric, pc)
     m8 = None if mask is None else mask.to(torch.uint8).contiguous()
-    _kernel_ready(q, x, blk, rows)
+    _kernel_ready(q, x, blk, rows, pc)
     nq, p = blk.shape
     c, m, b = x.shape
     out = torch.empty((nq, p * m), dtype=torch.float32, device=x.device)
@@ -209,10 +312,14 @@ def binary_block_scores(
         return out
     if c == 0:
         raise ValueError("x holds no blocks")
+    if group_bound(nq * p, c) * cdiv(m, BLOCK_ROWS) >= 1 << 31:
+        raise ValueError(f"too many work items: Q={nq} P={p} C={c} M={m}")
+    pairs, groups, count = group_probes(blk, c)
     err = LIBRARY.get().msd_binary_blocks(
-        q.data_ptr(), x.data_ptr(), blk.data_ptr(), rows.data_ptr(),
-        None if m8 is None else m8.data_ptr(), out.data_ptr(), nq, p, m, b, c,
-        0 if m8 is None else m8.shape[0], METRIC_CODES[metric], _aligned(b, q, x),
+        q.data_ptr(), x.data_ptr(), rows.data_ptr(), None if m8 is None else m8.data_ptr(),
+        None if pc is None else pc.data_ptr(), pairs.data_ptr(), groups.data_ptr(),
+        count.data_ptr(), out.data_ptr(), p, m, b, 0 if m8 is None else m8.shape[0],
+        METRIC_CODES[metric], _aligned(b, q, x), int(b % 16 == 0 and x.data_ptr() % 16 == 0),
         stream_ptr(x.device),
     )
     check_launch("msd_binary_blocks", err)

@@ -76,7 +76,8 @@ def test_chunk_scores_match_jax(name, tm, jm, nbytes):
 @pytest.mark.parametrize("name,tm,jm", METRICS)
 def test_block_scores_are_the_gathered_row_scores(name, tm, jm):
     """The blocks layout equals the rows layout on the gathered blocks,
-    with empty slots and masked rows at -inf."""
+    with empty slots and masked rows at -inf (Jaccard from the slots' bit
+    counts, which Hamming does not read)."""
     rng = np.random.default_rng(3)
     c, m, nb, nq, p = 6, 40, 9, 5, 3
     x = _packed(rng, c * m, nb).reshape(c, m, nb)
@@ -86,7 +87,8 @@ def test_block_scores_are_the_gathered_row_scores(name, tm, jm):
     blk = rng.integers(0, c, (nq, p)).astype(np.int32)
     mask = rng.random(c * m) < 0.7
     got = tbin.binary_block_scores(*(torch.from_numpy(a) for a in (q, x, blk, rows)), tm,
-                                   mask=torch.from_numpy(mask)).numpy()
+                                   mask=torch.from_numpy(mask),
+                                   popcnt=tbin.row_popcounts(torch.from_numpy(x))).numpy()
     for i in range(nq):
         for j in range(p):
             want = np.asarray(jbin.binary_chunk_scores(jnp.asarray(q[i : i + 1]),
@@ -94,6 +96,87 @@ def test_block_scores_are_the_gathered_row_scores(name, tm, jm):
             r = rows[blk[i, j]]
             ok = (r >= 0) & mask[np.maximum(r, 0)]
             np.testing.assert_array_equal(got[i, j * m : (j + 1) * m], np.where(ok, want, -np.inf))
+
+
+# (Q, P, C, lo, hi): blk drawn from [lo, hi), clamped to [0, C): all pairs on
+# one bucket, on distinct buckets, C = 1, Q * P not a multiple of 16, P > C
+# (repeats within a query), ids outside [0, C), and one bucket with a
+# thousand pairs among many small ones
+GROUP_CASES = [(100, 16, 1, 0, 1), (40, 3, 120, 0, 120), (7, 5, 1, -2, 3), (13, 7, 20, 0, 20),
+               (9, 12, 4, 0, 4), (25, 4, 30, -5, 40), (1000, 2, 700, 0, 700)]
+
+
+@pytest.mark.parametrize("q,p,c,lo,hi", GROUP_CASES)
+def test_group_probes_plain(q, p, c, lo, hi):
+    """Every (query, probe) pair once, in (bucket, q, p) order; groups of at
+    most 16 pairs of one bucket (the bucket clamp(blk)) that cover each
+    bucket's run in order; the count."""
+    rng = np.random.default_rng(q * p + c)
+    blk = rng.integers(lo, hi, (q, p)).astype(np.int32)
+    if (q, p, c) == (40, 3, 120):
+        blk = rng.permutation(c)[: q * p].reshape(q, p).astype(np.int32)  # all distinct
+    if q == 1000:
+        blk[::2, 0] = 3  # 500 pairs on bucket 3, 1,000 on a few others
+    pairs, groups, count = tbin.group_probes_plain(torch.from_numpy(blk), c)
+    pairs, groups, n = pairs.numpy(), groups.numpy(), int(count[0])
+    bucket = np.clip(blk.reshape(-1), 0, c - 1)
+    np.testing.assert_array_equal(pairs, np.lexsort((np.arange(q * p), bucket)))
+    assert groups.shape == (tbin.group_bound(q * p, c), 3) and (groups[n:] == -1).all()
+    g = groups[:n]
+    assert ((g[:, 2] >= 1) & (g[:, 2] <= tbin.QT)).all()
+    np.testing.assert_array_equal(np.cumsum(g[:, 2]) - g[:, 2], g[:, 1])  # consecutive runs
+    assert g[:, 2].sum() == q * p
+    np.testing.assert_array_equal(np.repeat(g[:, 0], g[:, 2]), bucket[pairs])
+    # a bucket's groups are full but its last: ceil(count / 16) of them
+    sizes = np.bincount(bucket, minlength=c)
+    np.testing.assert_array_equal(np.bincount(g[:, 0], minlength=c), -(-sizes // tbin.QT))
+    # the CPU route of the kernel's wrapper is the plain version
+    for a, b in zip(tbin.group_probes(torch.from_numpy(blk), c),
+                    tbin.group_probes_plain(torch.from_numpy(blk), c)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nbytes", [1, 5, 13, 128])
+def test_jaccard_union_from_row_counts_is_bit_exact(nbytes):
+    """Jaccard with each slot's bit count (|q| + |x| - |q & x|, one
+    popcount a word) equals the two-popcount plain version bit for bit;
+    all-zero queries and slots included (1.0 for two empty sets)."""
+    rng = np.random.default_rng(nbytes + 40)
+    c, m, nq, p = 5, 33, 6, 4
+    x = _packed(rng, c * m, nbytes, density=0.3).reshape(c, m, nbytes)
+    x[0, :3] = 0
+    q = _packed(rng, nq, nbytes)
+    q[0] = 0
+    rows = rng.permutation(c * m).astype(np.int32).reshape(c, m)
+    rows[:, -4:] = -1
+    blk = rng.integers(-1, c + 1, (nq, p)).astype(np.int32)
+    tq, tx, tb, tr = (torch.from_numpy(a) for a in (q, x, blk, rows))
+    popcnt = tbin.row_popcounts(tx)
+    np.testing.assert_array_equal(popcnt.numpy(), np.unpackbits(x, axis=-1).sum(-1))
+    for mask in (None, torch.from_numpy(rng.random(c * m) < 0.7)):
+        two = tbin.binary_block_scores_plain(tq, tx, tb, tr, mask, Metric.JACCARD)
+        one = tbin.binary_block_scores_plain(tq, tx, tb, tr, mask, Metric.JACCARD, popcnt)
+        assert torch.equal(one, two)
+        assert torch.equal(tbin.binary_block_scores(tq, tx, tb, tr, Metric.JACCARD, mask=mask,
+                                                    popcnt=popcnt), two)
+    assert bool((two[0][torch.isfinite(two[0])] >= 0).all())
+
+
+@pytest.mark.parametrize("popcnt", ["missing", "wrong shape", "int64"])
+def test_jaccard_blocks_need_the_bit_counts(popcnt):
+    """The blocks layout takes Jaccard only with each slot's bit count
+    (int32[C, M]); Hamming does not read it."""
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(_packed(rng, 4 * 9, 16).reshape(4, 9, 16))
+    q = torch.from_numpy(_packed(rng, 3, 16))
+    blk = torch.from_numpy(rng.integers(0, 4, (3, 2)).astype(np.int32))
+    rows = torch.arange(36, dtype=torch.int32).reshape(4, 9)
+    pc = {"missing": None, "wrong shape": tbin.row_popcounts(x)[:, :5],
+          "int64": tbin.row_popcounts(x).to(torch.int64)}[popcnt]
+    with pytest.raises(ValueError, match="Jaccard needs popcnt"):
+        tbin.binary_block_scores(q, x, blk, rows, Metric.JACCARD, popcnt=pc)
+    assert torch.equal(tbin.binary_block_scores(q, x, blk, rows, Metric.HAMMING, popcnt=pc),
+                       tbin.binary_block_scores_plain(q, x, blk, rows, None, Metric.HAMMING))
 
 
 def _topk_same(tv, ti, jv, ji, k=K):
@@ -183,6 +266,26 @@ def test_jax_index_carried_across_matches(kind, metric):
             assert _topk_same(tres.scores, tres.rows + 10**6 * tres.segments,
                               jres.scores, jres.rows + 10**6 * jres.segments) >= 3
             np.testing.assert_array_equal(tres.distances[:, :K], jres.distances[:, :K])
+    jdb.close()
+    tdb.close()
+
+
+@pytest.mark.parametrize("built_by", ["port", "jax"])
+def test_bucket_popcnt_counts_the_bucket_bits(built_by):
+    """`bucket_popcnt` is each slot's bit count (a numpy popcount of
+    `bucket_data`), for the port's own build and for a JAX index carried
+    across (derived from its arrays; not part of the state)."""
+    (jpair, tpair), _ = _binary_tables("BinaryMSTG", "Jaccard")
+    (jdb, jt), (tdb, tt) = jpair, tpair
+    if built_by == "port":
+        idx = tt.loaded_index(0, "bv", Metric.JACCARD)
+    else:
+        idx = binary_from_state_dict(jt.loaded_index(0, "bv", JMetric.JACCARD).state_dict(), "cpu")
+    assert "bucket_popcnt" not in idx.state_dict()["arrays"]
+    data = idx.bucket_data.numpy()
+    assert idx.bucket_popcnt.dtype == torch.int32 and idx.bucket_popcnt.shape == data.shape[:2]
+    np.testing.assert_array_equal(idx.bucket_popcnt.numpy(), np.unpackbits(data, axis=-1).sum(-1))
+    assert (idx.bucket_popcnt.numpy()[idx.bucket_rows.numpy() < 0] == 0).all()
     jdb.close()
     tdb.close()
 

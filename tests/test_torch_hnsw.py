@@ -14,7 +14,12 @@ Tolerances, per test:
   * a JAX-built index carried across (`hnsw_from_state_dict`) and searched
     by both: ids recall of port vs JAX >= 0.99, and the scores of shared
     rows within rtol 2e-4 / atol 2e-3 (tests/test_distance_ops.py's f32
-    tolerance; only the order of the f32 sums differs);
+    tolerance; only the order of the f32 sums differs). HNSWPQ alone, a
+    deliberate divergence: ids recall >= 0.9, >= 0.99 of JAX's hits
+    returned by the port or scoring no better than its k-th hit, and every
+    other port hit scoring at least JAX's k-th (the port keeps a neighbour
+    that two expanded nodes share once, so its pool holds rows JAX's
+    second copy pushed out);
   * the port's own builds: recall@10 >= 0.9 against exact numpy, as
     tests/test_hnsw.py asks of the JAX package.
 """
@@ -81,6 +86,17 @@ def _exact_top(q, vecs, metric, k=K):
 def _recall(rows, want):
     rows = np.asarray(rows)
     return sum(len(set(g.tolist()) & set(w.tolist())) for g, w in zip(rows, want)) / want.size
+
+
+def _found_or_beaten(rows, vals, jrows, jvals):
+    """Share of the JAX package's hits that the port returns too, or that
+    score no better than the port's k-th hit (within TOL)."""
+    found = 0
+    for r, v, jr, jv in zip(rows, vals, jrows, jvals):
+        kth = v[-1]
+        for row, val in zip(jr.tolist(), jv.tolist()):
+            found += row in set(r.tolist()) or val <= kth + TOL["atol"] + TOL["rtol"] * abs(kth)
+    return found / jrows.size
 
 
 def _port_payload(vecs):
@@ -221,18 +237,24 @@ def test_prune_chunk_equal():
 
 
 # ------------------------------------------------- JAX index, both packages
-@pytest.fixture(scope="module")
-def jax_corpus():
+def _jax_corpus():
     rng, vecs = _blobs(7, 4096)
     schema = JSchema({"id": JUInt64(), "vec": JFloatVector(D)})
     seg = JSegment.from_columns(0, schema, {"id": np.arange(len(vecs), dtype=np.uint64), "vec": vecs})
     return seg, vecs, _queries(rng, vecs, 16)
 
 
-@pytest.mark.parametrize(
-    "kind,metric", [("HNSWFLAT", m) for m in METRICS] + [("HNSWSQ", "L2"), ("HNSWPQ", "L2")]
-)
-def test_jax_index_carried_across_searches_alike(jax_corpus, kind, metric):
+@pytest.fixture(scope="module")
+def jax_corpus():
+    return _jax_corpus()
+
+
+PARITY_CASES = [("HNSWFLAT", m) for m in METRICS] + [("HNSWSQ", "L2"), ("HNSWPQ", "L2")]
+
+
+def _carried_across(jax_corpus, kind, metric):
+    """A JAX-built index carried across and searched by both packages at
+    ef_s 64: (port scores, port rows, JAX scores, JAX rows)."""
     seg, vecs, q = jax_corpus
     jcls = {"HNSWFLAT": jhnsw.HNSWFlatIndex, "HNSWSQ": jhnsw.HNSWSQIndex,
             "HNSWPQ": jhnsw.HNSWPQIndex}[kind]
@@ -247,15 +269,34 @@ def test_jax_index_carried_across_searches_alike(jax_corpus, kind, metric):
     assert tuple(tidx.nbdata.shape) == (len(vecs), M, D)
     np.testing.assert_array_equal(tidx.neighbors.numpy(), np.asarray(jidx.neighbors))
     tv, tr = (a.numpy() for a in tidx.search_t(torch.from_numpy(q), K, params=(("ef_s", 64),)))
-    assert _recall(tr, jr) >= 0.99
+    return tv, tr, jv, jr
+
+
+@pytest.mark.parametrize("kind,metric", PARITY_CASES)
+def test_jax_index_carried_across_searches_alike(jax_corpus, kind, metric):
+    _, vecs, q = jax_corpus
+    tv, tr, jv, jr = _carried_across(jax_corpus, kind, metric)
+    pq = kind == "HNSWPQ"
+    if pq:
+        # the deliberate divergence (ROADMAP queue 3): with PQ's coarse
+        # traversal scores, the room a shared neighbour's second copy took
+        # in JAX's pool turns one hit of 10 of the 16 queries (150 of 160
+        # shared); each JAX hit the port misses scores no better than the
+        # port's k-th
+        assert _recall(tr, jr) >= 0.9 and _found_or_beaten(tr, tv, jr, jv) >= 0.99
+    else:
+        assert _recall(tr, jr) >= 0.99
     shared = 0
     for i in range(len(q)):
         jmap = dict(zip(jr[i].tolist(), jv[i].tolist()))
+        jkth = jv[i, -1]
         for r, v in zip(tr[i].tolist(), tv[i].tolist()):
             if r >= 0 and r in jmap:
                 np.testing.assert_allclose(v, jmap[r], **TOL)
                 shared += 1
-    assert shared >= 0.99 * q.shape[0] * K
+            elif pq:  # a row JAX's pool had no room for
+                assert v >= jkth - TOL["atol"] - TOL["rtol"] * abs(jkth)
+    assert shared >= (0.9 if pq else 0.99) * q.shape[0] * K
     # both packages find the true neighbours (the SQ8 and PQ codecs re-score
     # codes; PQ at 32 subspaces of 4 dimensions loses more)
     assert _recall(tr, _exact_top(q, vecs, metric)) >= {"HNSWFLAT": 0.9, "HNSWSQ": 0.5,
@@ -298,12 +339,11 @@ def test_jax_index_any_m_through_the_kernel_route(jax_corpus, monkeypatch, m):
 def test_beam_narrower_than_8_through_the_kernel_route(monkeypatch, ef_s, k):
     """At max(ef_s, k) < 8 the beam narrows to that width (the JAX package
     cannot search there: its top_k takes 8 of a narrower frontier). Every
-    frontier iteration still goes through `gather_block_scores`; the hits
-    are distinct rows whose scores are their exact f32 scores (rtol 2e-4 /
-    atol 2e-3), and recall@k against exact numpy is >= 0.8. A query may get
-    fewer than k hits (-1 rows), as in the JAX package at ef_s = 8: two
-    expanded nodes that share a neighbour put it twice into a result pool
-    of only 2·ef rows, and the final dedup leaves fewer."""
+    frontier iteration still goes through `gather_block_scores`; every
+    query gets k distinct live rows (a neighbour that two expanded nodes
+    share enters the 2·ef-row result pool once, so the final dedup leaves
+    k), whose scores are their exact f32 scores (rtol 2e-4 / atol 2e-3),
+    and recall@k against exact numpy is >= 0.8."""
     rng, vecs = _blobs(14, 3000)
     payload = _port_payload(vecs)
     idx = hnsw.HNSWFlatIndex.build(payload, len(vecs), metric=Metric.L2, dim=D, params={"m": M})
@@ -313,12 +353,54 @@ def test_beam_narrower_than_8_through_the_kernel_route(monkeypatch, ef_s, k):
     ef = max(ef_s, k)
     assert len(calls) == hnsw.n_iterations(ef) and calls[0] == (16, ef)
     r, v = r.numpy(), v.numpy()
-    live = r >= 0
-    assert live.mean() >= 0.8 and all(len(set(row[ok].tolist())) == ok.sum() for row, ok in zip(r, live))
-    stored = payload.data[: len(vecs), :D].float().numpy()[np.maximum(r, 0)]  # [Q, k, D]
+    assert (r >= 0).all() and all(len(set(row.tolist())) == k for row in r)
+    stored = payload.data[: len(vecs), :D].float().numpy()[r]  # [Q, k, D]
     exact = 2.0 * np.einsum("qd,qkd->qk", q, stored) - (stored**2).sum(-1)
-    np.testing.assert_allclose(v[live], exact[live], **TOL)
+    np.testing.assert_allclose(v, exact, **TOL)
     assert _recall(r, _exact_top(q, vecs, "L2", k)) >= 0.8
+
+
+@pytest.mark.parametrize("ef_s,k", [(5, 5), (16, 10)])
+@pytest.mark.parametrize("route", ["node_blocks", "rows"])
+def test_shared_neighbour_enters_pool_and_frontier_once(monkeypatch, route, ef_s, k):
+    """Every node gets the same m neighbours, so the nodes one iteration
+    expands all share them. Each shared row must enter the result pool and
+    the frontier once (the final cut's input, pool ∪ frontier, is read
+    through `dedup_rows`), and every query gets k distinct live rows, on
+    the gathermv route and on the route without node blocks."""
+    rng, vecs = _blobs(15, 3000)
+    payload = _port_payload(vecs)
+    idx = hnsw.HNSWFlatIndex.build(payload, len(vecs), metric=Metric.L2, dim=D, params={"m": M})
+    shared = torch.from_numpy(rng.choice(len(vecs), M, replace=False).astype(np.int32))
+    idx.neighbors = shared.expand(idx.neighbors.shape[0], M).contiguous()
+    if route == "rows":
+        idx.nbdata = idx.nbaux = None
+    else:
+        safe = idx.neighbors.to(torch.int64)
+        idx.nbdata = idx.tdata[safe]
+        idx.nbaux = None if idx.taux is None else idx.taux[safe]
+    pools = []
+    real = hnsw.dedup_rows
+
+    def recording(vals, rows, extra):
+        pools.append(rows.clone())
+        return real(vals, rows, extra)
+
+    monkeypatch.setattr(hnsw, "dedup_rows", recording)
+    q = _queries(rng, vecs, 8)
+    v, r = idx.search_t(_pad_q(q, payload), k, params=(("ef_s", ef_s),))
+    ef = max(ef_s, k)
+    rp = 2 * ef
+    pool, frontier = pools[-1][:, :rp].numpy(), pools[-1][:, rp:].numpy()
+    assert frontier.shape[1] == ef
+    for part in (pool, frontier):
+        for row in part:
+            live = row[row >= 0]
+            assert len(set(live.tolist())) == len(live)
+    # the shared rows reached the pool (the expansions found them)
+    assert np.isin(pool, shared.numpy()).any(1).all()
+    r = r.numpy()
+    assert (r >= 0).all() and all(len(set(row.tolist())) == k for row in r)
 
 
 def test_build_estimate_matches_jax(jax_corpus):
@@ -590,3 +672,17 @@ def test_table_filtered_search_and_deletes():
     res, bumps = _bumps(lambda: t.search("vec", q, k=K, params={"ef_s": 100}))
     assert bumps["VectorIndexSearches"] == 1
     assert not set(t.gather(res, ["id"])["id"].ravel().tolist()) & set(nearest)
+
+
+if __name__ == "__main__":
+    # the readings the parity test holds to its limits, per kind:
+    # PYTHONPATH=. python tests/test_torch_hnsw.py
+    jax.config.update("jax_platforms", "cpu")
+    corpus = _jax_corpus()
+    for kind, metric in PARITY_CASES:
+        tv, tr, jv, jr = _carried_across(corpus, kind, metric)
+        shared = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(tr, jr))
+        exact = _exact_top(corpus[2], corpus[1], metric)
+        print(f"{kind} {metric} at ef_s 64: ids shared with JAX {shared} of {jr.size}, JAX hits "
+              f"found or beaten {_found_or_beaten(tr, tv, jr, jv):.4f}; recall@{K} against exact "
+              f"numpy: port {_recall(tr, exact):.4f}, JAX {_recall(jr, exact):.4f}")

@@ -287,16 +287,16 @@ def test_gathermv_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,ef_s,k", [(16, 64, 10), (32, 5, 5), (48, 4, 3)])
+@pytest.mark.parametrize("m,ef_s,k", [(16, 64, 10), (32, 5, 5), (48, 4, 3), (32, 1, 3)])
 def test_hnsw_search_launches_gathermv_every_iteration(cuda_device, m, ef_s, k):
     """A graph search on the card scores every frontier iteration with the
     kernel, at any m and at a beam narrower than 8 (ef_s < 8), and finds
     what the same index finds on the CPU (the kernel's plain version):
     recall of the card's rows against the CPU's >= 0.95 (only the order of
-    the f32 sums differs, which can turn a near-tie), and every returned
-    row's score within rtol 2e-4 / atol 2e-3 of its exact f32 score. (At a
-    small ef a query may get fewer than k hits, -1 rows: see
-    tests/test_torch_hnsw.py::test_beam_narrower_than_8_through_the_kernel_route.)"""
+    the f32 sums differs, which can turn a near-tie), every query gets k
+    distinct live rows, even at a small ef (a neighbour that two expanded
+    nodes share enters the result pool once), and every returned row's
+    score is within rtol 2e-4 / atol 2e-3 of its exact f32 score."""
     rng = np.random.default_rng(m + ef_s)
     centers = 8.0 * rng.standard_normal((20, 128)).astype(np.float32)
     vecs = (centers[rng.integers(0, 20, 2000)] + rng.standard_normal((2000, 128))).astype(np.float32)
@@ -316,10 +316,11 @@ def test_hnsw_search_launches_gathermv_every_iteration(cuda_device, m, ef_s, k):
     r = r.cpu().numpy()
     same = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(r, rc.numpy()))
     assert same >= 0.95 * (rc.numpy() >= 0).sum()
-    live, v = r >= 0, v.cpu().numpy()
-    stored = seg.vector("vec").data[:2000, :128].float().cpu().numpy()[np.maximum(r, 0)]
+    assert (r >= 0).all() and all(len(set(row.tolist())) == k for row in r)
+    v = v.cpu().numpy()
+    stored = seg.vector("vec").data[:2000, :128].float().cpu().numpy()[r]
     exact = 2.0 * np.einsum("qd,qkd->qk", q.numpy(), stored) - (stored**2).sum(-1)
-    np.testing.assert_allclose(v[live], exact[live], rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(v, exact, rtol=2e-4, atol=2e-3)
 
 
 BIN_METRICS = [Metric.HAMMING, Metric.JACCARD]
@@ -367,19 +368,94 @@ def test_binary_blocks_kernel_vs_plain(cuda_device, metric, q, p, c, m, b):
     """Per-query blocks, read in place: ragged Q, P blocks per query, M
     (past a 256-row block) and B; empty slots (row -1), block ids out of
     [0, C) (clamped, as the plain version does) and a row mask; bit for
-    bit."""
+    bit with the plain version (Jaccard: the two-popcount one, while the
+    kernel takes the slots' bit counts)."""
     g = torch.Generator(device=cuda_device).manual_seed(q + p + c + m + b)
     qb = _bits(g, (q, b), cuda_device)
     x = _bits(g, (c, m, b), cuda_device)
     rows = torch.randperm(c * m, generator=g, device=cuda_device).to(torch.int32).reshape(c, m)
     rows[:, -max(1, m // 9):] = -1
     blk = torch.randint(-1, c + 1, (q, p), generator=g, device=cuda_device, dtype=torch.int32)
+    popcnt = binary.row_popcounts(x)
     for mask in (None, torch.rand(c * m, generator=g, device=cuda_device) < 0.6):
         before = binary.binary_block_scores.launches
-        got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask)
+        got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask, popcnt=popcnt)
         assert binary.binary_block_scores.launches == before + 1
         want = binary.binary_block_scores_plain(qb, x, blk, rows, mask, metric)
         assert got.shape == (q, p * m)
+        assert torch.equal(got, want)
+
+
+def _skewed_probes(g, device, case, q, p, c):
+    """blk int32[q, p] of one skew: every pair on one bucket, every pair on
+    its own bucket, or uniform draws (with ids outside [0, c), clamped)."""
+    if case == "one":
+        return torch.full((q, p), c // 2, dtype=torch.int32, device=device)
+    if case == "distinct":
+        return torch.randperm(c, generator=g, device=device)[: q * p].reshape(q, p).to(torch.int32)
+    return torch.randint(-2, c + 2, (q, p), generator=g, device=device, dtype=torch.int32)
+
+
+# (skew, Q, P, C): all queries on one bucket; all pairs on distinct buckets;
+# C = 1; Q * P not a multiple of 16; P > C (repeats within a query); a
+# BinaryMSTG-sized batch; 10^5 pairs over 65,536 buckets, spread and on one
+GROUP_KERNEL_CASES = [("one", 100, 16, 1024), ("distinct", 64, 16, 1024), ("uniform", 7, 5, 1),
+                      ("uniform", 13, 7, 20), ("uniform", 9, 12, 4), ("uniform", 100, 16, 1024),
+                      ("uniform", 6250, 16, 65_536), ("one", 6250, 16, 65_536),
+                      ("uniform", 3, 1, 2_000_000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,q,p,c", GROUP_KERNEL_CASES)
+def test_binary_group_kernel_vs_plain(cuda_device, case, q, p, c):
+    """The blocks layout's grouping kernel equals `group_probes_plain`:
+    the pair order and the groups up to the count, under torch.equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(q * p + c)
+    blk = _skewed_probes(g, cuda_device, case, q, p, c)
+    before = binary.group_probes.launches
+    pairs, groups, count = binary.group_probes(blk, c)
+    assert binary.group_probes.launches == before + 1
+    wp, wg, wc = binary.group_probes_plain(blk, c)
+    assert torch.equal(count, wc)
+    assert torch.equal(pairs, wp)
+    n = int(wc[0])
+    assert torch.equal(groups[:n], wg[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_popcnt", [False, True])
+@pytest.mark.parametrize("metric", BIN_METRICS)
+@pytest.mark.parametrize("b", [128, 13])
+@pytest.mark.parametrize("case,q,p,c,m", [("one", 100, 16, 64, 300), ("distinct", 40, 8, 320, 257),
+                                          ("uniform", 9, 5, 1, 100), ("uniform", 13, 7, 20, 96),
+                                          ("uniform", 9, 12, 4, 513)])
+def test_binary_blocks_kernel_skewed_probes(cuda_device, case, q, p, c, m, b, metric, with_popcnt):
+    """The grouped blocks layout under skewed probes (one bucket for all,
+    a bucket per pair, C = 1, Q * P not a multiple of 16, P > C with
+    repeats), aligned and ragged B, with and without a mask: bit for bit
+    with the plain version (Jaccard: the two-popcount one), in one grouping
+    and one scoring launch. Hamming does not read the bit counts; Jaccard
+    without them raises before any launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(q + p + c + m + b)
+    qb = _bits(g, (q, b), cuda_device)
+    x = _bits(g, (c, m, b), cuda_device, density=0.3)
+    x[0, :2] = 0
+    qb[0] = 0
+    rows = torch.randperm(c * m, generator=g, device=cuda_device).to(torch.int32).reshape(c, m)
+    rows[:, -max(1, m // 9):] = -1
+    blk = _skewed_probes(g, cuda_device, case, q, p, c)
+    popcnt = binary.row_popcounts(x) if with_popcnt else None
+    for mask in (None, torch.rand(c * m, generator=g, device=cuda_device) < 0.6):
+        before = (binary.group_probes.launches, binary.binary_block_scores.launches)
+        if metric == Metric.JACCARD and popcnt is None:
+            with pytest.raises(ValueError, match="Jaccard needs popcnt"):
+                binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask)
+            assert (binary.group_probes.launches, binary.binary_block_scores.launches) == before
+            continue
+        got = binary.binary_block_scores(qb, x, blk, rows, metric, mask=mask, popcnt=popcnt)
+        assert (binary.group_probes.launches, binary.binary_block_scores.launches) == (
+            before[0] + 1, before[1] + 1)
+        want = binary.binary_block_scores_plain(qb, x, blk, rows, mask, metric)
         assert torch.equal(got, want)
 
 
