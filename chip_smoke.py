@@ -74,14 +74,29 @@ of the JAX package. Phases, each of which raises on failure:
      (both metrics, with and without the mask and the slots' bit counts)
      and under skewed probes; the rows layout, the blocks call of each
      metric and the grouping alone are timed beside their bounds;
-     --profile adds binary_exact and binary_mstg.
+     --profile adds binary_exact and binary_mstg;
+ 11. the rest of Table and Database, with the builds on the database's
+     background scheduler: (a) on phase 3's table ADD COLUMN tag, UPDATE
+     tag = 1 WHERE id < 10000, a search filtered on tag == 1 against one
+     filtered on id < 10000 (the same hits), compute_distances against the
+     search's distances, DROP COLUMN; (b) phase 3's table, and phase 4's
+     with a fresh HNSWFLAT, persisted to a temporary directory and
+     reloaded through connect(path=...) / load_table: the same hits as the
+     live tables, the graph reloaded on its first search (gathermv);
+     (c) phase 3's corpus in two 500,000-row parts with IVFFLAT each and
+     100 deletes, merge() behind a gated scheduler: the DecoupledIndex
+     returns the pre-merge ids, then the rebuild's nprobe sweep, truncate
+     and a fresh insert; (d) a ReplacingMergeTree(ver) table of 1,000,000
+     rows and 100,000 newer versions: search(final=True) equal to a numpy
+     scan over the winners, before and after merge(). Phase 11 logs its
+     seconds.
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
 three over phase 8, score and tile_max over phase 9, the binary rows
-layout, blocks layout and grouping over phase 10; every kernel must have
-launched on its path, and the record's launches are the sums over those
-paths. The last line of standard output is {"ok": true, "device": {...}};
+layout, blocks layout and grouping over phase 10, score, tile_max and
+gathermv over phase 11; every kernel must have launched on its path, and
+the record's launches are the sums over those paths. The last line of standard output is {"ok": true, "device": {...}};
 the line before it is the per-kernel JSON record. Without CUDA, or without
 the package beside this file, it exits non-zero and prints no result.
 """
@@ -179,6 +194,12 @@ BB_QSTEP = 4
 BLOCKS_TRACE_CALLS = 20
 LAUNCH_KEYS = ("grid", "block", "registers per thread", "shared memory", "blocks per SM",
                "warps per SM", "est. achieved occupancy %")
+# phase 11: the rows the UPDATE marks (id < MUT_IDS), the rows inserted
+# after TRUNCATE (above min_rows_to_build_vector_index, so they build), and
+# the ReplacingMergeTree table's superseded keys and FINAL queries
+MUT_IDS = 10_000
+MERGE_REFILL = 100_000
+FINAL_DUP, FINAL_NQ = 100_000, 200
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -583,6 +604,7 @@ def hnsw_path(ms, dev, t, batches, gt, card, out_dir):
 
     t0 = time.perf_counter()
     t.add_vector_index("h", "vec", type="HNSWFLAT", metric_type="Cosine", **HNSW_PARAMS)
+    check(t.wait_index_built(), "the HNSWFLAT build did not end")
     sync(dev)
     build_s = time.perf_counter() - t0
     check(t.index_status("h") == {0: IndexStatus.LOADED},
@@ -1028,7 +1050,8 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
     50k-row segment scanned by the score kernel): IVFFLAT's nprobe sweep,
     QPS at its operating point, a dyn_nprobe search, a filtered search
     through the index's WindowMask and one that falls back to the exact
-    scan (tile_max); then IVFSQ, IVFPQ and a default MSTG one at a time."""
+    scan (tile_max); then IVFSQ, IVFPQ and a default MSTG one at a time.
+    Returns IVFFLAT's operating nprobe."""
     import torch
 
     from myscaledb_tpu_torch import F
@@ -1054,6 +1077,7 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
     def build(name, **kw):
         t0 = time.perf_counter()
         t.add_vector_index(name, "vec", **kw)
+        check(t.wait_index_built(), f"the {name} build did not end")
         sync(dev)
         secs = time.perf_counter() - t0
         check(t.index_status(name) == {0: IndexStatus.LOADED, 1: IndexStatus.SMALL_PART},
@@ -1172,6 +1196,7 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
             log(f"  MSTG nprobe={op}, two_stage_search=1: recall_ids@{K} "
                 f"{ivf_recall(res, gt, queries)[0]:.4f}")
         t.drop_vector_index(name)
+    return op
 
 
 def pq_oracle_recall(t, idx, queries, gt, ncand):
@@ -1239,6 +1264,7 @@ def hnswpq_path(ms, dev, t, batches, queries, card):
     t.drop_vector_index("h")
     t0 = time.perf_counter()
     t.add_vector_index("hpq", "vec", type="HNSWPQ", metric_type="Cosine", **HNSWPQ_PARAMS)
+    check(t.wait_index_built(), "the HNSWPQ build did not end")
     sync(dev)
     secs = time.perf_counter() - t0
     check(t.index_status("hpq") == {0: IndexStatus.LOADED},
@@ -1948,6 +1974,7 @@ def binary_path(ms, dev, card, args):
 
     t0 = time.perf_counter()
     t.add_vector_index("bm", "bv", type="BinaryMSTG")
+    check(t.wait_index_built(), "the BinaryMSTG build did not end")
     sync(dev)
     build_s = time.perf_counter() - t0
     check(t.index_status("bm") == {0: IndexStatus.LOADED},
@@ -2162,6 +2189,337 @@ def binary_path(ms, dev, card, args):
     return launches, timing, errs
 
 
+# ---------------------------------------------------------------- phase 11
+def hits(t, results):
+    """(ids, scores, distances) of a list of SearchResults, the ids gathered
+    now (gather before the segments change)."""
+    return (np.concatenate([t.gather(r, ["id"])["id"] for r in results]),
+            np.concatenate([r.scores for r in results]),
+            np.concatenate([r.distances for r in results]))
+
+
+def same_hits(label, got, want, tol=F32_TOL):
+    """`got` and `want` (`hits` of the same queries) hold the same hits: per
+    query the same ids, or, where they differ, sorted scores within `tol`
+    (a near-tie resolved the other way). Returns (queries, near-tied
+    queries, largest |distance difference| over the queries whose ids
+    agree)."""
+    (gi, gv, gd), (wi, wv, wd) = got, want
+    tied, worst = 0, 0.0
+    for i in range(len(gi)):
+        if (gi[i] == wi[i]).all():
+            worst = max(worst, float(np.abs(gd[i] - wd[i]).max()))
+            continue
+        check(np.allclose(np.sort(gv[i]), np.sort(wv[i]), **tol),
+              f"{label}: query {i} returned other ids {gi[i].tolist()} than {wi[i].tolist()}")
+        tied += 1
+    return len(gi), tied, worst
+
+
+def tree_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def mutation_path(ms, t, batches, queries):
+    """Phase 11a on phase 3's SIFT table: ADD COLUMN, UPDATE, a search
+    filtered on the new column against one filtered on the rows it marks,
+    compute_distances against the search's own distances, DROP COLUMN."""
+    from myscaledb_tpu_torch import F
+
+    t.add_column("tag", ms.Int32(), 0)
+    n = t.update(F("id") < MUT_IDS, {"tag": 1})
+    check(n == MUT_IDS - 100, f"UPDATE marked {n} rows, expected {MUT_IDS - 100} (100 deleted)")
+    by_tag = [t.search("vec", qb, k=K, metric="L2", filter=F("tag") == 1) for qb in batches]
+    by_id = [t.search("vec", qb, k=K, metric="L2", filter=F("id") < MUT_IDS) for qb in batches]
+    nq, tied, worst = same_hits("tag == 1 against id < 10000", hits(t, by_tag), hits(t, by_id),
+                                tol=dict(rtol=0, atol=0))
+    check(tied == 0, f"tag == 1 and id < {MUT_IDS} differ on {tied} queries")
+    tags = np.concatenate([t.gather(r, ["tag"])["tag"] for r in by_tag])
+    check((tags == 1).all(), "a hit of the tag filter is not tagged")
+    log(f"  ADD COLUMN tag Int32 DEFAULT 0, UPDATE tag = 1 WHERE id < {MUT_IDS} ({n} rows; 100 "
+        f"of them deleted in phase 3): the tag filter's {nq} queries return the id filter's "
+        f"hits (largest |distance difference| {worst:g})")
+    # compute_distances (f64 on the host, from the stored rows) against the
+    # kernels' distances, in score units as check_hits_exact holds them:
+    # distance = |q|^2 - score
+    worst, n_cmp = 0.0, 0
+    for qb, r in zip(batches, by_tag):
+        cd = t.compute_distances("vec", qb, r)
+        qsq = np.einsum("ij,ij->i", qb.astype(np.float64), qb.astype(np.float64))[:, None]
+        ok = np.isclose(qsq - cd, r.scores, **F32_TOL)
+        check(ok.all(), f"compute_distances differs from the search's distances on {(~ok).sum()} hits")
+        worst = max(worst, float(np.abs(cd - r.distances).max()))
+        n_cmp += cd.size
+    log(f"  compute_distances on {n_cmp} hits agrees with the search within F32_TOL (largest "
+        f"|f64 distance - search distance| {worst:.6g})")
+    t.drop_column("tag")
+    check("tag" not in t.schema.columns, "DROP COLUMN left the column")
+
+
+def restart_path(ms, dev, sift, sift_batches, gist, gist_batches, card):
+    """Phase 11b: phase 3's SIFT table and phase 4's GIST table (with a
+    fresh HNSWFLAT) persisted, reloaded through connect(path=...) /
+    load_table, searched against the live tables."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from myscaledb_tpu_torch.index import hnsw
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.ops import gathermv
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        sift.persist(os.path.join(root, "sift"))
+        t1 = time.perf_counter()
+        db = ms.connect(path=root, device=dev)
+        sl = db.load_table("sift")
+        sync(dev)
+        t2 = time.perf_counter()
+        check(sl.n_rows == sift.n_rows == SIFT_N + SIFT_SMALL_N - 100,
+              f"reloaded rows {sl.n_rows}, live {sift.n_rows}")
+        live = [sift.search("vec", qb, k=K, metric="L2") for qb in sift_batches]
+        back = [sl.search("vec", qb, k=K, metric="L2") for qb in sift_batches]
+        for a, b in zip(live, back):
+            check((a.segments == b.segments).all() and (a.rows == b.rows).all(),
+                  "the reloaded SIFT table returned other hits than the live one")
+        ids = np.concatenate([sl.gather(r, ["id"])["id"] for r in back])
+        check((ids >= 100).all(), "a row deleted before the checkpoint came back")
+        worst = max(float(np.abs(a.distances - b.distances).max()) for a, b in zip(live, back))
+        log(f"  SIFT: persist {t1 - t0:.2f} s ({tree_bytes(os.path.join(root, 'sift')) / 1e9:.3f}"
+            f" GB), connect + load_table {t2 - t1:.2f} s; {SIFT_NQ} queries, every batch's hits "
+            f"equal the live table's (largest |distance difference| {worst:g}), no deleted row  "
+            f"[{card}]")
+
+        gist.add_vector_index("h11", "vec", type="HNSWFLAT", metric_type="Cosine", **HNSW_PARAMS)
+        check(gist.wait_index_built(), "the HNSWFLAT build did not end")
+        check(gist.index_status("h11") == {0: IndexStatus.LOADED}, "HNSWFLAT did not load")
+        graph = ms.Settings()
+        graph.query.cost_based_index_routing = False
+        t0 = time.perf_counter()
+        gist.persist(os.path.join(root, "gist"))
+        t1 = time.perf_counter()
+        gl = db.load_table("gist")
+        t2 = time.perf_counter()
+        check(gl.index_status("h11") == {0: IndexStatus.BUILT},
+              f"the reloaded index must wait on disk: {gl.index_status('h11')}")
+        before = gathermv.gather_block_scores.launches
+        back = [gl.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph) for qb in gist_batches]
+        sync(dev)
+        n_launch = gathermv.gather_block_scores.launches - before
+        t3 = time.perf_counter()
+        check(gl.index_status("h11") == {0: IndexStatus.LOADED},
+              "the first search did not load the index")
+        check(n_launch == hnsw.n_iterations(100) * len(gist_batches),
+              f"{n_launch} gathermv launches on the reloaded graph")
+        live = [gist.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph)
+                for qb in gist_batches]
+        exact = exact_topk(gist, "vec", np.concatenate(gist_batches), K, gist.index_metric_for("vec"))
+        r_live, r_back = graph_recall(live, exact)[0], graph_recall(back, exact)[0]
+        check(r_back == r_live, f"recall_ids@{K} reloaded {r_back:.4f} != live {r_live:.4f}")
+        for a, b in zip(live, back):
+            check((a.rows == b.rows).all(), "the reloaded graph returned other hits")
+        log(f"  GIST + HNSWFLAT {HNSW_PARAMS}: persist {t1 - t0:.2f} s "
+            f"({tree_bytes(os.path.join(root, 'gist')) / 1e9:.3f} GB), load_table {t2 - t1:.2f} s, "
+            f"first search pass with the lazy reload {t3 - t2:.2f} s; {n_launch} gathermv launches "
+            f"on the reloaded table; recall_ids@{K} at ef_s 100 {r_back:.4f} (live {r_live:.4f}), "
+            f"hits equal  [{card}]")
+        gist.drop_vector_index("h11")
+        db.close()
+        del db, sl, gl
+        gc.collect()  # the database and its index cache hold each other
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class GatedScheduler:
+    """Holds build jobs until released (the decoupled window stays open;
+    tests/test_decoupled_merge.py:17-30)."""
+
+    def __init__(self):
+        self.jobs = []
+
+    def submit(self, job, slow=False):
+        self.jobs.append(job)
+
+    def release(self):
+        jobs, self.jobs = self.jobs, []
+        for job in jobs:
+            job()
+
+
+def merge_path(ms, dev, sift, queries, op, card):
+    """Phase 11c: phase 3's 1M corpus in two 500,000-row parts, each with
+    IVFFLAT (ncentroids 1,024), 100 deletes; merge() behind a gated
+    scheduler serves the merged segment through a DecoupledIndex; then the
+    rebuild, its nprobe sweep, truncate and a fresh insert."""
+    import torch
+
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.index.decoupled import DecoupledIndex
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    seg = sift.live_segments()[0]
+    corpus = seg.vector("vec").data[:SIFT_N, :SIFT_D].to(torch.float32).cpu().numpy()
+    half = SIFT_N // 2
+    db = ms.connect(device=dev)
+    t = db.create_table("merge", ms.Schema({"id": ms.UInt64(), "vec": ms.FloatVector(SIFT_D)}))
+    ids = np.arange(SIFT_N, dtype=np.uint64)
+    t0 = time.perf_counter()
+    for p in (slice(0, half), slice(half, SIFT_N)):
+        t.insert({"id": ids[p], "vec": corpus[p]})
+    t.add_vector_index("ivf", "vec", type="IVFFLAT", ncentroids=IVF_NCENT, metric_type="L2")
+    check(t.wait_index_built(), "the IVFFLAT builds did not end")
+    check(t.index_status("ivf") == {0: IndexStatus.LOADED, 1: IndexStatus.LOADED},
+          f"both parts must carry IVFFLAT: {t.index_status('ivf')}")
+    check(t.delete(F("id") < 100) == 100, "delete removed another count of rows")
+    batches = [queries[i : i + SIFT_BATCH] for i in range(0, SIFT_NQ, SIFT_BATCH)]
+    pre = hits(t, [t.search("vec", qb, k=K, params={"nprobe": op}) for qb in batches])
+    check((pre[0] >= 100).all(), "a deleted row came back before the merge")
+    t1 = time.perf_counter()
+
+    gate = GatedScheduler()
+    t._scheduler = gate
+    new_id = t.merge()
+    sync(dev)
+    t2 = time.perf_counter()
+    segs = t.live_segments()
+    check([s.segment_id for s in segs] == [new_id] and segs[0].n_rows == SIFT_N - 100,
+          f"merge left {[(s.segment_id, s.n_rows) for s in segs]}")
+    slot = t._slots[(new_id, "ivf")]
+    check(slot.status == IndexStatus.PENDING and isinstance(slot.instance, DecoupledIndex),
+          f"the merged segment is not served by a DecoupledIndex: {slot}")
+    before = GLOBAL_COUNTERS.get("VectorIndexSearches")
+    dec = [t.search("vec", qb, k=K, params={"nprobe": op}) for qb in batches]
+    check(GLOBAL_COUNTERS.get("VectorIndexSearches") - before == len(batches),
+          "the decoupled searches did not go through the index")
+    got = hits(t, dec)
+    nq, tied, worst = same_hits("decoupled window", got, pre)
+    check((got[0] >= 100).all(), "a deleted row came back through the decoupled index")
+    log(f"  two parts of {half:,} rows with IVFFLAT ({t1 - t0:.2f} s with the builds), 100 "
+        f"deletes; merge {t2 - t1:.2f} s into segment {new_id} ({SIFT_N - 100:,} rows) served by "
+        f"a DecoupledIndex over {len(slot.instance.subs)} sources; at nprobe {op} its {nq} queries "
+        f"return the pre-merge ids ({tied} near-tied, largest |distance difference| {worst:g}), "
+        f"no deleted row  [{card}]")
+
+    t3 = time.perf_counter()
+    gate.release()
+    check(t.wait_index_built(), "the rebuild did not end")
+    t._scheduler = db.scheduler
+    slot = t._slots[(new_id, "ivf")]
+    check(slot.status == IndexStatus.LOADED and not isinstance(slot.instance, DecoupledIndex),
+          f"the rebuild did not replace the DecoupledIndex: {slot}")
+    t4 = time.perf_counter()
+    gt = exact_topk(t, "vec", queries, K, Metric.L2)
+    picked = None
+    for nprobe in IVF_NPROBES:
+        res = [t.search("vec", qb, k=K, params={"nprobe": nprobe}) for qb in batches]
+        rid = ivf_recall(res, gt, queries)[0]
+        if rid >= IVF_RECALL_TARGET:
+            picked = nprobe
+            break
+    check(picked is not None, f"the rebuilt index never reached recall_ids@{K} {IVF_RECALL_TARGET}")
+    check_hits_exact(t, queries, res, f"rebuilt IVFFLAT nprobe={picked}")
+    log(f"  rebuild after the gate {t4 - t3:.2f} s; the sweep picks nprobe {picked} (phase 8: "
+        f"{op}) at recall_ids@{K} {rid:.4f}  [{card}]")
+
+    t.truncate()
+    check(t.n_rows == 0 and not t.live_segments(), "truncate left rows")
+    check(not t.search("vec", queries[:SIFT_BATCH], k=K).valid.any(), "a hit after truncate")
+    t.insert({"id": ids[:MERGE_REFILL], "vec": corpus[:MERGE_REFILL]})
+    check(t.wait_index_built(), "the build after truncate did not end")
+    (sid, status), = t.index_status("ivf").items()
+    check(status == IndexStatus.LOADED and sid == new_id + 1,
+          f"the insert after truncate did not build afresh: {t.index_status('ivf')}")
+    r = t.search("vec", corpus[:SIFT_BATCH], k=1, params={"nprobe": IVF_NCENT})
+    check((t.gather(r, ["id"])["id"][:, 0] == ids[:SIFT_BATCH]).all(),
+          "the fresh index does not find the inserted rows")
+    log(f"  truncate: 0 rows, no hit; an insert of {MERGE_REFILL:,} rows builds IVFFLAT afresh "
+        f"(segment {sid})")
+    db.drop_table("merge")
+
+
+def final_path(ms, dev, sift, card):
+    """Phase 11d: a ReplacingMergeTree(ver) table keyed by id over phase
+    3's 1M corpus at ver 0, then FINAL_DUP of the same ids at ver 1 with
+    new vectors; search(final=True) against an exact numpy scan over the
+    winners, before and after merge()."""
+    import torch
+
+    seg = sift.live_segments()[0]
+    corpus = seg.vector("vec").data[:SIFT_N, :SIFT_D].to(torch.float32).cpu().numpy()
+    rng = np.random.default_rng(11)
+    dup = np.sort(rng.choice(SIFT_N, FINAL_DUP, replace=False))
+    fresh = make_corpus(FINAL_DUP, SIFT_D, seed=12, centers=corpus_centers(SIFT_D))
+    db = ms.connect(device=dev)
+    t = db.create_table("final", ms.Schema({"id": ms.UInt64(), "ver": ms.UInt64(),
+                                            "vec": ms.FloatVector(SIFT_D)}),
+                        engine="ReplacingMergeTree", key_column="id", version_column="ver")
+    t.insert({"id": np.arange(SIFT_N, dtype=np.uint64), "ver": np.zeros(SIFT_N, np.uint64),
+              "vec": corpus})
+    t.insert({"id": dup.astype(np.uint64), "ver": np.ones(FINAL_DUP, np.uint64), "vec": fresh})
+    # the winners' stored rows: the unsuperseded old rows and every new one
+    stored_new = t.live_segments()[1].vector("vec").data[:FINAL_DUP, :SIFT_D].to(torch.float32)
+    keep = np.ones(SIFT_N, bool)
+    keep[dup] = False
+    win_x = np.concatenate([corpus[keep], stored_new.cpu().numpy()])
+    win_id = np.concatenate([np.nonzero(keep)[0], dup]).astype(np.uint64)
+    # half the queries sit on superseded rows' old vectors, half on new ones
+    q = np.concatenate([corpus[dup[: FINAL_NQ // 2]], fresh[: FINAL_NQ // 2]])
+    q = (q + 0.3 * rng.standard_normal(q.shape)).astype(np.float32)
+    batches = [q[i : i + SIFT_BATCH] for i in range(0, FINAL_NQ, SIFT_BATCH)]
+    xsq = np.einsum("ij,ij->i", win_x, win_x)
+
+    def oracle(qb):
+        """The exact f32 L2 scores (2 q.x - |x|^2) of the winners' stored
+        rows, top k, in numpy."""
+        s = 2.0 * (qb @ win_x.T) - xsq[None, :]
+        part = np.argpartition(-s, K, axis=1)[:, :K]
+        v = np.take_along_axis(s, part, 1)
+        order = np.argsort(-v, axis=1, kind="stable")
+        return np.take_along_axis(v, order, 1), win_id[np.take_along_axis(part, order, 1)]
+
+    def check_final(label):
+        worst, tied = 0.0, 0
+        for qb in batches:
+            r = t.search("vec", qb, k=K, final=True)
+            got = t.gather(r, ["id", "ver"])
+            check(r.valid.all(), f"{label}: FINAL returned fewer than {K} hits")
+            old = np.isin(got["id"], dup) & (got["ver"] == 0)
+            check(not old.any(), f"{label}: FINAL returned {int(old.sum())} superseded rows")
+            v, ids = oracle(qb)
+            for i in range(len(qb)):
+                if not (got["id"][i] == ids[i]).all():
+                    check(np.allclose(np.sort(r.scores[i]), np.sort(v[i]), **F32_TOL),
+                          f"{label}: query {i} differs from the numpy scan over the winners")
+                    tied += 1
+            worst = max(worst, float(np.abs(r.scores - v).max()))
+        return tied, worst
+
+    t0 = time.perf_counter()
+    tied, worst = check_final("FINAL before merge")
+    t1 = time.perf_counter()
+    log(f"  ReplacingMergeTree(ver): {SIFT_N:,} rows at ver 0 + {FINAL_DUP:,} of the same ids at "
+        f"ver 1; search(final=True) over {FINAL_NQ} queries ({t1 - t0:.2f} s): no superseded row, "
+        f"the winners' exact top-{K} ({tied} near-tied, largest |score difference| {worst:.6g})")
+    t0 = time.perf_counter()
+    t.merge()
+    t1 = time.perf_counter()
+    check(t.n_rows == SIFT_N and len(t.live_segments()) == 1,
+          f"the merge left {t.n_rows} rows in {len(t.live_segments())} segments")
+    tied, worst = check_final("FINAL after merge")
+    log(f"  merge {t1 - t0:.2f} s drops the {FINAL_DUP:,} superseded rows ({t.n_rows:,} left); "
+        f"FINAL still equals the numpy scan ({tied} near-tied, largest |score difference| "
+        f"{worst:.6g})  [{card}]")
+    db.drop_table("final")
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None):
     import argparse
@@ -2189,6 +2547,7 @@ def main(argv=None):
     from myscaledb_tpu_torch.ops import _cuda, distance, gathermv, tilescan
 
     # ---- 1. set-up
+    t_start = time.perf_counter()
     card = card_line()
     dev = torch.device("cuda", 0)
     _cuda.set_exact_precision()  # the plain versions' matmuls in f32, not TF32
@@ -2262,7 +2621,7 @@ def main(argv=None):
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
     gathermv.gather_block_scores.launches = 0
-    ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
+    ivf_op = ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
     hnswpq_path(ms, dev, gist, gist_batches, np.concatenate(gist_batches), card)
     p8 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
           "gathermv": gathermv.gather_block_scores.launches}
@@ -2288,6 +2647,30 @@ def main(argv=None):
     errs["binary_blocks"] = max(errs["binary"], e10["binary_blocks"])
     errs["binary"] = max(errs["binary"], e10["binary"])
     errs["binary_group"] = e10["binary_group"]
+
+    # ---- 11. the rest of Table and Database, with the launch counters zeroed
+    t11 = time.perf_counter()
+    distance.scores.launches = 0
+    tilescan.tile_maxes.launches = 0
+    gathermv.gather_block_scores.launches = 0
+    log(f"[11a] mutations on phase 3's table (ADD COLUMN, UPDATE, a filter on the new column, "
+        f"compute_distances, DROP COLUMN)")
+    mutation_path(ms, sift, sift_batches, sift_queries)
+    log("[11b] checkpoint and restart: phase 3's table, and phase 4's with a fresh HNSWFLAT, "
+        "through persist / connect(path=...) / load_table")
+    restart_path(ms, dev, sift, sift_batches, gist, gist_batches[:HNSW_BATCHES], card)
+    log(f"[11c] merge with decoupled serving ({SIFT_N:,} rows in two parts, IVFFLAT "
+        f"ncentroids={IVF_NCENT} on each), the rebuild, truncate")
+    merge_path(ms, dev, sift, sift_queries, ivf_op, card)
+    log(f"[11d] FINAL on a ReplacingMergeTree(ver) table ({SIFT_N:,} + {FINAL_DUP:,} rows)")
+    final_path(ms, dev, sift, card)
+    p11 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "gathermv": gathermv.gather_block_scores.launches}
+    log(f"  kernel launches on phase 11's paths: {p11}; phase 11 took "
+        f"{time.perf_counter() - t11:.2f} s")
+    for name, n in p11.items():
+        check(n > 0, f"kernel {name} was not launched on phase 11's paths")
+        launches[name] += n
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
@@ -2316,6 +2699,7 @@ def main(argv=None):
          "launches": launches["binary_group"], "max_abs_err": errs["binary_group"],
          **{k: timing["binary_group"][k] for k in keys}},
     ]}
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s  [{card}]")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

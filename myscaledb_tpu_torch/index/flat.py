@@ -3,12 +3,14 @@
 Counterpart of myscaledb_tpu/index/flat.py: the scan of ops/bruteforce.py
 over the segment's own payload (no memory beyond the stored
 auxiliaries). The executor instantiates it ad hoc for index-less
-segments (the brute-force path).
+segments (the brute-force path); `add_vector_index(type="FLAT")` builds
+it as a segment's index, and a checkpoint keeps only its metadata (it is
+rebuilt from the segment payload on load).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +37,12 @@ class FlatIndex(VectorIndex):
         self.dim = dim
         self.n_rows = n_rows
 
+    @classmethod
+    def build(cls, payload, n_rows: int, *, metric: Metric, dim: int, params=None,
+              settings=None, cancel_cb=None) -> "FlatIndex":
+        del params, settings, cancel_cb
+        return cls(payload.data, payload.aux_for(metric), metric=metric, dim=dim, n_rows=n_rows)
+
     def search_t(
         self,
         queries: torch.Tensor,
@@ -53,3 +61,12 @@ class FlatIndex(VectorIndex):
             n_valid=self.n_rows,
             mask=mask,
         )
+
+    @property
+    def memory_bytes(self) -> int:
+        # FLAT references the segment payload; only the auxiliaries count
+        return 0 if self.aux is None else self.aux.numel() * self.aux.element_size()
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"meta": {"kind": self.kind.value, "metric": self.metric.value,
+                         "dim": self.dim, "n_rows": self.n_rows}}

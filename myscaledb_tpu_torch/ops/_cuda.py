@@ -189,6 +189,16 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
+_LAUNCH_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches` counter. Builds launch
+    kernels on the scheduler's threads too, so the add takes a lock."""
+    with _LAUNCH_COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..metrics import Metric
-from ._cuda import LIBRARY, cdiv, check_launch, stream_ptr
+from ._cuda import LIBRARY, cdiv, check_launch, count_launch, stream_ptr
 from .topk import NEG_INF, merge_topk_lists, topk_scores
 
 DEFAULT_CHUNK_ROWS = 64 * 1024
@@ -170,7 +170,7 @@ def binary_scores(
         _aligned(b, q, x), stream_ptr(x.device),
     )
     check_launch("msd_binary_rows", err)
-    binary_scores.launches += 1
+    count_launch(binary_scores)
     return out
 
 
@@ -234,7 +234,7 @@ def group_probes(blk: torch.Tensor, c: int):
         count.data_ptr(), stream_ptr(blk.device),
     )
     check_launch("msd_binary_group", err)
-    group_probes.launches += 1
+    count_launch(group_probes)
     return pairs, groups, count
 
 
@@ -323,7 +323,7 @@ def binary_block_scores(
         stream_ptr(x.device),
     )
     check_launch("msd_binary_blocks", err)
-    binary_block_scores.launches += 1
+    count_launch(binary_block_scores)
     return out
 
 

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from ..metrics import Metric
-from ._cuda import LIBRARY, METRIC_CODES, cdiv, check_launch, round_up, stream_ptr
+from ._cuda import LIBRARY, METRIC_CODES, cdiv, check_launch, count_launch, round_up, stream_ptr
 
 # The kernels take the depth axis in 16-byte pieces (8 bf16 or 4 f32
 # values, the bf16 engine's tensor-map row strides and its resident query
@@ -241,7 +241,7 @@ def scores(
     if q == 0 or n == 0:
         return out
     launch_scan("msd_scores", queries, base, aux, None, out, metric)
-    scores.launches += 1
+    count_launch(scores)
     return out
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ._cuda import LIBRARY, check_launch, stream_ptr
+from ._cuda import LIBRARY, check_launch, count_launch, stream_ptr
 
 # The kernel keeps the bf16-rounded query in shared memory as f32; without
 # opting in to more, a block may hold 48 KB of it, so Dt <= 12,288.
@@ -140,7 +140,7 @@ def gather_block_scores(
         q, beam, n, m, dt, stream_ptr(nbdata.device),
     )
     check_launch("msd_gathermv", err)
-    gather_block_scores.launches += 1
+    count_launch(gather_block_scores)
     return out
 
 

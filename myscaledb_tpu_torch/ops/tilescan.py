@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from ..metrics import Metric
+from ._cuda import count_launch
 from .distance import (
     _apply_metric,
     _check_kernel_operands,
@@ -109,7 +110,7 @@ def tile_maxes(
     if q == 0 or n == 0:
         return out
     launch_scan("msd_tile_max", queries, base, aux, mask_u8, out, metric)
-    tile_maxes.launches += 1
+    count_launch(tile_maxes)
     return out
 
 

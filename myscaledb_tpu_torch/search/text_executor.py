@@ -13,10 +13,10 @@ MergeTreeTextSearchManager / MergeTreeHybridSearchManager:
     k × hybrid_search_top_k_multiple_base candidates
     (ExpressionAnalyzer.cpp:1217), fused with RRF or RSF on the device.
 
-The fts store of a segment is built when the segment is inserted (or when
-the index is added), on the caller's thread: the JAX package's background
-build with build-on-demand waits for the port's scheduler (ROADMAP queue 1
-#10).
+The fts stores of the segments that exist when the index is added are
+built on the caller's thread; a later segment's store is built on the
+table's build scheduler, and a search that arrives first builds it on
+demand (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -49,7 +49,15 @@ class TextIndexDefinition:
         self.params = dict(params or {})
         self._stores: Dict[int, InvertedIndex] = {}
         self._lock = threading.Lock()
+        # segment_id -> segment, for stores whose background build is
+        # pending or running; a search arriving first builds on demand
+        # under the per-definition build lock
+        self._pending: Dict[int, Any] = {}
+        self._build_lock = threading.Lock()
         self._stats_cache = None  # (segment-id key, merged BM25Stats)
+        # bumped on every invalidation: a stats computation that straddles
+        # one must not install its (stale) result
+        self._stats_gen = 0
 
     def _build_store(self, segment) -> InvertedIndex:
         texts = [segment.scalar(c)[: segment.n_rows] for c in self.columns]
@@ -59,17 +67,68 @@ class TextIndexDefinition:
         GLOBAL_COUNTERS.bump("FTSIndexBuilds")
         return store
 
-    def on_new_segment(self, segment) -> None:
-        """Build and register the fts store for a segment. (Deletes need
-        no hook: a search masks deleted rows through the alive bitmap.)"""
-        store = self._build_store(segment)
+    def _invalidate_locked(self) -> None:
+        self._stats_cache = None
+        self._stats_gen += 1
+
+    def on_new_segment(self, segment, scheduler=None) -> None:
+        """Register (and build) the fts store for a segment: now, or with a
+        scheduler as a background job (a search that arrives first builds
+        it on demand). A rebuild replaces the segment's store. (Deletes
+        need no hook: a search masks deleted rows through the alive
+        bitmap.)"""
+        if scheduler is None:
+            store = self._build_store(segment)
+            with self._lock:
+                self._stores[segment.segment_id] = store
+                self._pending.pop(segment.segment_id, None)
+                self._invalidate_locked()
+            return
+        sid = segment.segment_id
         with self._lock:
-            self._stores[segment.segment_id] = store
-            self._stats_cache = None
+            self._pending[sid] = segment
+            self._stores.pop(sid, None)
+            self._invalidate_locked()
+
+        def job():
+            with self._build_lock:
+                with self._lock:
+                    seg = self._pending.get(sid)
+                if seg is None:
+                    return  # built on demand (or dropped) meanwhile
+                store = self._build_store(seg)
+                with self._lock:
+                    if self._pending.pop(sid, None) is not None:
+                        self._stores[sid] = store
+                        self._invalidate_locked()
+
+        scheduler.submit(job)
+
+    def on_segment_dropped(self, segment_id: int) -> None:
+        with self._lock:
+            self._stores.pop(segment_id, None)
+            self._pending.pop(segment_id, None)
+            self._invalidate_locked()
 
     def store(self, segment_id: int) -> Optional[InvertedIndex]:
         with self._lock:
-            return self._stores.get(segment_id)
+            hit = self._stores.get(segment_id)
+            if hit is not None or segment_id not in self._pending:
+                return hit
+        # a pending background build: build on demand (the first caller
+        # wins; the background job then finds the pending entry gone)
+        with self._build_lock:
+            with self._lock:
+                hit = self._stores.get(segment_id)
+                seg = self._pending.get(segment_id)
+            if hit is not None or seg is None:
+                return hit
+            store = self._build_store(seg)
+            with self._lock:
+                self._pending.pop(segment_id, None)
+                self._stores[segment_id] = store
+                self._invalidate_locked()
+            return store
 
     def nlq_mask(self, segment, store, phrases, negs) -> np.ndarray:
         """bool[n_rows] rows satisfying the NLQ structure: every quoted
@@ -109,17 +168,26 @@ class TextIndexDefinition:
         return m
 
     def merged_stats(self, segment_ids) -> BM25Stats:
-        """Table-level BM25 statistics over `segment_ids`, cached per
-        segment set (stores are immutable once built)."""
+        """Table-level BM25 statistics over `segment_ids` (a pending store
+        is built first), cached per segment set: stores are immutable once
+        built."""
         key = tuple(segment_ids)
         with self._lock:
             cached = self._stats_cache
-            if cached is not None and cached[0] == key:
-                return cached[1]
-            parts = [self._stores[s].stats for s in segment_ids if s in self._stores]
-            out = BM25Stats.merge(parts) if parts else BM25Stats(0, 0, {})
-            self._stats_cache = (key, out)
-            return out
+            pending = bool(self._pending)
+            gen = self._stats_gen
+        if not pending and cached is not None and cached[0] == key:
+            return cached[1]
+        parts = []
+        for s in segment_ids:
+            st = self.store(s)
+            if st is not None:
+                parts.append(st.stats)
+        out = BM25Stats.merge(parts) if parts else BM25Stats(0, 0, {})
+        with self._lock:
+            if not pending and self._stats_gen == gen and not self._pending:
+                self._stats_cache = (key, out)
+        return out
 
 
 class _FtsFilterBase(Expr):

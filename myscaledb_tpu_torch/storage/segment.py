@@ -121,8 +121,9 @@ def upload_payload(
 
 
 class Segment:
-    """One immutable slab of rows. Mutable state is limited to the delete
-    bitmap (lightweight DELETE), lock-guarded."""
+    """One slab of rows with immutable vector payloads. Mutable state is the
+    delete bitmap (lightweight DELETE, lock-guarded) and the host scalar
+    columns (UPDATE, ADD / DROP COLUMN, under the table's locks)."""
 
     def __init__(
         self,
@@ -149,8 +150,9 @@ class Segment:
         # the device copy is rebuilt lazily on change.
         self._deleted_host = np.zeros(capacity, dtype=bool)
         self._deleted_dev: Optional[torch.Tensor] = None
-        self._has_deletes = False
-        # bumped on every delete; filter-mask caches key on it
+        self._n_deleted = 0  # kept by delete_rows: n_rows reads it per search
+        # bumped on every delete, UPDATE and ADD/DROP COLUMN; the filter-mask
+        # caches and the device mirrors of scalar columns key on it
         self.mutation_generation = 0
         # per-column (min, max) stats for predicate const-folding
         self._minmax_cache: Dict[str, tuple] = {}
@@ -316,18 +318,17 @@ class Segment:
         with self._lock:
             row_ids = np.asarray(row_ids, dtype=np.int64)
             ok = (row_ids >= 0) & (row_ids < self.n_rows)
-            row_ids = row_ids[ok]
-            before = int(self._deleted_host.sum())
-            self._deleted_host[row_ids] = True
+            row_ids = np.unique(row_ids[ok])
+            fresh = row_ids[~self._deleted_host[row_ids]]
+            self._deleted_host[fresh] = True
             self._deleted_dev = None
             self.mutation_generation += 1
-            after = int(self._deleted_host.sum())
-            self._has_deletes = after > 0
-            return after - before
+            self._n_deleted += len(fresh)
+            return len(fresh)
 
     @property
     def num_deleted(self) -> int:
-        return int(self._deleted_host.sum()) if self._has_deletes else 0
+        return self._n_deleted
 
     @property
     def num_live(self) -> int:
@@ -340,11 +341,16 @@ class Segment:
         """bool[capacity] True = searchable; None when nothing is deleted
         (the common case — avoids building a mask at all)."""
         with self._lock:
-            if not self._has_deletes:
+            if not self._n_deleted:
                 return None
             if self._deleted_dev is None:
                 self._deleted_dev = torch.from_numpy(~self._deleted_host).to(self.device)
             return self._deleted_dev
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes of the vector payloads on the device (system.parts)."""
+        return sum(p.nbytes for p in self.vectors.values())
 
     def __repr__(self):
         return (

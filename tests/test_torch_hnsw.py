@@ -555,6 +555,7 @@ def _table(n=3000, metric="Cosine", **settings):
     rng, vecs = _blobs(13, n)
     t.insert({"id": np.arange(n, dtype=np.uint64), "vec": vecs})
     t.add_vector_index("h", "vec", type="HNSWFLAT", m=M, ef_c=EF_C, metric_type=metric)
+    assert t.wait_index_built()  # connect()'s database builds in the background
     return t, rng, vecs
 
 
@@ -573,6 +574,7 @@ def test_index_lifecycle_add_insert_drop():
     assert t.index_metric_for("vec") == Metric.COSINE  # the index's metric wins
     t.insert({"id": np.arange(3000, 3500, dtype=np.uint64), "vec": vecs[:500]})  # small part
     t.insert({"id": np.arange(3500, 4700, dtype=np.uint64), "vec": vecs[:1200]})
+    assert t.wait_index_built()
     assert t.index_status("h") == {0: IndexStatus.LOADED, 1: IndexStatus.SMALL_PART,
                                    2: IndexStatus.LOADED}
     events = [e["event"] for e in t.event_log.rows()]
@@ -603,6 +605,7 @@ def test_pq_and_ivf_kinds_build_and_search(kind):
     t.insert({"id": np.arange(3000, dtype=np.uint64), "vec": vecs})
     params = dict(m=M, ef_c=60) if kind == "HNSWPQ" else dict(ncentroids=32)
     t.add_vector_index("i", "vec", type=kind, metric_type="L2", **params)
+    assert t.wait_index_built()
     assert t.index_status("i") == {0: IndexStatus.LOADED}
     idx = t.loaded_index(0, "vec", Metric.L2)
     assert type(idx).kind.value == kind

@@ -28,6 +28,10 @@ def test_import_pulls_in_no_jax():
         "from myscaledb_tpu_torch.index import binary, hnsw, ivf\n"
         "from myscaledb_tpu_torch.text import analyzer, inverted, native\n"
         "from myscaledb_tpu_torch.search import fusion, text_executor\n"
+        "from myscaledb_tpu_torch.cache import lru\n"
+        "from myscaledb_tpu_torch.index import decoupled\n"
+        "from myscaledb_tpu_torch.service import background, system_log\n"
+        "from myscaledb_tpu_torch.storage import persistence, stores\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'myscaledb_tpu'))\n"
         "assert not bad, bad\n"

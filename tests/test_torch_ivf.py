@@ -509,6 +509,7 @@ def test_add_vector_index_without_type_builds_mstg():
     rng, vecs = _blobs(30, 5_000, D)
     t.insert({"id": np.arange(5_000, dtype=np.uint64), "vec": vecs})
     desc = t.add_vector_index("m", "vec")
+    assert t.wait_index_built()
     assert desc.kind.value == "MSTG" and t.index_status("m") == {0: IndexStatus.LOADED}
     idx = t.loaded_index(0, "vec", Metric.L2)
     assert isinstance(idx, ivf.MSTGIndex) and idx.codec == "sq8"
