@@ -89,14 +89,37 @@ of the JAX package. Phases, each of which raises on failure:
      and a fresh insert; (d) a ReplacingMergeTree(ver) table of 1,000,000
      rows and 100,000 newer versions: search(final=True) equal to a numpy
      scan over the winners, before and after merge(). Phase 11 logs its
-     seconds.
+     seconds;
+ 12. the host tier: (a) the pinned host -> device copy rate (one 1 GiB
+     copy), the streamed scan's bound; (b) a vector_storage_tier='host'
+     table of bench.py's beyond-HBM corpus (10,000,000 x 960 f32, L2, ten
+     1M-row inserts of 1,048,576-row segments, 42.9 GB of pinned host
+     memory; made on the card from seeded generators; cut in 1M-row steps
+     while MemAvailable is under 2.2x the payload, logged); (c) its exact
+     scan streamed through the card (copy stream, two device buffers): two
+     timed passes, GB/s against (a), the f32 score launches (8 chunks a
+     segment), the first queries against an f64 numpy scan and every hit
+     against its row's f64 score, a filter that const-folds nine segments
+     away, deletes, and the f32 engine of score and tile_max against its
+     plain version and timed at one stream chunk's operands; (d) a default
+     MSTG over it (disk mode: SQ8 windows on the card, the exact re-rank
+     from host rows): build seconds, device bytes, the nprobe sweep to
+     recall_ids@10 >= 0.95 against (c), QPS and the speedup over (c);
+     (e) phase 3's corpus in a table whose device budget refuses it: the
+     spill (bf16-rounded values, counter, TierSpill), phase 3's hits, then
+     MSTG disk_mode=1 persisted and reloaded; (f) MSTG disk_mode=1 on phase
+     3's table against phase 8's MSTG ids; (g) HNSWFLAT over phase 4's
+     corpus in a host-tier table (gathermv): recall_ids@10 against phase
+     4's exact results within 0.01 of phase 6's, and against the f32 rows.
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
 three over phase 8, score and tile_max over phase 9, the binary rows
 layout, blocks layout and grouping over phase 10, score, tile_max and
-gathermv over phase 11; every kernel must have launched on its path, and
-the record's launches are the sums over those paths. The last line of standard output is {"ok": true, "device": {...}};
+gathermv over phase 11, and over phase 12 also the f32 engine's launches
+of score and tile_max (the record's score_f32 and tile_max_f32 lines);
+every kernel must have launched on its path, and the record's launches
+are the sums over those paths. The last line of standard output is {"ok": true, "device": {...}};
 the line before it is the per-kernel JSON record. Without CUDA, or without
 the package beside this file, it exits non-zero and prints no result.
 """
@@ -200,6 +223,25 @@ LAUNCH_KEYS = ("grid", "block", "registers per thread", "shared memory", "blocks
 MUT_IDS = 10_000
 MERGE_REFILL = 100_000
 FINAL_DUP, FINAL_NQ = 100_000, 200
+# phase 12, the host tier, at bench.py::sec_beyond_hbm's size (:824-905):
+# 10M x 960 f32 rows, L2, in ten 1M-row inserts (one 1,048,576-row segment
+# each, 42.9 GB of pinned host memory), 1,000 blob centres from seed 11,
+# chunk i drawn from seed 100 + i, 100 queries; the corpus is cut in 1M-row
+# steps while MemAvailable is under HOST_RAM_FACTOR x its payload. The
+# stream scan's chunk, the copy whose rate bounds it, the queries the f64
+# oracle scans whole, the deletes, and the disk-mode MSTG's nprobe sweep
+# and recall target (bench.py:890-905)
+HOST_N, HOST_D, HOST_CHUNK, HOST_NQ = 10_000_000, 960, 1_000_000, 100
+HOST_CAP, HOST_DPAD = 1_048_576, 1_024
+HOST_RAM_FACTOR = 2.2
+STREAM_CHUNK = 131_072
+LINK_BYTES = 1 << 30
+HOST_ORACLE_NQ, HOST_DELETES = 10, 100
+HOST_NPROBES = (8, 16, 32, 64, 128, 256)
+HOST_RECALL_TARGET = 0.95
+# a top-k small enough that the spilled 128-d f32 chunks take the tile-max
+# route by the JAX package's byte gate (at k 10 its two byte counts tie)
+SPILL_TILE_K = 5
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -1051,7 +1093,7 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
     QPS at its operating point, a dyn_nprobe search, a filtered search
     through the index's WindowMask and one that falls back to the exact
     scan (tile_max); then IVFSQ, IVFPQ and a default MSTG one at a time.
-    Returns IVFFLAT's operating nprobe."""
+    Returns IVFFLAT's operating nprobe and the MSTG's hits there."""
     import torch
 
     from myscaledb_tpu_torch import F
@@ -1189,6 +1231,7 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
             check_hits_exact(t, queries, res, "MSTG default params")
             log(f"  MSTG at its default nprobe ({ivf.DEFAULT_NPROBE}): recall_ids@{K} "
                 f"{ivf_recall(res, gt, queries)[0]:.4f}")
+            mstg_op = hits(t, search_all({"nprobe": op})[0])  # phase 12f's reference
             res, b = search_all({"nprobe": op}, two_stage=True)
             check(b["VectorIndexSearches"] == 0 and b["VectorBruteForceSearches"] == nb,
                   f"two_stage_search=1: the MSTG segment takes the first-stage path: {b}")
@@ -1196,7 +1239,7 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
             log(f"  MSTG nprobe={op}, two_stage_search=1: recall_ids@{K} "
                 f"{ivf_recall(res, gt, queries)[0]:.4f}")
         t.drop_vector_index(name)
-    return op
+    return op, mstg_op
 
 
 def pq_oracle_recall(t, idx, queries, gt, ncand):
@@ -2521,6 +2564,558 @@ def final_path(ms, dev, sift, card):
 
 
 # ---------------------------------------------------------------- main
+# --------------------------------------------------------------- phase 12
+def mem_available():
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def link_rate(dev, card):
+    """GB/s of one LINK_BYTES copy from pinned host memory to the card
+    (CUDA events, best of 5 after one warm-up): the host link's rate, which
+    bounds a streamed scan."""
+    import torch
+
+    src = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    src.fill_(1)
+    dst = torch.empty(LINK_BYTES, dtype=torch.uint8, device=dev)
+    ms_ = min(cuda_time_ms(lambda: dst.copy_(src, non_blocking=True), iters=1, warmup=1,
+                           padded=False) for _ in range(5))
+    rate = LINK_BYTES / ms_ / 1e6
+    log(f"  pinned host -> device copy of {LINK_BYTES / 2**30:.0f} GiB: {ms_:.3f} ms, "
+        f"{rate:.2f} GB/s  [{card}]")
+    del src, dst
+    return rate
+
+
+def host_corpus(ms, dev, card):
+    """The host-tier table of phase 12b: bench.py's beyond-HBM corpus made
+    on the card in 1M-row chunks (seeded torch.Generator) and inserted
+    through Table.insert into pinned host memory. Returns (db, table,
+    queries, segments, payload bytes)."""
+    import torch
+
+    per_seg = HOST_CAP * HOST_DPAD * 4 + HOST_CAP * 8  # f32 rows and two f32 norms
+    avail = mem_available()
+    n_seg = HOST_N // HOST_CHUNK
+    while n_seg > 1 and HOST_RAM_FACTOR * n_seg * per_seg > avail:
+        n_seg -= 1
+    if n_seg < HOST_N // HOST_CHUNK:
+        log(f"  CUT: MemAvailable {avail / 1e9:.1f} GB is under {HOST_RAM_FACTOR} x the "
+            f"{HOST_N:,}-row payload ({HOST_N // HOST_CHUNK * per_seg / 1e9:.1f} GB): the corpus "
+            f"is cut to {n_seg * HOST_CHUNK:,} rows ({n_seg * per_seg / 1e9:.1f} GB)")
+    else:
+        log(f"  MemAvailable {avail / 1e9:.1f} GB holds {HOST_RAM_FACTOR} x the payload "
+            f"({n_seg * per_seg / 1e9:.1f} GB): no cut")
+    st = ms.Settings()
+    st.table.vector_storage_tier = "host"
+    st.table.min_rows_to_build_vector_index = 1
+    db = ms.connect(st, device=dev)
+    t = db.create_table("host", ms.Schema({"id": ms.UInt64(), "vec": ms.FloatVector(HOST_D)}))
+    rng = np.random.default_rng(11)
+    centers = torch.from_numpy(6.0 * rng.standard_normal((1000, HOST_D)).astype(np.float32)).to(dev)
+    qsrc = None
+    t0 = time.perf_counter()
+    gen_s = 0.0
+    stage = torch.empty((HOST_CHUNK, HOST_D), dtype=torch.float32,
+                        pin_memory=dev.type == "cuda")
+    for i in range(n_seg):
+        g0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        which = torch.randint(0, 1000, (HOST_CHUNK,), generator=gen, device=dev)
+        stage.copy_(centers[which] + torch.randn((HOST_CHUNK, HOST_D), generator=gen, device=dev))
+        chunk = stage.numpy()
+        del which
+        gen_s += time.perf_counter() - g0
+        if qsrc is None:
+            qsrc = chunk[:HOST_NQ].copy()
+        t.insert({"id": np.arange(i * HOST_CHUNK, (i + 1) * HOST_CHUNK, dtype=np.uint64),
+                  "vec": chunk})
+    del stage, chunk
+    ingest_s = time.perf_counter() - t0
+    queries = (qsrc + 0.1 * rng.standard_normal((HOST_NQ, HOST_D))).astype(np.float32)
+    segs = t.live_segments()
+    for seg in segs:
+        p = seg.vector("vec")
+        check(p.is_host and p.data.is_pinned() == (dev.type == "cuda")
+              and p.data.dtype == torch.float32
+              and tuple(p.data.shape) == (HOST_CAP, HOST_DPAD) and seg.n_rows == HOST_CHUNK,
+              f"segment {seg.segment_id} is not a pinned f32 host-tier payload of "
+              f"({HOST_CAP}, {HOST_DPAD}): {p.tier} {tuple(p.data.shape)}")
+    payload = sum(seg.device_bytes for seg in segs)
+    log(f"  {n_seg * HOST_CHUNK:,} x {HOST_D} f32 in {n_seg} inserts: {ingest_s:.2f} s "
+        f"({gen_s:.2f} s of it making the rows on the card and copying them down); {n_seg} "
+        f"segments of {HOST_CAP:,} rows, {payload / 1e9:.2f} GB of pinned host memory; "
+        f"MemAvailable now {mem_available() / 1e9:.1f} GB  [{card}]")
+    return db, t, queries, segs, payload
+
+
+def host_oracle(t, queries):
+    """The exact L2 top-K of `queries` over the live stored rows of the
+    host-tier table `t`, in f64 with numpy (blocks of STREAM_CHUNK rows on
+    8 threads). Returns (scores 2 q.x - |x|^2, f64[Q, K] best first,
+    segment ids, rows)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    q = queries.astype(np.float64)
+    jobs = []
+    for seg in t.live_segments():
+        x = seg.vector("vec").data.numpy()
+        dead = seg.deleted_host()
+        for i in range(0, seg.n_rows, STREAM_CHUNK):
+            jobs.append((seg, x, dead, i, min(seg.n_rows, i + STREAM_CHUNK)))
+
+    def one(job):
+        seg, x, dead, i, j = job
+        xb = x[i:j, :HOST_D].astype(np.float64)
+        s = 2.0 * (q @ xb.T) - np.einsum("ij,ij->i", xb, xb)[None, :]
+        s[:, dead[i:j]] = -np.inf
+        top = np.argsort(-s, axis=1)[:, :K]
+        return (np.take_along_axis(s, top, 1), np.full(top.shape, seg.segment_id), top + i)
+
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(one, jobs))
+    s = np.concatenate([p[0] for p in parts], 1)
+    g = np.concatenate([p[1] for p in parts], 1)
+    r = np.concatenate([p[2] for p in parts], 1)
+    top = np.argsort(-s, axis=1, kind="stable")[:, :K]
+    return tuple(np.take_along_axis(a, top, 1) for a in (s, g, r))
+
+
+def check_host_hits(t, queries, res, label):
+    """Every hit of `res` is a live row whose score is the f64 L2 score
+    (2 q.x - |x|^2) of its stored host row, within F32_TOL. Returns the
+    largest |distance - f64 distance|."""
+    segs = {s.segment_id: s for s in t.live_segments()}
+    check((res.rows[: len(queries)] >= 0).all(), f"{label}: a query got fewer than {K} hits")
+    want = np.empty(res.rows.shape)
+    q = queries.astype(np.float64)
+    for i in range(len(queries)):
+        for j in range(res.rows.shape[1]):
+            seg = segs[int(res.segments[i, j])]
+            r = int(res.rows[i, j])
+            check(not seg.deleted_host()[r], f"{label}: a deleted row came back")
+            x = seg.vector("vec").data[r, :HOST_D].numpy().astype(np.float64)
+            want[i, j] = 2.0 * q[i] @ x - x @ x
+    ok = np.isclose(res.scores, want, **F32_TOL)
+    check(ok.all(), f"{label}: {int((~ok).sum())} hits differ from their rows' f64 scores "
+          f"(worst {float(np.abs(res.scores - want).max()):.6g})")
+    qsq = np.einsum("ij,ij->i", q, q)[:, None]
+    return float(np.abs(res.distances - (qsq - want)).max())
+
+
+def compare_oracle(label, res, oracle, n):
+    """The first `n` queries' sorted scores agree with the oracle's within
+    F32_TOL; where their ids differ, that is a near-tie. Returns the
+    near-tied count."""
+    osc, og, orow = oracle
+    tied = 0
+    for i in range(n):
+        check(np.allclose(-np.sort(-res.scores[i]), osc[i], **F32_TOL),
+              f"{label}: query {i}'s scores {res.scores[i]} differ from the f64 oracle's {osc[i]}")
+        got = set(zip(res.segments[i].tolist(), res.rows[i].tolist()))
+        if got != set(zip(og[i].tolist(), orow[i].tolist())):
+            tied += 1
+    return tied
+
+
+def stream_path(ms, dev, t, queries, segs, payload, link, card):
+    """Phase 12c: the exact scan of the host-tier table (no index, brute
+    force on): two timed passes, the launches, the f64 oracle, a filter
+    that const-folds all but the first segment away, deletes, and the f32
+    engine of score and tile_max against its plain version and timed at
+    one stream chunk's operands. Returns (the exact results after the
+    deletes, seconds per pass, the f32 engine's records and max errors)."""
+    import torch
+
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, tilescan
+
+    bf = ms.Settings()
+    bf.query.enable_brute_force_vector_search = True
+    n_seg = len(segs)
+    passes = []
+    for i in range(2):
+        before = (distance.scores.launches_f32, tilescan.tile_maxes.launches_f32)
+        sync(dev)
+        t0 = time.perf_counter()
+        res = t.search("vec", queries, k=K, metric="L2", settings=bf)
+        res.rows  # the results reach the host: the pass has ended
+        passes.append(time.perf_counter() - t0)
+        n_score = distance.scores.launches_f32 - before[0]
+        n_tile = tilescan.tile_maxes.launches_f32 - before[1]
+        chunks = n_seg * HOST_CAP // STREAM_CHUNK
+        check(n_score == chunks and n_tile == 0,
+              f"stream pass {i}: f32 score launches {n_score}, tile_max {n_tile}; expected "
+              f"{chunks} score launches (960-d chunks take the full-score route)")
+    best = min(passes)
+    streamed = n_seg * HOST_CAP * (HOST_DPAD + 1) * 4  # rows and the L2 aux
+    rate = streamed / best / 1e9
+    log(f"  stream scan, {HOST_NQ} queries: passes {passes[0]:.3f} s, {passes[1]:.3f} s; "
+        f"{streamed / 1e9:.2f} GB streamed at {rate:.2f} GB/s = {100 * rate / link:.1f}% of the "
+        f"pinned copy rate; f32 score launches per pass {n_score} ({n_score // n_seg} chunks of "
+        f"{STREAM_CHUNK:,} rows a segment), tile_max {n_tile}; QPS {HOST_NQ / best:.1f}  [{card}]")
+
+    t0 = time.perf_counter()
+    oracle = host_oracle(t, queries[:HOST_ORACLE_NQ])
+    tied = compare_oracle("stream scan", res, oracle, HOST_ORACLE_NQ)
+    worst = check_host_hits(t, queries, res, "stream scan")
+    log(f"  the first {HOST_ORACLE_NQ} queries equal an f64 numpy scan of the stored rows "
+        f"({tied} near-tied; {time.perf_counter() - t0:.1f} s); all {HOST_NQ * K} hits carry "
+        f"their rows' f64 scores within F32_TOL (largest |distance - f64 distance| {worst:.6g})")
+
+    flt = F("id") < HOST_CHUNK
+    before = distance.scores.launches_f32
+    fres = t.search("vec", queries, k=K, metric="L2", settings=bf, filter=flt)
+    ids = t.gather(fres, ["id"])["id"]
+    check((ids < HOST_CHUNK).all() and (fres.segments == segs[0].segment_id).all(),
+          f"every hit of id < {HOST_CHUNK} must come from the first segment")
+    n_f = distance.scores.launches_f32 - before
+    check(n_f == HOST_CAP // STREAM_CHUNK,
+          f"id < {HOST_CHUNK}: {n_f} score launches, expected the first segment's chunks only")
+    log(f"  filter id < {HOST_CHUNK:,}: {n_seg - 1} segments const-folded away, {n_f} score "
+        f"launches, every hit from segment 0")
+    first = sorted({int(i) for i in t.gather(res, ["id"])["id"][:, 0]})[:HOST_DELETES]
+    n_del = t.delete(F("id").isin(first))
+    check(n_del == len(first), f"delete removed {n_del} rows, expected {len(first)}")
+    dres = t.search("vec", queries, k=K, metric="L2", settings=bf)
+    check(not set(t.gather(dres, ["id"])["id"].ravel().tolist()) & set(first),
+          "a deleted row came back from the stream scan")
+    check_host_hits(t, queries, dres, "stream scan after deletes")
+    log(f"  delete: {n_del} rows (each query's nearest), none returned; every hit exact")
+
+    # the f32 engine at one stream chunk's operands; these launches compare
+    # and time the kernels, so they stay out of the path's counts
+    counts = [(w, w.launches, w.launches_f32) for w in (distance.scores, tilescan.tile_maxes)]
+    seg = segs[0]
+    p = seg.vector("vec")
+    x = p.data[:STREAM_CHUNK].to(dev)
+    aux = p.sqnorm[:STREAM_CHUNK].to(dev)
+    qn = 104  # the batch of 100 padded to 8
+    q = torch.nn.functional.pad(torch.from_numpy(queries).to(dev), (0, HOST_DPAD - HOST_D,
+                                                                      0, qn - HOST_NQ))
+    m8 = torch.from_numpy(~seg.deleted_host()[:STREAM_CHUNK]).to(dev).to(torch.uint8)
+    bound_s = distance.kernel_error_bound(q, x, aux, Metric.L2)
+    got = distance.scores(q, x, aux, metric=Metric.L2)
+    want = distance.scores_plain(q, x, aux, Metric.L2)
+    err_s = float((got - want).abs().max())
+    check(not bool(distance.outside_kernel_bound(got, want, bound_s).any()),
+          "the f32 score engine disagrees with its plain version at a stream chunk")
+    tb = tilescan.tile_error_bound(q, x, aux, Metric.L2)
+    got = tilescan.tile_maxes(q, x, aux, m8, metric=Metric.L2)
+    want = tilescan.tile_maxes_plain(q, x, aux, m8, Metric.L2)
+    err_t = float((got - want).abs().max())
+    check(not bool(distance.outside_kernel_bound(got, want, tb).any()),
+          "the f32 tile_max engine disagrees with its plain version at a stream chunk")
+    log(f"  f32 engine at a stream chunk (Q={qn} N={STREAM_CHUNK:,} D={HOST_DPAD} f32 L2): score "
+        f"max_abs_err {err_s:.6g}, tile_max {err_t:.6g}, within distance.kernel_error_bound")
+    del got, want, bound_s, tb
+    timing = {}
+    shape = f"Q={qn} N={STREAM_CHUNK} D={HOST_DPAD} f32 L2"
+    flops = 2 * qn * STREAM_CHUNK * HOST_DPAD
+    for name in ("score_f32", "tile_max_f32"):
+        if name == "score_f32":
+            call = lambda: distance.scores(q, x, aux, metric=Metric.L2)  # noqa: E731
+            rec = dict(ms=cuda_time_ms(call),
+                       plain_ms=cuda_time_ms(lambda: distance.scores_plain(q, x, aux, Metric.L2)),
+                       library_ms=cuda_time_ms(lambda: torch.matmul(q, x.T)))
+            nbytes = 4 * STREAM_CHUNK * HOST_DPAD + 4 * STREAM_CHUNK + 4 * qn * HOST_DPAD \
+                + 4 * qn * STREAM_CHUNK
+        else:
+            call = lambda: tilescan.tile_maxes(q, x, aux, m8, metric=Metric.L2)  # noqa: E731
+            rec = dict(ms=cuda_time_ms(call),
+                       plain_ms=cuda_time_ms(
+                           lambda: tilescan.tile_maxes_plain(q, x, aux, m8, Metric.L2)),
+                       library_ms=None)  # no one PyTorch call takes masked sub-tile maxima
+            nbytes = 4 * STREAM_CHUNK * HOST_DPAD + 5 * STREAM_CHUNK + 4 * qn * HOST_DPAD \
+                + 4 * qn * (STREAM_CHUNK // tilescan.SUB)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "f32")
+        lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+        log(f"  {name:12s} {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"library (torch.matmul f32) {lib}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it)  [{card}]")
+        timing[name] = rec
+    if timing["score_f32"]["ms"] > timing["score_f32"]["library_ms"]:
+        log("  NOTE: the f32 score engine is slower than torch.matmul f32 at the stream's shape")
+    del x, aux, q, m8
+    for w, n_all, n_f32 in counts:
+        w.launches, w.launches_f32 = n_all, n_f32
+    return dres, best, timing, {"score_f32": err_s, "tile_max_f32": err_t}
+
+
+def disk_mstg_path(dev, t, queries, gt, stream_s, payload, card):
+    """Phase 12d: a default MSTG over the host-tier table (disk mode: SQ8
+    windows on the card, the exact re-rank from host rows), its nprobe
+    sweep against the stream scan's results, QPS at the operating nprobe."""
+    from myscaledb_tpu_torch.index import ivf
+    from myscaledb_tpu_torch.metrics import Metric
+
+    t0 = time.perf_counter()
+    t.add_vector_index("m", "vec")
+    check(t.wait_index_built(timeout=1800), "the disk-mode MSTG build did not end")
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    segs = t.live_segments()
+    idxs = [t.loaded_index(s.segment_id, "vec", Metric.L2) for s in segs]
+    for s, idx in zip(segs, idxs):
+        check(isinstance(idx, ivf.MSTGIndex) and idx.raw_host is s.vector("vec").data
+              and idx.raw_data is None and idx.requires_two_stage(),
+              f"segment {s.segment_id}: the MSTG must re-rank from the host payload")
+    dev_bytes = sum(i.memory_bytes for i in idxs)
+    log(f"  MSTG (default params, disk mode) built in {build_s:.2f} s: {len(idxs)} segments, "
+        f"{idxs[0].n_clusters} clusters each; index device bytes {dev_bytes / 1e9:.2f} GB "
+        f"(SQ8 windows) beside {payload / 1e9:.2f} GB of host payload  [{card}]")
+    gd, gs, gr = gt.distances, gt.segments, gt.rows
+    op = None
+    for nprobe in HOST_NPROBES:
+        res = t.search("vec", queries, k=K, params={"nprobe": nprobe})
+        hits = sum(len(set(zip(res.segments[i].tolist(), res.rows[i].tolist()))
+                       & set(zip(gs[i].tolist(), gr[i].tolist()))) for i in range(HOST_NQ))
+        rid = hits / (HOST_NQ * K)
+        rdist = float((res.distances <= gd[:, K - 1 : K] * (1 + 1e-4) + 1e-3).mean())
+        log(f"  disk-mode MSTG nprobe={nprobe}: recall_ids@{K} {rid:.4f}, recall_dist {rdist:.4f}")
+        if rid >= HOST_RECALL_TARGET:
+            op = (nprobe, rid, rdist, res)
+            break
+    check(op is not None, f"disk-mode MSTG never reached recall_ids@{K} {HOST_RECALL_TARGET}")
+    nprobe, rid, rdist, res = op
+    worst = check_host_hits(t, queries, res, f"disk-mode MSTG nprobe={nprobe}")
+    rate = qps(lambda qb: t.search("vec", qb, k=K, params={"nprobe": nprobe}), [queries], HOST_NQ)
+    log(f"  disk-mode MSTG operating point nprobe={nprobe}: recall_ids@{K} {rid:.4f}, recall_dist "
+        f"{rdist:.4f}, QPS {rate:.1f} (batch {HOST_NQ}) = {rate * stream_s / HOST_NQ:.1f}x the "
+        f"stream scan; every hit carries its row's f64 score within F32_TOL (largest "
+        f"|distance - f64 distance| {worst:.6g})  [{card}]")
+
+
+def spill_path(ms, dev, sift, sift_batches, card):
+    """Phase 12e: phase 3's 1M x 128 corpus into a table whose device
+    budget refuses it: the payload spills to the host tier (bf16-rounded),
+    searches return phase 3's hits; then an MSTG with disk_mode=1,
+    persisted and reloaded."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, tilescan
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+    from myscaledb_tpu_torch.storage.hbm import GOVERNOR
+
+    corpus = sift.live_segments()[0]._exact_f32["vec"]
+    st = ms.Settings()
+    st.server.device_payload_budget_bytes = GOVERNOR.tracked_bytes  # nothing more fits
+    db = ms.connect(st, device=dev)
+    t = db.create_table("spill", ms.Schema({"id": ms.UInt64(), "vec": ms.FloatVector(SIFT_D)}))
+    before = GLOBAL_COUNTERS.get("SegmentPayloadsSpilledToHost")
+    t0 = time.perf_counter()
+    t.insert({"id": np.arange(SIFT_N, dtype=np.uint64), "vec": corpus})
+    ins_s = time.perf_counter() - t0
+    seg = t.live_segments()[0]
+    p = seg.vector("vec")
+    check(p.is_host and p.data.dtype == torch.float32
+          and p.data.is_pinned() == (dev.type == "cuda") and seg.spilled_columns == {"vec"},
+          "the refused payload did not spill to the host tier")
+    check(GLOBAL_COUNTERS.get("SegmentPayloadsSpilledToHost") - before == 1,
+          "SegmentPayloadsSpilledToHost did not count the spill")
+    check(any(r["event"] == "TierSpill" for r in t.event_log.rows()), "no TIER_SPILL event")
+    rounded = torch.from_numpy(corpus).to(torch.bfloat16).to(torch.float32)
+    check(torch.equal(p.data[:SIFT_N, :SIFT_D], rounded),
+          "the spilled payload must hold the bf16-rounded values the device tier scores")
+    t.delete(F("id") < 100)  # phase 3's deletes
+    flt = F("id") < SIFT_N  # phase 3's table without its 50k-row segment (const-folded away)
+    launches = (distance.scores.launches_f32,)
+    got = [t.search("vec", qb, k=K, metric="L2") for qb in sift_batches]
+    want = [sift.search("vec", qb, k=K, metric="L2", filter=flt) for qb in sift_batches]
+    nq, tied, worst = same_hits("spilled table against phase 3's", hits(t, got), hits(sift, want))
+    # distances: within the kernel bound (phase 3's bf16 hi/lo scan) plus F32_TOL
+    for qb, a, b in zip(sift_batches, got, want):
+        x = p.data[torch.from_numpy(a.rows.astype(np.int64).clip(0))][..., :SIFT_D]
+        qq = torch.from_numpy(qb)[:, None, :]
+        kb = (2 * distance.KERNEL_SUM_TOL * (qq.abs() * x.abs()).sum(-1)).numpy()
+        same = (a.rows == b.rows).all(axis=1)
+        ok = np.isclose(a.distances[same], b.distances[same], rtol=F32_TOL["rtol"],
+                        atol=F32_TOL["atol"]) | (np.abs(a.distances - b.distances)[same]
+                                                  <= kb[same] + F32_TOL["atol"])
+        check(ok.all(), "a spilled hit's distance lies outside the kernel bound + F32_TOL")
+    log(f"  {SIFT_N:,} x {SIFT_D} into a table with no device budget left: spilled to the host "
+        f"tier ({p.data.numel() * 4 / 1e9:.3f} GB pinned, bf16-rounded; insert {ins_s:.2f} s), "
+        f"SegmentPayloadsSpilledToHost +1, TierSpill logged; {nq} queries return phase 3's hits "
+        f"({tied} near-tied; largest |distance difference| {worst:.6g}); "
+        f"f32 score launches {distance.scores.launches_f32 - launches[0]} (at k {K} the 128-d "
+        f"f32 chunks tie the tile route's byte count and take the full score, as in JAX)  [{card}]")
+    # at k = SPILL_TILE_K the prune reads fewer bytes: the f32 tile-max route
+    before = tilescan.tile_maxes.launches_f32
+    got = [t.search("vec", qb, k=SPILL_TILE_K, metric="L2") for qb in sift_batches]
+    want = [sift.search("vec", qb, k=SPILL_TILE_K, metric="L2", filter=flt) for qb in sift_batches]
+    n_tile = tilescan.tile_maxes.launches_f32 - before
+    check(n_tile == len(sift_batches) * HOST_CAP // STREAM_CHUNK,
+          f"k={SPILL_TILE_K} over the spilled table: {n_tile} f32 tile_max launches, expected "
+          f"one per {STREAM_CHUNK:,}-row chunk")
+    nq, tied, worst = same_hits(f"spilled table at k={SPILL_TILE_K}", hits(t, got), hits(sift, want))
+    log(f"  k={SPILL_TILE_K}: the f32 tile_max route, {n_tile} launches ({HOST_CAP // STREAM_CHUNK}"
+        f" chunks a search); {nq} queries return phase 3's hits ({tied} near-tied; largest "
+        f"|distance difference| {worst:.6g})")
+
+    t.add_vector_index("m", "vec", type="MSTG", disk_mode=1)
+    check(t.wait_index_built(), "the spilled table's MSTG build did not end")
+    idx = t.loaded_index(0, "vec", Metric.L2)
+    check(idx.raw_host is p.data and idx.requires_two_stage(), "the MSTG must re-rank from host")
+    live = [t.search("vec", qb, k=K, params={"nprobe": 16}) for qb in sift_batches]
+    root = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        t0 = time.perf_counter()
+        t.persist(os.path.join(root, "spill"))
+        db2 = ms.connect(st, path=root, device=dev)
+        tl = db2.load_table("spill")
+        back = [tl.search("vec", qb, k=K, params={"nprobe": 16}) for qb in sift_batches]
+        rl_s = time.perf_counter() - t0
+        check(tl.index_status("m") == {0: IndexStatus.LOADED}, "the reloaded MSTG did not load")
+        seg2 = tl.live_segments()[0]
+        idx2 = tl.loaded_index(0, "vec", Metric.L2)
+        check(seg2.spilled_columns == {"vec"} and idx2.raw_host is seg2.vector("vec").data,
+              "the reloaded table must spill again and re-attach raw_host to its payload")
+        for a, b in zip(live, back):
+            check((a.rows == b.rows).all() and (a.distances == b.distances).all(),
+                  "the reloaded disk-mode MSTG returned other hits")
+        log(f"  MSTG disk_mode=1 on the spilled table, nprobe 16: persisted and reloaded in "
+            f"{rl_s:.2f} s (spilled again, raw_host re-attached); every hit and distance equal "
+            f"(recall_ids@{K} against phase 3's exact results "
+            f"{ivf_recall_rows(live, want)[0]:.4f})")
+        db2.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    db.close()
+    del db, t
+    gc.collect()
+
+
+def ivf_recall_rows(results, exact):
+    """recall_ids@k of `results` against `exact` (both lists of
+    SearchResults of the same queries), by (segment, row)."""
+    hit = tot = 0
+    for a, b in zip(results, exact):
+        for i in range(a.rows.shape[0]):
+            hit += len(set(zip(a.segments[i].tolist(), a.rows[i].tolist()))
+                       & set(zip(b.segments[i].tolist(), b.rows[i].tolist())))
+            tot += b.rows.shape[1]
+    return hit / tot, tot
+
+
+def disk_mode_hbm_path(dev, sift, sift_batches, op, mstg_op, card):
+    """Phase 12f: MSTG disk_mode=1 on phase 3's (device-tier) SIFT table:
+    its ids at phase 8's operating nprobe against phase 8's MSTG (disk_mode
+    0), except for near-ties."""
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.metrics import Metric
+
+    t0 = time.perf_counter()
+    sift.add_vector_index("mdisk", "vec", type="MSTG", disk_mode=1)
+    check(sift.wait_index_built(), "the disk-mode MSTG build did not end")
+    build_s = time.perf_counter() - t0
+    check(sift.index_status("mdisk") == {0: IndexStatus.LOADED, 1: IndexStatus.SMALL_PART},
+          f"disk-mode MSTG did not load: {sift.index_status('mdisk')}")
+    idx = sift.loaded_index(0, "vec", Metric.L2)
+    check(idx.raw_host is not None and idx.raw_host.is_pinned() == (dev.type == "cuda")
+          and idx.raw_data is None
+          and idx.requires_two_stage(), "disk_mode=1 must move the re-rank rows to pinned host memory")
+    res = [sift.search("vec", qb, k=K, metric="L2", params={"nprobe": op}) for qb in sift_batches]
+    nq, tied, worst = same_hits(f"disk-mode MSTG against phase 8's MSTG at nprobe {op}",
+                                hits(sift, res), mstg_op)
+    log(f"  MSTG disk_mode=1 on phase 3's table: build {build_s:.2f} s, raw_host "
+        f"{idx.raw_host.numel() * 4 / 1e9:.3f} GB pinned, index {idx.memory_bytes / 1e9:.4f} GB on "
+        f"the card; nprobe {op}: {nq} queries, ids equal phase 8's MSTG (disk_mode 0) but "
+        f"{tied} near-tied; largest |distance difference| {worst:.6g}  [{card}]")
+    sift.drop_vector_index("mdisk")
+
+
+def host_hnsw_path(ms, dev, gist_batches, gist_gt, phase6_recall, card):
+    """Phase 12g: phase 4's 100,000 x 960 Cosine corpus in a host-tier
+    table with HNSWFLAT (m 32, ef_c 100), searched at ef_s 100 (gathermv).
+    Like phase 6, its recall_ids@10 is taken against phase 4's exact scan
+    of the bf16-stored corpus, the values the graph's re-score reads (the
+    device copy of a host payload is bf16, as in the JAX package), and
+    must lie within 0.01 of phase 6's; against the stream scan of the f32
+    host rows it is logged beside."""
+    from myscaledb_tpu_torch.index import hnsw
+    from myscaledb_tpu_torch.index.base import IndexStatus
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import gathermv
+
+    st = ms.Settings()
+    st.table.vector_storage_tier = "host"
+    st.table.float_vector_search_metric_type = "Cosine"
+    db = ms.connect(st, device=dev)
+    t = db.create_table("ghost", ms.Schema({"id": ms.UInt64(), "vec": ms.FloatVector(GIST_D)}))
+    t.insert({"id": np.arange(GIST_N, dtype=np.uint64), "vec": make_corpus(GIST_N, GIST_D, seed=3)})
+    check(t.live_segments()[0].vector("vec").is_host, "the GIST corpus must be in the host tier")
+    bf = ms.Settings()
+    bf.query.enable_brute_force_vector_search = True
+    exact = [t.search("vec", qb, k=K, settings=bf) for qb in gist_batches]
+    t0 = time.perf_counter()
+    t.add_vector_index("h", "vec", type="HNSWFLAT", metric_type="Cosine", **HNSW_PARAMS)
+    check(t.wait_index_built(), "the host-tier HNSWFLAT build did not end")
+    build_s = time.perf_counter() - t0
+    check(t.index_status("h") == {0: IndexStatus.LOADED}, f"{t.index_status('h')}")
+    graph = ms.Settings()
+    graph.query.cost_based_index_routing = False
+    before = gathermv.gather_block_scores.launches
+    res = [t.search("vec", qb, k=K, params={"ef_s": 100}, settings=graph) for qb in gist_batches]
+    n_launch = gathermv.gather_block_scores.launches - before
+    check(n_launch == hnsw.n_iterations(100) * len(gist_batches),
+          f"{n_launch} gathermv launches on the host-tier graph")
+    rid, rdist = graph_recall(res, gist_gt)
+    rid_f32, _ = ivf_recall_rows(res, exact)
+    check(abs(rid - phase6_recall) <= 0.01,
+          f"host-tier HNSWFLAT recall_ids@{K} {rid:.4f} is not within 0.01 of phase 6's "
+          f"{phase6_recall:.4f}")
+    idx = t.loaded_index(0, "vec", Metric.COSINE)
+    log(f"  HNSWFLAT over a host-tier payload: build {build_s:.2f} s, index "
+        f"{idx.memory_bytes / 1e9:.3f} GB on the card (bf16 rows); ef_s 100: recall_ids@{K} "
+        f"{rid:.4f}, recall_dist {rdist:.4f} against phase 4's exact scan (phase 6: "
+        f"{phase6_recall:.4f}); recall_ids@{K} {rid_f32:.4f} against the stream scan of the f32 "
+        f"host rows; {n_launch} gathermv launches  [{card}]")
+    db.close()
+
+
+def host_tier_path(ms, dev, sift, sift_batches, gist_batches, gist_gt, op, mstg_op,
+                   phase6_recall, card):
+    """Phase 12: the host tier. Returns (the f32 engine's records, their
+    max errors)."""
+    import gc
+
+    import torch
+
+    log("[12a] the host link")
+    link = link_rate(dev, card)
+    log(f"[12b] host-tier corpus (bench.py beyond-HBM: up to {HOST_N:,} x {HOST_D} f32, L2, "
+        f"vector_storage_tier='host')")
+    db, t, queries, segs, payload = host_corpus(ms, dev, card)
+    log("[12c] streamed exact scan (copy stream, two device buffers, pinned rows)")
+    gt, stream_s, timing, errs = stream_path(ms, dev, t, queries, segs, payload, link, card)
+    log("[12d] disk-mode MSTG over the host-tier table")
+    disk_mstg_path(dev, t, queries, gt, stream_s, payload, card)
+    db.close()
+    del db, t, segs, gt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[12e] spill: a payload the device budget refuses")
+    spill_path(ms, dev, sift, sift_batches, card)
+    log("[12f] MSTG disk_mode=1 on phase 3's device-tier table")
+    disk_mode_hbm_path(dev, sift, sift_batches, op, mstg_op, card)
+    log("[12g] HNSWFLAT over a host-tier table")
+    host_hnsw_path(ms, dev, gist_batches, gist_gt, phase6_recall, card)
+    return timing, errs
+
+
 def main(argv=None):
     import argparse
 
@@ -2600,7 +3195,7 @@ def main(argv=None):
     # ---- 6. the HNSW path, with the gathermv launch counter zeroed
     log("[6] HNSW path on phase 4's table (HNSWFLAT m=32 ef_c=100, Cosine, batch 256, k=10)")
     gathermv.gather_block_scores.launches = 0
-    graph, hb, idx, _ = hnsw_path(ms, dev, gist, gist_batches, gist_gt, card, args.out)
+    graph, hb, idx, curve = hnsw_path(ms, dev, gist, gist_batches, gist_gt, card, args.out)
     launches["gathermv"] = gathermv.gather_block_scores.launches
     log(f"  gathermv launches on the HNSW path: {launches['gathermv']}")
     check(launches["gathermv"] > 0, "kernel gathermv was not launched on the HNSW path")
@@ -2621,7 +3216,7 @@ def main(argv=None):
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
     gathermv.gather_block_scores.launches = 0
-    ivf_op = ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
+    ivf_op, mstg_op = ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
     hnswpq_path(ms, dev, gist, gist_batches, np.concatenate(gist_batches), card)
     p8 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
           "gathermv": gathermv.gather_block_scores.launches}
@@ -2672,6 +3267,25 @@ def main(argv=None):
         check(n > 0, f"kernel {name} was not launched on phase 11's paths")
         launches[name] += n
 
+    # ---- 12. the host tier, with the launch counters zeroed
+    t12 = time.perf_counter()
+    for w in (distance.scores, tilescan.tile_maxes):
+        w.launches = w.launches_f32 = 0
+    gathermv.gather_block_scores.launches = 0
+    t12_timing, e12 = host_tier_path(ms, dev, sift, sift_batches, hb, gist_gt, ivf_op, mstg_op,
+                                     curve[100][0], card)
+    p12 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "gathermv": gathermv.gather_block_scores.launches,
+           "score_f32": distance.scores.launches_f32,
+           "tile_max_f32": tilescan.tile_maxes.launches_f32}
+    log(f"  kernel launches on phase 12's paths: {p12}; phase 12 took "
+        f"{time.perf_counter() - t12:.2f} s")
+    for name, n in p12.items():
+        check(n > 0, f"kernel {name} was not launched on phase 12's paths")
+        launches[name] = launches.get(name, 0) + n
+    timing.update(t12_timing)
+    errs.update(e12)
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
         {"name": "score", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/score.cu",
@@ -2698,6 +3312,15 @@ def main(argv=None):
          "replaces": "myscaledb_tpu/index/binary.py:223",
          "launches": launches["binary_group"], "max_abs_err": errs["binary_group"],
          **{k: timing["binary_group"][k] for k in keys}},
+        # the f32 engine of score and tile_max (f32 payloads: the host tier)
+        {"name": "score_f32", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/score.cu",
+         "replaces": "myscaledb_tpu/ops/distance.py:57",
+         "launches": launches["score_f32"], "max_abs_err": errs["score_f32"],
+         **{k: timing["score_f32"][k] for k in keys}},
+        {"name": "tile_max_f32", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/tile_max.cu",
+         "replaces": "myscaledb_tpu/ops/tilescan.py:66",
+         "launches": launches["tile_max_f32"], "max_abs_err": errs["tile_max_f32"],
+         **{k: timing["tile_max_f32"][k] for k in keys}},
     ]}
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s  [{card}]")
     print(json.dumps(record), flush=True)

@@ -159,9 +159,16 @@ class VectorIndex(abc.ABC):
         """Conservative device-memory estimate for building this index
         over `payload`, checked against the build budget before anything
         is allocated (VIBuildMemoryUsageHelper::checkBuildMemory analogue).
-        Default: an f32 copy of the rows plus ~2 payload-sized transients."""
+        Default: an f32 copy of the rows plus ~2 payload-sized transients.
+        A host-tier payload never comes to the device whole: only a bounded
+        training sample (<= 256k f32 rows) and the compressed codes (~1
+        byte a dimension, twice for the transients) do, so its host bytes
+        are not counted."""
         del params
-        return 4 * n_rows * payload.data.shape[1] + 2 * int(payload.nbytes)
+        dpad = payload.data.shape[1]
+        if getattr(payload, "is_host", False):
+            return 4 * min(n_rows, 256 * 1024) * dpad + 2 * n_rows * dpad
+        return 4 * n_rows * dpad + 2 * int(payload.nbytes)
 
     def prefer_exact_scan(self, nq: int, k: int, params, scan_bytes: int) -> bool:
         """Cost-based routing hook: True when the exact scan of
@@ -176,10 +183,9 @@ class VectorIndex(abc.ABC):
         return False
 
     def requires_two_stage(self) -> bool:
-        """Whether every search must take the executor's two-stage path.
-        In the JAX package a disk-mode MSTG does (its re-rank rows live in
-        host memory); the port has no host tier yet (ROADMAP queue 1 #9),
-        so no port index requires it."""
+        """Whether every search must take the executor's two-stage path: a
+        disk-mode index does (index/ivf.py: its re-rank rows live in host
+        memory)."""
         return False
 
     def search_first_stage(

@@ -2,7 +2,8 @@
 
 Counterpart of myscaledb_tpu/index/flat.py: the scan of ops/bruteforce.py
 over the segment's own payload (no memory beyond the stored
-auxiliaries). The executor instantiates it ad hoc for index-less
+auxiliaries); over a host-tier payload, the streamed scan
+(`stream_scan_topk`). The executor instantiates it ad hoc for index-less
 segments (the brute-force path); `add_vector_index(type="FLAT")` builds
 it as a segment's index, and a checkpoint keeps only its metadata (it is
 rebuilt from the segment payload on load).
@@ -30,18 +31,21 @@ class FlatIndex(VectorIndex):
         metric: Metric,
         dim: int,
         n_rows: int,
+        host: bool = False,
     ):
         self.data = data
         self.aux = aux
         self.metric = metric
         self.dim = dim
         self.n_rows = n_rows
+        self.host = host  # the payload is in the host tier
 
     @classmethod
     def build(cls, payload, n_rows: int, *, metric: Metric, dim: int, params=None,
               settings=None, cancel_cb=None) -> "FlatIndex":
         del params, settings, cancel_cb
-        return cls(payload.data, payload.aux_for(metric), metric=metric, dim=dim, n_rows=n_rows)
+        return cls(payload.data, payload.aux_for(metric), metric=metric, dim=dim, n_rows=n_rows,
+                   host=payload.is_host)
 
     def search_t(
         self,
@@ -52,7 +56,8 @@ class FlatIndex(VectorIndex):
         params: ParamsKey = (),
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         del params  # FLAT has no search parameters
-        return bruteforce.scan_topk_t(
+        scan = bruteforce.stream_scan_topk if self.host else bruteforce.scan_topk_t
+        return scan(
             queries,
             self.data,
             self.aux,
@@ -64,8 +69,10 @@ class FlatIndex(VectorIndex):
 
     @property
     def memory_bytes(self) -> int:
-        # FLAT references the segment payload; only the auxiliaries count
-        return 0 if self.aux is None else self.aux.numel() * self.aux.element_size()
+        # FLAT references the segment payload; only device auxiliaries count
+        if self.aux is None or self.host:
+            return 0
+        return self.aux.numel() * self.aux.element_size()
 
     def state_dict(self) -> Dict[str, Any]:
         return {"meta": {"kind": self.kind.value, "metric": self.metric.value,

@@ -43,6 +43,8 @@ import torch.nn.functional as tnf
 from ..errors import IndexParameterError
 from ..metrics import Metric
 from ..ops import gathermv, quantize
+from ..ops.distance import base_aux
+from ..ops.stream import HostRep
 from ..ops.topk import NEG_INF, dedup_rows
 from .base import IndexKind, ParamsKey, VectorIndex, check_cancel
 from .ivf import WINDOW, IVFIndex, _scan_rep, default_ncentroids, windows_for_probes
@@ -285,13 +287,18 @@ class _HNSWBase(VectorIndex):
     def estimate_build_bytes(cls, payload, n_rows: int, params=None) -> int:
         """The build's device footprint: the f32 scan representation, ~2
         payload-sized transients, the SQ8 shadow and the node blocks. The
-        projection condition mirrors `_build_common` exactly."""
+        projection condition mirrors `_build_common` exactly. A graph build
+        is device-resident even over a host-tier payload: the whole f32
+        representation comes to the device, beside a bf16 IVF payload and
+        the bf16 scoring copy."""
         dpad = payload.data.shape[1]
         m = int((params or {}).get("m", DEFAULT_M))
         projected = dpad > TRAVERSE_DIM and n_rows * m * dpad > NODE_BLOCK_CAP_BYTES
         dt_w = TRAVERSE_DIM if projected else dpad
         nb = n_rows * m * dt_w
         blocks = nb if nb <= NODE_BLOCK_CAP_BYTES and gathermv.supports(dt_w) else 0
+        if getattr(payload, "is_host", False):
+            return 4 * n_rows * dpad + (2 + 2) * n_rows * dpad + n_rows * dt_w + blocks
         return 4 * n_rows * dpad + 2 * int(payload.nbytes) + n_rows * dt_w + blocks
 
     # ------------------------------------------------------------- build
@@ -307,7 +314,14 @@ class _HNSWBase(VectorIndex):
         m = int(params.get("m", DEFAULT_M))
         ef_c = int(params.get("ef_c", DEFAULT_EF_C))
         dpad = payload.data.shape[1]
-        rep = _scan_rep(payload, n_rows, metric)  # f32[n, dpad]
+        host_pl = getattr(payload, "is_host", False)
+        if host_pl:
+            # graph builds are device-resident: the f32 representation of
+            # a host-tier payload comes to the device whole
+            inv = payload.invnorm if metric == Metric.COSINE else None
+            rep = HostRep(payload.data, n_rows, inv).to_device(payload.device)
+        else:
+            rep = _scan_rep(payload, n_rows, metric)  # f32[n, dpad]
         dev = rep.device
 
         # 0) traversal projection: uncentered PCA to TRAVERSE_DIM, only when
@@ -403,11 +417,19 @@ class _HNSWBase(VectorIndex):
         # payload codec for scoring
         codec_a = codec_b = None
         if codec == "raw":
-            data = payload.data
-            if metric == Metric.COSINE:
+            if host_pl:
+                # the stored rows as bf16 on the device (Cosine's `rep` is
+                # normalized), with that copy's own |x|^2 or 1/|x|: the f32
+                # rows' own (the JAX package keeps them) err ~1e-3 per row
+                # beside the bf16 rows, enough to reorder near neighbours
+                raw = payload.data[:n_rows].to(dev) if metric == Metric.COSINE else rep
+                data = raw.to(torch.bfloat16)
+                aux_arr = base_aux(data, metric)
+            elif metric == Metric.COSINE:
                 # score exactly like the scan: raw payload rows x f32 1/|x|
-                aux_arr = payload.invnorm
+                data, aux_arr = payload.data, payload.invnorm
             else:
+                data = payload.data
                 aux_arr = torch.sum(rep * rep, dim=1) if metric == Metric.L2 else None
         elif codec == "sq8":
             codec_a, codec_b = quantize.sq8_train_dev(rep)

@@ -25,8 +25,18 @@ index loaded from a state dict gets that reference back through
 `reattach_payload`; until then its search raises rather than serve
 quantized distances.
 
-MSTG `disk_mode=1` and host-tier payloads (the host re-rank tier) wait for
-the host tier (ROADMAP queue 1 #9).
+Disk mode (the reference's disk-mode MSTG, Search::DiskIOManager): the
+exact re-rank reads its rows from HOST memory (`raw_host`) and only the
+codes occupy the device. MSTG `disk_mode=1` puts a device payload's rows
+there; a host-tier payload (storage/segment.py) always re-ranks there, and
+its build streams the rows through the device (ops/stream.py::HostRep):
+the training sample is gathered on the host, the assignment and the SQ8
+or PQ encode run chunk by chunk, each chunk's codes scattered straight to
+their cluster-major place. IVFFLAT over a host-tier payload would mirror
+the whole payload on the device, so it degrades to that disk-mode SQ8
+shape (`IvfFlatDegradedToDiskMode`). The disk-mode re-rank gathers only
+the rows that survive the candidate cut, into pinned host memory for a
+CUDA card, and scores them in f64 on the device.
 """
 
 from __future__ import annotations
@@ -42,8 +52,10 @@ from ..errors import IndexParameterError
 from ..metrics import Metric
 from ..ops import distance, kmeans, quantize
 from ..ops._cuda import round_up
+from ..ops.stream import HostRep
 from ..ops.topk import NEG_INF, dedup_rows
 from ..service.event_log import GLOBAL_COUNTERS
+from ..storage.segment import host_tensor
 from .base import IndexKind, ParamsKey, VectorIndex, check_cancel, params_key
 from .registry import register
 
@@ -53,6 +65,14 @@ WINDOW = 512  # rows per scan window
 # package's cap, which sizes its groups): the window step gathers at most
 # this many bytes' worth of windows per bmm.
 GROUP_TRANSIENT_CAP = 512 << 20
+
+
+def _pq_m(params: Dict[str, Any], dim: int) -> int:
+    """The PQ subquantizer count: params' M, or `_default_pq_m`."""
+    m = int(params.get("M", 0)) or _default_pq_m(dim)
+    if dim % m:
+        raise IndexParameterError(f"dim {dim} not divisible by M={m}")
+    return m
 
 
 def _default_pq_m(dim: int) -> int:
@@ -81,10 +101,11 @@ def _scan_rep(payload, n_rows: int, metric: Metric) -> torch.Tensor:
 
 
 def balanced_kmeans(
-    rep: torch.Tensor,
+    rep,
     n_rows: int,
     c: int,
     *,
+    device=None,
     extra_frac: float = 0.5,
     seed: int = 0,
     max_train_rows: Optional[int] = None,
@@ -93,14 +114,23 @@ def balanced_kmeans(
     """K-means with size-proportional cluster splitting: after the main
     fit, `extra_frac*c` extra centroids are seeded onto the heaviest
     clusters and refined, which bounds the tail of the size histogram.
-    Returns (centroids f32[C', D], assign int32[n])."""
+    `rep` is a device tensor, or a host-tier `HostRep` fitted on `device`.
+    Returns (centroids f32[C', D], assign int32[n]) on the device."""
     n_extra = int(c * extra_frac) if c >= 4 else 0
-    sample = kmeans.training_sample(rep, n_rows, c, seed=seed, max_rows=max_train_rows)
+    host = isinstance(rep, HostRep)
+    if host:
+        sample = kmeans.training_sample_host(
+            rep, n_rows, c, device=device, seed=seed, max_rows=max_train_rows
+        )
+    else:
+        sample = kmeans.training_sample(rep, n_rows, c, seed=seed, max_rows=max_train_rows)
     check_cancel(cancel_cb)
     cents = kmeans.kmeans_fit_balanced(
         sample, n_clusters=c, n_extra=n_extra, n_iters=10, seed=seed
     )
     check_cancel(cancel_cb)
+    if host:
+        return cents, kmeans.assign_chunked_host(rep, cents)
     return cents, kmeans.assign_chunked(rep, cents)
 
 
@@ -207,6 +237,10 @@ class IVFIndex(VectorIndex):
             setattr(self, f, kw.pop(f) if f in kw else self._defaults[f])
         if kw:
             raise TypeError(f"unexpected fields: {sorted(kw)}")
+        # disk mode: the exact re-rank's rows in host memory (a reference to
+        # a host-tier payload, or a device payload's rows moved there);
+        # never serialized
+        self.raw_host: Optional[torch.Tensor] = None
         # window-layout mirrors of filterable scalar columns and of the
         # alive bitmap, keyed by (column, mutation generation), and the
         # materialized window bitmaps of repeated filters (to_window_mask)
@@ -299,32 +333,39 @@ class IVFIndex(VectorIndex):
         codec: str = "raw",
         two_stage: bool = False,
         cancel_cb=None,
+        force_host_raw: bool = False,
     ) -> "IVFIndex":
         if metric not in (Metric.L2, Metric.IP, Metric.COSINE):
             raise IndexParameterError(f"IVF does not support metric {metric}")
-        if getattr(payload, "is_host", False):
-            raise NotImplementedError(
-                "IVF over a host-tier payload is not ported yet (ROADMAP queue 1 #9)"
+        host_tier = getattr(payload, "is_host", False)
+        if host_tier and codec == "raw":
+            raise IndexParameterError(
+                "a host-tier segment needs a compressed codec (MSTG, IVFSQ or IVFPQ): "
+                "raw IVFFLAT would mirror the whole payload on the device"
             )
         c = int(params.get("ncentroids", default_ncentroids(n_rows)))
         c = max(1, min(c, n_rows))
         storage_dtype = payload.data.dtype
         dpad = payload.data.shape[1]
-        rep = _scan_rep(payload, n_rows, metric)
+        dev = payload.device
+        if host_tier:
+            inv = payload.invnorm if metric == Metric.COSINE else None
+            rep = HostRep(payload.data, n_rows, inv)
+        else:
+            rep = _scan_rep(payload, n_rows, metric)
         max_train = None
         if settings is not None:
             max_train = max(
                 settings.query.max_build_index_train_block_bytes // (dpad * 4), c
             )
         cents, assign = balanced_kmeans(
-            rep, n_rows, c, seed=0, max_train_rows=max_train, cancel_cb=cancel_cb
+            rep, n_rows, c, device=dev, seed=0, max_train_rows=max_train, cancel_cb=cancel_cb
         )
         check_cancel(cancel_cb)
         c = int(cents.shape[0])
         npad = round_up(max(n_rows, WINDOW), WINDOW)
-        dev = rep.device
 
-        # permutation, encode and sqnorms never leave the device
+        # the cluster-major permutation, on the device
         assign = assign.to(torch.int64)
         order = torch.argsort(assign, stable=True)
         counts = torch.bincount(assign, minlength=c)
@@ -332,6 +373,55 @@ class IVFIndex(VectorIndex):
         starts[1:] = torch.cumsum(counts, dim=0)
         perm_rows = torch.full((npad,), -1, dtype=torch.int32, device=dev)
         perm_rows[:n_rows] = order.to(torch.int32)
+        if host_tier:
+            perm_data, perm_aux, codec_a, codec_b = cls._encode_host(
+                rep, order, npad, dpad, dim, codec, params, dev, cancel_cb
+            )
+        else:
+            perm_data, perm_aux, codec_a, codec_b = cls._encode_device(
+                rep, order, npad, dpad, dim, codec, params, storage_dtype, cancel_cb
+            )
+        check_cancel(cancel_cb)
+
+        host_raw = host_tier or force_host_raw
+        out = cls(
+            centroids=cents,
+            csq=torch.sum(cents * cents, dim=1),
+            perm_data=perm_data,
+            perm_rows=perm_rows,
+            perm_aux=perm_aux,
+            cluster_start=starts.to(torch.int32),
+            codec_a=codec_a,
+            codec_b=codec_b,
+            raw_data=payload.data if two_stage and not host_raw else None,
+            raw_aux=payload.aux_for(metric) if two_stage and not host_raw else None,
+            metric=metric,
+            dim=dim,
+            n_rows=n_rows,
+            n_clusters=c,
+            n_windows=npad // WINDOW,
+            wpp=int(math.ceil((n_rows / max(c, 1)) / WINDOW)) + 1,
+            codec=codec,
+            two_stage=two_stage,
+        )
+        if two_stage and host_raw:
+            # disk mode: the re-rank gathers its rows from host memory; a
+            # device payload's stored rows are moved there (the one
+            # deliberate device-to-host copy: the raw tier is evicted)
+            out.raw_host = (
+                payload.data
+                if host_tier
+                else host_tensor(payload.data[:n_rows].to(torch.float32).cpu(), dev)
+            )
+        return out
+
+    @staticmethod
+    def _encode_device(rep, order, npad, dpad, dim, codec, params, storage_dtype, cancel_cb):
+        """(perm_data, perm_aux, codec_a, codec_b) of a device
+        representation: permutation, encode and sqnorms never leave the
+        device."""
+        dev = rep.device
+        n_rows = rep.shape[0]
         rep_perm = rep[order]
         codec_a = codec_b = None
         if codec == "raw":
@@ -347,9 +437,7 @@ class IVFIndex(VectorIndex):
             perm_data = torch.zeros((npad, dpad), dtype=torch.uint8, device=dev)
             perm_data[:n_rows] = enc
         elif codec == "pq":
-            m = int(params.get("M", 0)) or _default_pq_m(dim)
-            if dim % m:
-                raise IndexParameterError(f"dim {dim} not divisible by M={m}")
+            m = _pq_m(params, dim)
             codec_a = quantize.pq_train_dev(rep[:, :dim], m, bits=int(params.get("bit_size", 8)))
             check_cancel(cancel_cb)
             enc = quantize.pq_encode_dev(rep_perm[:, :dim], codec_a)
@@ -360,42 +448,67 @@ class IVFIndex(VectorIndex):
             raise IndexParameterError(f"unknown IVF codec {codec!r}")
         perm_aux = torch.full((npad,), float("inf"), dtype=torch.float32, device=dev)
         perm_aux[:n_rows] = dec_sq
-        del rep_perm
-        check_cancel(cancel_cb)
+        return perm_data, perm_aux, codec_a, codec_b
 
-        return cls(
-            centroids=cents,
-            csq=torch.sum(cents * cents, dim=1),
-            perm_data=perm_data,
-            perm_rows=perm_rows,
-            perm_aux=perm_aux,
-            cluster_start=starts.to(torch.int32),
-            codec_a=codec_a,
-            codec_b=codec_b,
-            raw_data=payload.data if two_stage else None,
-            raw_aux=payload.aux_for(metric) if two_stage else None,
-            metric=metric,
-            dim=dim,
-            n_rows=n_rows,
-            n_clusters=c,
-            n_windows=npad // WINDOW,
-            wpp=int(math.ceil((n_rows / max(c, 1)) / WINDOW)) + 1,
-            codec=codec,
-            two_stage=two_stage,
-        )
+    @staticmethod
+    def _encode_host(rep, order, npad, dpad, dim, codec, params, dev, cancel_cb):
+        """(perm_data, perm_aux, codec_a, codec_b) of a host-tier `HostRep`:
+        the codec trains over all rows (chunked), then each chunk of rows is
+        encoded on the device and its codes and decoded |x|^2 scattered to
+        their cluster-major places. No f32 copy of the corpus is made on
+        the host or on the device."""
+        n_rows = rep.n
+        pos = torch.empty(n_rows, dtype=torch.int64, device=dev)
+        pos[order] = torch.arange(n_rows, dtype=torch.int64, device=dev)
+        codec_b = None
+        if codec == "sq8":
+            codec_a, codec_b = quantize.sq8_train_host(rep, dev)
+            width = dpad
+
+            def encode(x):
+                enc = quantize.sq8_encode_dev(x, codec_a, codec_b)
+                dec = quantize.sq8_decode_dev(enc, codec_a, codec_b).to(torch.float32)
+                return enc, torch.sum(dec * dec, dim=1)
+
+        elif codec == "pq":
+            width = _pq_m(params, dim)
+            codec_a = quantize.pq_train_host(
+                rep, width, dim, dev, bits=int(params.get("bit_size", 8))
+            )
+
+            def encode(x):
+                enc = quantize.pq_encode_dev(x[:, :dim], codec_a)
+                dec = quantize.pq_decode_dev(enc, codec_a).to(torch.float32)
+                return enc, torch.sum(dec * dec, dim=1)
+
+        else:
+            raise IndexParameterError(f"unsupported host-tier codec {codec!r}")
+        check_cancel(cancel_cb)
+        perm_data = torch.zeros((npad, width), dtype=torch.uint8, device=dev)
+        perm_aux = torch.full((npad,), float("inf"), dtype=torch.float32, device=dev)
+        for i, m, x in rep.chunks(dev):
+            enc, sq = encode(x)
+            dst = pos[i : i + m]
+            perm_data[dst] = enc
+            perm_aux[dst] = sq
+            check_cancel(cancel_cb)
+        return perm_data, perm_aux, codec_a, codec_b
 
     def reattach_payload(self, payload) -> None:
         """Re-attach the segment payload references after a state-dict
         load: raw_data / raw_aux belong to the segment and are never
-        serialized."""
+        serialized. A host-tier payload re-attaches as the host re-rank
+        tier (`raw_host`), a device payload as device references, unless
+        the index already re-ranks from host rows (built with
+        disk_mode=1)."""
         if not self.two_stage:
             return
         if getattr(payload, "is_host", False):
-            raise NotImplementedError(
-                "the host re-rank tier is not ported yet (ROADMAP queue 1 #9)"
-            )
-        self.raw_data = payload.data
-        self.raw_aux = payload.aux_for(self.metric)
+            self.raw_host = payload.data
+            self.raw_data = self.raw_aux = None
+        elif self.raw_host is None:
+            self.raw_data = payload.data
+            self.raw_aux = payload.aux_for(self.metric)
 
     def cluster_heads(self) -> torch.Tensor:
         """Representative row of each cluster (entry points for graph
@@ -543,6 +656,12 @@ class IVFIndex(VectorIndex):
     def supports_two_stage(self) -> bool:
         return self.two_stage
 
+    def requires_two_stage(self) -> bool:
+        """A disk-mode index always takes the executor's two-stage path: its
+        re-rank rows are gathered from host memory once, after the global
+        candidate cut."""
+        return self.two_stage and self.raw_host is not None
+
     def search_first_stage(
         self,
         queries: torch.Tensor,
@@ -554,7 +673,7 @@ class IVFIndex(VectorIndex):
         return self._scan_stage(queries, num_candidates, mask=mask, params=params_key(params))
 
     def _require_payload(self) -> None:
-        if self.raw_data is None:
+        if self.raw_data is None and self.raw_host is None:
             raise RuntimeError(
                 f"{self.kind.value} index has no segment payload to re-rank against: "
                 "call reattach_payload(segment payload) after loading it"
@@ -564,6 +683,8 @@ class IVFIndex(VectorIndex):
         """Exact scores of the candidate rows against the raw payload
         (computeTopDistanceSubset), f32[Q, C]; -inf where row_ids < 0."""
         self._require_payload()
+        if self.raw_host is not None:
+            return self._exact_scores_host(queries, row_ids)
         safe = torch.clamp(row_ids, min=0).to(torch.int64)
         rows = self.raw_data[safe].to(torch.float32)  # [Q, C, D']
         q = distance.normalize_queries(queries.to(torch.float32), self.metric)
@@ -574,6 +695,41 @@ class IVFIndex(VectorIndex):
             nrm = torch.linalg.vector_norm(rows, dim=-1)
             s = s * torch.where(nrm > 0, 1.0 / torch.where(nrm > 0, nrm, torch.ones_like(nrm)), 0.0)
         return s.masked_fill(row_ids < 0, NEG_INF)
+
+    def _exact_scores_host(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+        """Disk-mode computeTopDistanceSubset: the distinct candidate rows
+        (row_ids >= 0) gathered from host memory, into a pinned buffer
+        for a CUDA card, moved once and scored in f64 on the queries'
+        device, then cast to f32: an f64 score of the stored rows, as the
+        JAX package's numpy re-rank computes it. Cosine scores the
+        normalized query (the JAX package's host re-rank leaves it
+        unnormalized, so its Cosine scores carry |q|)."""
+        dev = row_ids.device
+        r = row_ids.to("cpu", torch.int64)  # the rows to fetch: one sync
+        keep = r >= 0
+        uniq, inv = torch.unique(r[keep], return_inverse=True)
+        if not len(uniq):  # every candidate of this segment fell below the cut
+            return torch.full(row_ids.shape, NEG_INF, dtype=torch.float32, device=dev)
+        raw = self.raw_host
+        buf = torch.empty(
+            (len(uniq), raw.shape[1]), dtype=raw.dtype, pin_memory=dev.type == "cuda"
+        )
+        torch.index_select(raw, 0, uniq, out=buf)
+        rows = buf.to(dev, non_blocking=True).to(torch.float64)  # [U, D']
+        slot = torch.zeros(r.shape, dtype=torch.int64)
+        slot[keep] = inv
+        rows = rows[slot.to(dev)]  # [Q, C, D']
+        q = queries.to(torch.float64)[:, : rows.shape[-1]]
+        if self.metric == Metric.COSINE:
+            qn = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+            q = q / torch.where(qn > 0, qn, torch.ones_like(qn))
+        s = torch.bmm(rows, q[:, :, None])[:, :, 0]
+        if self.metric == Metric.L2:
+            s = 2.0 * s - torch.sum(rows * rows, dim=-1)
+        elif self.metric == Metric.COSINE:
+            nrm = torch.linalg.vector_norm(rows, dim=-1)
+            s = s / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+        return s.to(torch.float32).masked_fill(row_ids < 0, NEG_INF)
 
     def compute_scores_subset(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
         return self._exact_scores(queries, row_ids)
@@ -657,6 +813,15 @@ def _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, codec
 class IVFFlatIndex(IVFIndex):
     @classmethod
     def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None, cancel_cb=None):
+        if getattr(payload, "is_host", False):
+            # a host-tier payload (asked for, or spilled under memory
+            # pressure): raw IVFFLAT would mirror it whole on the device, so
+            # the build takes the disk-mode shape instead (SQ8 windows on
+            # the device, the exact re-rank against the host rows), whose
+            # reported distances stay exact
+            GLOBAL_COUNTERS.bump("IvfFlatDegradedToDiskMode")
+            return _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb,
+                          "sq8", True)
         return _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, "raw", False)
 
 
@@ -687,9 +852,11 @@ class MSTGIndex(IVFIndex):
     @classmethod
     def build(cls, payload, n_rows, *, metric, dim, params=None, settings=None, cancel_cb=None):
         params = dict(params or {})
-        if int(params.pop("disk_mode", 0) or 0):
-            raise NotImplementedError(
-                "MSTG disk_mode=1 (the host re-rank tier) is not ported yet "
-                "(ROADMAP queue 1 #9)"
-            )
-        return _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, "sq8", True)
+        # disk_mode=1: the exact re-rank's rows move to host memory and only
+        # the SQ8 windows stay on the device (the reference's disk-mode
+        # MSTG); a host-tier payload implies it
+        disk = bool(int(params.pop("disk_mode", 0) or 0))
+        return cls._build_common(
+            payload, n_rows, metric=metric, dim=dim, params=params, settings=settings,
+            codec="sq8", two_stage=True, cancel_cb=cancel_cb, force_host_raw=disk,
+        )

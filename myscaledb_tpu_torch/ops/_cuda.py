@@ -192,11 +192,15 @@ def check_launch(name: str, err: int) -> None:
 _LAUNCH_COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's `launches` counter. Builds launch
-    kernels on the scheduler's threads too, so the add takes a lock."""
+def count_launch(wrapper, f32: bool = False) -> None:
+    """Add one to a kernel wrapper's `launches` counter, and to its
+    `launches_f32` counter when the launch took the f32 engine (the scan
+    kernels over an f32 payload). Builds launch kernels on the
+    scheduler's threads too, so the add takes a lock."""
     with _LAUNCH_COUNT_LOCK:
         wrapper.launches += 1
+        if f32:
+            wrapper.launches_f32 += 1
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -1,12 +1,13 @@
 """Brute-force scan: chunked score computation + masked top-k.
 
-Counterpart of myscaledb_tpu/ops/bruteforce.py (`scan_topk_t` only; the
-host-tier `stream_scan_topk` waits for the host-tier slice). The payload
-is device-resident; the scan either takes the tile-max pruned route
+Counterpart of myscaledb_tpu/ops/bruteforce.py. `scan_topk_t` scans a
+device-resident payload: it either takes the tile-max pruned route
 (ops/tilescan.py) or computes score chunks with the score kernel
 (ops/distance.py), applies the filter/validity mask as a -inf select
 (pre-filter semantics: masked rows can never enter the top-k), takes a
-per-chunk top-k and merges chunk results exactly.
+per-chunk top-k and merges chunk results exactly. `stream_scan_topk`
+scans a host-tier payload: fixed-shape chunks stream through the device
+(ops/stream.py) and each goes through `scan_topk_t`.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from ..metrics import Metric
 from . import distance, tilescan
 from ._cuda import round_up
-from .topk import NEG_INF, merge_topk_lists, wide_exact_topk
+from .stream import host_chunks
+from .topk import NEG_INF, merge_topk, merge_topk_lists, wide_exact_topk
 
 # Rows per scan chunk. 128k rows x 128 dims of bf16 = 32 MiB per chunk read.
 DEFAULT_CHUNK_ROWS = 128 * 1024
@@ -121,3 +123,44 @@ def scan_topk_t(
         )
     idx = torch.where(torch.isfinite(vals), idx, torch.full_like(idx, -1))
     return vals[:nq], idx[:nq]
+
+
+def stream_scan_topk(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    aux: Optional[torch.Tensor],
+    *,
+    k: int,
+    metric: Metric,
+    n_valid: int,
+    mask: Optional[torch.Tensor] = None,
+    chunk: int = 131_072,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a HOST-tier payload (`data` [capacity, D] and its
+    `aux` in host memory, pinned for a CUDA device): rows [0, n_valid)
+    stream through the queries' device in chunks of `chunk` rows, the last
+    one zero-padded, so every chunk has one shape and takes the route
+    `scan_topk_t` gives that shape, as in the JAX package. A running top-k
+    folds the chunks' results, row ids offset by the chunk's start.
+
+    queries: f32[Q, D] on the device; mask: optional bool[capacity] on the
+    device. Returns (scores f32[Q, k], rows int32[Q, k]), missing slots
+    (-inf, -1)."""
+    dev = queries.device
+    nq = queries.shape[0]
+    bv = torch.full((nq, k), NEG_INF, dtype=torch.float32, device=dev)
+    br = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    qn = distance.normalize_queries(queries.to(torch.float32), metric)
+    if mask is not None:
+        total = -(-n_valid // chunk) * chunk
+        if mask.shape[0] < total:
+            mask = torch.nn.functional.pad(mask, (0, total - mask.shape[0]))
+    host = [data] + ([aux] if aux is not None else [])
+    zeros = None if aux is not None else torch.zeros((chunk,), dtype=torch.float32, device=dev)
+    for i, m, parts in host_chunks(host, n_valid, dev, chunk, pad=True):
+        a = parts[1] if aux is not None else zeros
+        cm = None if mask is None else mask[i : i + chunk]
+        v, r = scan_topk_t(qn, parts[0], a, k=k, metric=metric, n_valid=m, mask=cm)
+        r = torch.where(r >= 0, r + i, torch.full_like(r, -1))
+        bv, br = merge_topk(bv, br, v, r, k)
+    return bv, br

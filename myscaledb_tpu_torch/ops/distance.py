@@ -241,11 +241,12 @@ def scores(
     if q == 0 or n == 0:
         return out
     launch_scan("msd_scores", queries, base, aux, None, out, metric)
-    count_launch(scores)
+    count_launch(scores, f32=base.dtype == torch.float32)
     return out
 
 
 scores.launches = 0
+scores.launches_f32 = 0  # of them, over an f32 payload (the f32 engine)
 
 
 def scores_ref(

@@ -1,24 +1,29 @@
 """K-means (Lloyd's) for the IVF coarse quantizer, on the device.
 
-Counterpart of myscaledb_tpu/ops/kmeans.py (device functions only; the
-`*_host` variants wait for the host tier, ROADMAP queue 1 #9):
+Counterpart of myscaledb_tpu/ops/kmeans.py:
 
   * assignment = argmax over the score matrix (2 x·cᵀ - |c|²), chunked
     over rows so no [N, C] matrix is materialized at once;
   * centroid update = `index_add_` scatter-add (the JAX package's
     `segment_sum`);
-  * training runs on a bounded random sample of the rows.
+  * training runs on a bounded random sample of the rows;
+  * the `*_host` variants take a host-tier corpus (ops/stream.py::HostRep):
+    the sample is gathered on the host and moved once, and the assignment
+    streams the rows through the device in chunks.
 
 The JAX package draws its random indices with `jax.random`; the port
 draws them from an explicit `torch.Generator`. The two streams differ, so
 every random draw can also be passed in (`init_idx`, `idx`): a test feeds
-JAX's own draws and compares the fit. The `fori_loop`s are Python loops.
+JAX's own draws and compares the fit. The host sample is drawn with numpy
+exactly as the JAX package draws it, so it equals JAX's row for row. The
+`fori_loop`s are Python loops.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -167,3 +172,33 @@ def training_sample(
             0, n_valid, (target,), generator=_generator(data.device, seed), device=data.device
         )
     return data[idx.to(device=data.device, dtype=torch.int64)].to(torch.float32)
+
+
+def assign_chunked_host(rep, centroids: torch.Tensor, chunk: int = 262_144) -> torch.Tensor:
+    """`assign_chunked` over a host-tier corpus (`HostRep`), its rows
+    streamed through the centroids' device `chunk` rows at a time ->
+    int32[n] on that device."""
+    out = torch.empty((rep.n,), dtype=torch.int32, device=centroids.device)
+    for i, m, x in rep.chunks(centroids.device, chunk):
+        out[i : i + m] = assign_chunked(x, centroids)
+    return out
+
+
+def training_sample_host(
+    rep,
+    n_valid: int,
+    n_clusters: int,
+    *,
+    device,
+    sample_per_centroid: int = 128,
+    seed: int = 0,
+    max_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """`training_sample` of a host-tier corpus (`HostRep`): the rows drawn
+    by `np.random.default_rng(seed).integers` (the JAX package's draws, so
+    the same rows), gathered on the host and moved to `device` once."""
+    target = min(n_valid, max(n_clusters * sample_per_centroid, n_clusters))
+    if max_rows is not None:
+        target = max(min(target, max_rows), min(n_valid, n_clusters))
+    idx = np.random.default_rng(seed).integers(0, n_valid, target)
+    return rep.take(idx, device)

@@ -11,7 +11,13 @@ Counterpart of myscaledb_tpu/ops/quantize.py, the device-side codecs:
     bf16 rows and takes the ordinary dot product (decode-then-dot), as in
     the JAX package. IVFPQ and HNSWPQ use it.
 
-The host (numpy) variants wait for the host tier (ROADMAP queue 1 #9).
+The `*_host` variants train on a host-tier corpus (ops/stream.py::
+HostRep), whose rows stream through the device in chunks; their results
+equal the JAX package's numpy `sq8_train` / `pq_train` on the same rows
+(min and max are exact whatever the order, and PQ trains each subspace on
+all of the rows, as there). Encoding a host corpus is done per chunk on
+the device with the `*_dev` encoders: `round((x - lo) / scale)` in f32,
+half to even, is the same in numpy and torch.
 """
 
 from __future__ import annotations
@@ -43,6 +49,25 @@ def sq8_decode_dev(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor) -
     return (codes.to(torch.float32) * scale + lo).to(torch.bfloat16)
 
 
+def _pq_fit(subspace, n: int, m: int, ds: int, bits: int, n_iters: int, seed: int, init_idx):
+    """Codebooks f32[M, 2^bits, ds]: subspace j (`subspace(j)`, f32[n, ds])
+    is `kmeans_fit` with seed `seed + j` (or the initial rows
+    `init_idx[j]`). With fewer rows than 2^bits, each subspace fits n
+    centroids and repeats its last one."""
+    ksub = 1 << bits
+    ksub_eff = min(ksub, n)
+    books = []
+    for j in range(m):
+        c = kmeans.kmeans_fit(
+            subspace(j), n_clusters=ksub_eff, n_iters=n_iters,
+            seed=seed + j, init_idx=None if init_idx is None else init_idx[j],
+        )
+        if ksub_eff < ksub:
+            c = torch.cat([c, c[-1:].expand(ksub - ksub_eff, ds)], dim=0)
+        books.append(c)
+    return torch.stack(books, dim=0)
+
+
 def pq_train_dev(
     rep: torch.Tensor,
     m: int,
@@ -52,25 +77,13 @@ def pq_train_dev(
     seed: int = 0,
     init_idx: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Codebooks f32[M, 2^bits, D/M]: subspace j is `kmeans_fit` with seed
-    `seed + j` (or the initial rows `init_idx[j]`). With fewer rows than
-    2^bits, each subspace fits N centroids and repeats its last one."""
+    """Codebooks f32[M, 2^bits, D/M] of a [N, D] representation on its
+    device (`_pq_fit`)."""
     n, d = rep.shape
     if d % m:
         raise ValueError(f"dim {d} not divisible by M={m}")
     ds = d // m
-    ksub = 1 << bits
-    ksub_eff = min(ksub, n)
-    books = []
-    for j in range(m):
-        c = kmeans.kmeans_fit(
-            rep[:, j * ds : (j + 1) * ds], n_clusters=ksub_eff, n_iters=n_iters,
-            seed=seed + j, init_idx=None if init_idx is None else init_idx[j],
-        )
-        if ksub_eff < ksub:
-            c = torch.cat([c, c[-1:].expand(ksub - ksub_eff, ds)], dim=0)
-        books.append(c)
-    return torch.stack(books, dim=0)
+    return _pq_fit(lambda j: rep[:, j * ds : (j + 1) * ds], n, m, ds, bits, n_iters, seed, init_idx)
 
 
 def pq_encode_dev(rep: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
@@ -103,3 +116,42 @@ def pq_decode_dev(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     sub = torch.arange(m, device=codes.device)
     dec = codebooks[sub, codes.to(torch.int64)]  # [..., M, ds]
     return dec.reshape(*codes.shape[:-1], m * ds).to(torch.bfloat16)
+
+
+def sq8_train_host(rep, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`sq8_train_dev` of a host-tier corpus (`HostRep`): per-dimension
+    (lo, scale) f32[D] on `device`, the min and max folded over chunks."""
+    lo = hi = None
+    for _, _, x in rep.chunks(device):
+        clo, chi = torch.amin(x, dim=0), torch.amax(x, dim=0)
+        lo = clo if lo is None else torch.minimum(lo, clo)
+        hi = chi if hi is None else torch.maximum(hi, chi)
+    scale = (hi - lo) / 255.0
+    return lo, torch.where(scale > 0, scale, torch.ones_like(scale))
+
+
+def pq_train_host(
+    rep,
+    m: int,
+    dim: int,
+    device,
+    *,
+    bits: int = 8,
+    n_iters: int = 12,
+    seed: int = 0,
+    init_idx: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Codebooks of a host-tier corpus's first `dim` columns (`_pq_fit`):
+    each subspace is gathered on `device` from every row, one pass over
+    the corpus per subspace."""
+    if dim % m:
+        raise ValueError(f"dim {dim} not divisible by M={m}")
+    ds = dim // m
+
+    def subspace(j):
+        sub = torch.empty((rep.n, ds), dtype=torch.float32, device=device)
+        for i, r, x in rep.chunks(device):
+            sub[i : i + r] = x[:, j * ds : (j + 1) * ds]
+        return sub
+
+    return _pq_fit(subspace, rep.n, m, ds, bits, n_iters, seed, init_idx)

@@ -110,11 +110,12 @@ def tile_maxes(
     if q == 0 or n == 0:
         return out
     launch_scan("msd_tile_max", queries, base, aux, mask_u8, out, metric)
-    count_launch(tile_maxes)
+    count_launch(tile_maxes, f32=base.dtype == torch.float32)
     return out
 
 
 tile_maxes.launches = 0
+tile_maxes.launches_f32 = 0  # of them, over an f32 payload (the f32 engine)
 
 
 def tile_topk_scan(

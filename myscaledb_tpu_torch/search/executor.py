@@ -1,8 +1,7 @@
 """Vector search execution: per-segment search + global top-k merge.
 
-Counterpart of myscaledb_tpu/search/executor.py, without the host tier
-(ROADMAP queue 1 #9). The re-expression of the reference's search-manager
-stack:
+Counterpart of myscaledb_tpu/search/executor.py. The re-expression of the
+reference's search-manager stack:
 
   MergeTreeVSManager::vectorScan            -> per-segment search_t
   performPrefilter + DenseBitmap            -> filters.Expr -> device mask
@@ -10,6 +9,8 @@ stack:
   two-stage search (first_stage_only +      -> _two_stage_run: a global
     computeTopDistanceSubset)                  candidate cut, exact re-rank
   mergeResult (score join by label)         -> SearchResult / Table.gather
+  disk-mode parts (Search::DiskIOManager)   -> host-tier segments: a streamed
+                                               exact scan (stream_scan_topk)
 
 Where the JAX package runs one jitted program per query, the port issues
 one stream of eager launches on the segments' device: the query upload,
@@ -372,7 +373,9 @@ class VectorSearchExecutor:
                     GLOBAL_COUNTERS.bump("VectorIndexFallbackToFlat")
             if idx is not None and st.query.cost_based_index_routing:
                 payload = seg.vector(column)
-                if idx.prefer_exact_scan(nq, k, pkey, int(payload.nbytes)):
+                # a host-tier payload is never routed to the scan: its
+                # cost is the host link's, which the model does not price
+                if not payload.is_host and idx.prefer_exact_scan(nq, k, pkey, int(payload.nbytes)):
                     # the exact scan is modeled cheaper than this index's
                     # search for this batch and corpus, and it is exact
                     idx = None
@@ -410,6 +413,7 @@ class VectorSearchExecutor:
                         metric=metric,
                         dim=vtype.dim,
                         n_rows=seg.n_rows,
+                        host=payload.is_host,  # a host-tier payload streams
                     )
                 GLOBAL_COUNTERS.bump("VectorBruteForceSearches")
             else:

@@ -26,7 +26,7 @@ import torch
 from ..errors import SchemaError
 from ..index.base import IndexKind
 from .schema import BinaryVector, Schema
-from .segment import Segment, upload_payload
+from .segment import TIERS, Segment, host_payload, upload_payload
 
 
 def _payload_codes(cname: str, data: np.ndarray) -> torch.Tensor:
@@ -58,9 +58,13 @@ def segment_from_arrays(
     """Build a Segment on `device` from one segment's numpy arrays.
 
     vectors: column -> {"data": f32 or uint16 (bf16 bits) [capacity, D_pad],
-             "sqnorm": f32[capacity], "invnorm": f32[capacity]} for a float
+             "sqnorm": f32[capacity], "invnorm": f32[capacity], and
+             optionally "tier": "hbm" (the default) or "host"} for a float
              column, {"data": u8[capacity, dim/8]} for a binary one (a JAX
-             segment's "popcnt" is not carried: no path of the port reads it)
+             segment's "popcnt" is not carried: no path of the port reads
+             it). A JAX host-tier payload (numpy f32 rows) crosses with
+             "tier": "host" and lands in the port's host tier; a payload the
+             device budget refuses spills there, as an insert's does.
     scalars: column -> [n_rows] host column
     deleted: optional bool[capacity] delete bitmap (True = deleted)
     """
@@ -69,6 +73,7 @@ def segment_from_arrays(
     if set(vectors) != want_vec or set(scalars) != set(schema.columns) - want_vec:
         raise SchemaError("arrays do not match the schema's columns")
     payloads = {}
+    spilled = set()
     dtypes = set()
     for cname, arrs in vectors.items():
         if isinstance(schema.columns[cname], BinaryVector):
@@ -86,9 +91,17 @@ def segment_from_arrays(
         inv = np.array(arrs["invnorm"], dtype=np.float32)
         if sq.shape != (capacity,) or inv.shape != (capacity,):
             raise SchemaError(f"norms of {cname!r} must be f32[{capacity}]")
+        tier = arrs.get("tier", "hbm")
+        if tier not in TIERS:
+            raise SchemaError(f"unknown tier {tier!r} of {cname!r}")
+        if tier == "host":
+            payloads[cname] = host_payload(codes.to(torch.float32), sq, inv, device)
+            continue
         payloads[cname] = upload_payload(
             cname, codes, {"sqnorm": sq, "invnorm": inv}, device, server_settings
         )
+        if payloads[cname].is_host:  # spilled under memory pressure
+            spilled.add(cname)
     for cname, col in scalars.items():
         if len(col) != n_rows:
             raise SchemaError(f"column {cname} has {len(col)} rows, expected {n_rows}")
@@ -104,6 +117,7 @@ def segment_from_arrays(
         device=device,
         storage_dtype=dtypes.pop() if dtypes else torch.bfloat16,
     )
+    seg.spilled_columns = spilled
     if deleted is not None:
         deleted = np.asarray(deleted, dtype=bool)
         if deleted.shape != (capacity,):
@@ -164,7 +178,9 @@ def ivf_from_state_dict(state: Dict, device, payload=None):
     `device`. A raw bf16 `perm_data` crosses as its stored bits. The state
     holds no payload: a two-stage index re-attaches `payload` (the
     segment's VectorPayload) when it is given, and raises on search until
-    it has one."""
+    it has one. A disk-mode index (a JAX MSTG over a host-tier payload, or
+    one built with disk_mode=1) re-attaches a host-tier payload as its
+    host re-rank rows (`raw_host`)."""
     from ..index import ivf
 
     classes = {

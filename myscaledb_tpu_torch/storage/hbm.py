@@ -4,21 +4,23 @@ Counterpart of myscaledb_tpu/storage/hbm.py. Every payload upload is
 admitted against a budget first: the live device memory of a CUDA device
 (`torch.cuda.mem_get_info`: in use + bytes must stay under ratio x
 capacity), or an explicit byte budget tracked across live payloads (which
-also works for the CPU device). Unlike the JAX package:
+also works for the CPU device). A payload the budget refuses goes to the
+host tier (storage/segment.py), and so does one whose upload runs out of
+device memory twice (`guarded_put`: one retry after a collection), so the
+engine absorbs memory pressure instead of dying on it.
 
-  * admission and accounting are one step: `admit` reserves the bytes
-    under the lock, so two concurrent inserts cannot both pass a check
-    that only one of them fits (the JAX package's admit and register are
-    separate calls);
-  * a payload that is not admitted raises: spilling to the host tier
-    belongs to the host-tier slice (ROADMAP queue 1 #9).
+Unlike the JAX package, admission and accounting are one step: `admit`
+reserves the bytes under the lock, so two concurrent inserts cannot both
+pass a check that only one of them fits (the JAX package's admit and
+register are separate calls).
 """
 
 from __future__ import annotations
 
+import gc
 import threading
 import weakref
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,6 +82,24 @@ class HbmGovernor:
         with self._lock:
             self._pending -= nbytes
         weakref.finalize(owner, _release_ref, weakref.ref(self), nbytes)
+
+
+def guarded_put(
+    tensors: Sequence[torch.Tensor], device: torch.device
+) -> Optional[List[torch.Tensor]]:
+    """Move `tensors` to `device`, or return None after a retried device
+    out-of-memory error: the first failure drops the partial copies,
+    collects garbage and empties the allocator's cache, then tries once
+    more. Any other error is raised."""
+    for _ in range(2):
+        try:
+            return [t.to(device) for t in tensors]
+        except torch.OutOfMemoryError:
+            pass  # collect outside the handler: its traceback holds the partial copies
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return None
 
 
 def _release_ref(governor_ref, nbytes: int) -> None:

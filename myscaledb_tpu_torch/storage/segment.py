@@ -2,17 +2,28 @@
 
 Counterpart of myscaledb_tpu/storage/segment.py. A segment is:
 
-  * a device-resident, statically-shaped vector payload per vector column
+  * a statically-shaped vector payload per vector column
     (`f32|bf16[capacity, D_pad]`, rows >= n_rows are zero padding), plus
     precomputed per-row metric auxiliaries (|x|^2, 1/|x|) so scans never
     recompute norms; a binary column holds its packed bits
-    (`u8[capacity, dim/8]`) and each row's popcount (`int32[capacity]`);
+    (`u8[capacity, dim/8]`);
   * host-resident scalar columns (numpy) for filtering and result gather;
   * a delete bitmap (lightweight DELETE, intersected into every search).
 
-Row ids ("labels") are segment-local. Every tensor lives on the segment's
-explicit `device`. Only the device tier exists in the port: the host tier
-(and spilling to it) belongs to the host-tier slice, ROADMAP queue 1 #9.
+A float payload lives in one of two tiers (`VectorPayload.tier`):
+
+  * "hbm": on the segment's `device`;
+  * "host": in host memory, pinned when the segment's device is a CUDA
+    card, so exact scans stream it through the card in chunks
+    (ops/bruteforce.py::stream_scan_topk) and disk-mode indexes gather
+    their re-rank rows from it. A table asks for it
+    (`vector_storage_tier = "host"`: the raw f32 rows are kept), or the
+    device budget refuses the payload, or its upload runs out of device
+    memory twice (storage/hbm.py): the payload then spills with the
+    bf16-rounded values the device tier would have scored, so a spill
+    changes no score. Binary columns have no host tier.
+
+Row ids ("labels") are segment-local.
 """
 
 from __future__ import annotations
@@ -28,7 +39,8 @@ import torch
 from ..errors import SchemaError
 from ..metrics import Metric
 from ..ops._cuda import round_up
-from .hbm import GOVERNOR
+from ..service.event_log import GLOBAL_COUNTERS
+from .hbm import GOVERNOR, guarded_put
 from .schema import BinaryVector, FloatVector, Schema
 
 
@@ -36,13 +48,31 @@ def _pad_dim(d: int) -> int:
     return round_up(d, 128)
 
 
+TIERS = ("hbm", "host")
+
+
 @dataclasses.dataclass
 class VectorPayload:
-    """Tensors for one vector column of a segment, on the segment's device."""
+    """Tensors for one vector column of a segment: on the segment's device
+    (tier "hbm"), or in host memory (tier "host"). The tier is explicit: a
+    tensor's device cannot tell the tiers apart when the segment's device
+    is the CPU."""
 
     data: torch.Tensor  # [capacity, D_pad] storage dtype, or u8 packed bits
     sqnorm: Optional[torch.Tensor] = None  # f32[capacity] |x|^2 (float cols)
     invnorm: Optional[torch.Tensor] = None  # f32[capacity] 1/|x| (float cols)
+    tier: str = "hbm"
+    # the device that scans the payload and builds its indexes, for the
+    # host tier (the segment's device, not where `data` lives)
+    home: Optional[torch.device] = None
+
+    @property
+    def is_host(self) -> bool:
+        return self.tier == "host"
+
+    @property
+    def device(self) -> torch.device:
+        return self.home if self.home is not None else self.data.device
 
     def aux_for(self, metric: Metric) -> Optional[torch.Tensor]:
         if metric == Metric.L2:
@@ -89,6 +119,29 @@ def payload_norms(stored: np.ndarray):
     return sq, inv
 
 
+def host_tensor(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` as a host-tier tensor for a segment on `device`: in pinned host
+    memory when `device` is a CUDA card (so chunks reach the card by DMA,
+    without a staging copy; a pinning failure raises), copied there unless
+    it already is; else `t` itself."""
+    if device.type != "cuda" or t.is_pinned():
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t)
+
+
+def host_payload(data: torch.Tensor, sq: np.ndarray, inv: np.ndarray, device) -> VectorPayload:
+    """A host-tier float payload over the stored values `data` (f32) and
+    their norms."""
+    return VectorPayload(
+        data=host_tensor(data, device),
+        sqnorm=host_tensor(torch.from_numpy(sq), device),
+        invnorm=host_tensor(torch.from_numpy(inv), device),
+        tier="host",
+        home=torch.device(device),
+    )
+
+
 def upload_payload(
     cname: str,
     codes: torch.Tensor,
@@ -99,25 +152,32 @@ def upload_payload(
     """Admit one vector column's stored payload against the device budget
     (storage/hbm.py) and move it, with its per-row auxiliaries (`aux`:
     sqnorm and invnorm of a float column, none for a binary one), to
-    `device`."""
+    `device`. A float payload the budget refuses, or whose upload runs out
+    of device memory twice, spills to the host tier with the values the
+    device tier would have scored (so a spill changes no score); a binary
+    one raises MemoryError, as binary columns have no host tier."""
     capacity = codes.shape[0]
     est = codes.numel() * codes.element_size() + capacity * 4 * len(aux)
-    if not GOVERNOR.admit(est, device, server_settings):
+    up = None
+    if GOVERNOR.admit(est, device, server_settings):
+        try:
+            up = guarded_put([codes] + [torch.from_numpy(a) for a in aux.values()], device)
+        except BaseException:
+            GOVERNOR.release(est)
+            raise
+        if up is None:
+            GOVERNOR.release(est)
+    if up is not None:
+        payload = VectorPayload(data=up[0], **dict(zip(aux, up[1:])))
+        GOVERNOR.register(payload, est)
+        return payload
+    if not aux:
         raise MemoryError(
-            f"vector column {cname!r} ({est} bytes) does not fit the "
-            f"device payload budget on {device}; spilling to the host "
-            "tier is not ported yet (ROADMAP queue 1 #9)"
+            f"binary column {cname!r} ({codes.numel()} bytes) does not fit on "
+            f"{device}, after one retry: binary columns have no host tier"
         )
-    try:
-        payload = VectorPayload(
-            data=codes.to(device),
-            **{name: torch.from_numpy(a).to(device) for name, a in aux.items()},
-        )
-    except BaseException:
-        GOVERNOR.release(est)
-        raise
-    GOVERNOR.register(payload, est)
-    return payload
+    GLOBAL_COUNTERS.bump("SegmentPayloadsSpilledToHost")
+    return host_payload(codes.to(torch.float32), aux["sqnorm"], aux["invnorm"], device)
 
 
 class Segment:
@@ -162,6 +222,8 @@ class Segment:
         self.uid = next(_SEGMENT_UID)
         # exact f32 rows per bf16-stored float-vector column (column reads)
         self._exact_f32: Dict[str, np.ndarray] = {}
+        # vector columns that went to the host tier under memory pressure
+        self.spilled_columns: set = set()
 
     # ---------------------------------------------------------------- build
     @classmethod
@@ -174,9 +236,12 @@ class Segment:
         device: torch.device,
         alignment: int = 1024,
         storage_dtype: torch.dtype = torch.bfloat16,
+        storage_tier: str = "hbm",
         server_settings=None,
     ) -> "Segment":
         device = torch.device(device)
+        if storage_tier not in TIERS:
+            raise SchemaError(f"unknown vector_storage_tier {storage_tier!r}")
         names = set(schema.columns)
         if set(columns) != names:
             missing = names - set(columns)
@@ -200,6 +265,7 @@ class Segment:
 
         vectors: Dict[str, VectorPayload] = {}
         scalars: Dict[str, np.ndarray] = {}
+        spilled = set()
         for cname, ctype in schema.columns.items():
             v = validated[cname]
             if isinstance(ctype, BinaryVector):
@@ -214,6 +280,16 @@ class Segment:
                 scalars[cname] = v
                 continue
             dpad = _pad_dim(ctype.dim)
+            if storage_tier == "host":
+                # the raw f32 rows, written straight into their host buffer
+                buf = torch.empty(
+                    (capacity, dpad), dtype=torch.float32, pin_memory=device.type == "cuda"
+                )
+                buf[:n_rows, : ctype.dim] = torch.from_numpy(v)
+                buf[:n_rows, ctype.dim :] = 0.0
+                buf[n_rows:] = 0.0
+                vectors[cname] = host_payload(buf, *payload_norms(buf.numpy()), device)
+                continue
             buf = np.zeros((capacity, dpad), dtype=np.float32)
             buf[:n_rows, : ctype.dim] = v
             # the norms come from the STORED values (what scans score
@@ -223,9 +299,12 @@ class Segment:
             codes = torch.from_numpy(buf).to(storage_dtype)
             stored = codes.to(torch.float32).numpy() if bf16_store else buf
             sq, inv = payload_norms(stored)
-            vectors[cname] = upload_payload(
+            payload = upload_payload(
                 cname, codes, {"sqnorm": sq, "invnorm": inv}, device, server_settings
             )
+            if payload.is_host:  # spilled under memory pressure
+                spilled.add(cname)
+            vectors[cname] = payload
         seg = cls(
             segment_id,
             schema,
@@ -236,12 +315,15 @@ class Segment:
             device=device,
             storage_dtype=storage_dtype,
         )
+        seg.spilled_columns = spilled
         # exact (pre-quantization) float rows for column READS: SELECTing
         # a vector column returns what was inserted, independent of the
-        # bf16 scoring payload
+        # bf16 scoring payload. A host-tier column keeps no second copy:
+        # requested-host rows are the raw f32 already, and a spilled
+        # column reads back its bf16-rounded values, as in the JAX package
         if bf16_store:
             for cname, ctype in schema.columns.items():
-                if isinstance(ctype, FloatVector):
+                if isinstance(ctype, FloatVector) and not vectors[cname].is_host:
                     seg._exact_f32[cname] = np.asarray(validated[cname], dtype=np.float32)
         return seg
 
@@ -265,7 +347,7 @@ class Segment:
             return exact[rows]
         payload = self.vector(column)
         dim = self.schema.columns[column].dim
-        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=payload.data.device)
         return payload.data[idx].to(torch.float32).cpu().numpy()[:, :dim]
 
     def scalar_minmax(self, column: str):
@@ -349,7 +431,8 @@ class Segment:
 
     @property
     def device_bytes(self) -> int:
-        """Bytes of the vector payloads on the device (system.parts)."""
+        """Bytes of the vector payloads, on the device or, for the host
+        tier, in host memory (system.parts)."""
         return sum(p.nbytes for p in self.vectors.values())
 
     def __repr__(self):

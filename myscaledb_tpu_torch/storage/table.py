@@ -157,25 +157,28 @@ class Table:
     # ------------------------------------------------------------- ingest
     def _new_segment(self, columns: Dict[str, Any]) -> Segment:
         tset = self.settings.table
-        if tset.vector_storage_tier != "hbm":
-            raise NotImplementedError(
-                f"vector_storage_tier={tset.vector_storage_tier!r}: the host "
-                "tier is not ported yet (ROADMAP queue 1 #9)"
-            )
         if tset.storage_dtype not in _STORAGE_DTYPES:
             raise SchemaError(f"unsupported storage_dtype {tset.storage_dtype!r}")
         with self._lock:
             seg_id = self._next_segment_id
             self._next_segment_id += 1
-        return Segment.from_columns(
+        seg = Segment.from_columns(
             seg_id,
             self.schema,
             columns,
             device=self.device,
             alignment=tset.segment_row_alignment,
             storage_dtype=_STORAGE_DTYPES[tset.storage_dtype],
+            storage_tier=tset.vector_storage_tier,
             server_settings=self.settings.server,
         )
+        for cname in sorted(seg.spilled_columns):
+            # memory pressure moved this payload to the host tier: logged,
+            # as the reference logs its cache events, instead of failing
+            self.event_log.record(
+                self.name, "", cname, EventType.TIER_SPILL, segment_id=seg_id
+            )
+        return seg
 
     def insert(self, columns: Dict[str, Any]) -> int:
         """One insert = one immutable segment (one MergeTree part)."""
@@ -319,10 +322,6 @@ class Table:
             params=params,
             strict=self.settings.table.vector_index_parameter_check,
         )
-        if desc.params.get("disk_mode"):
-            raise NotImplementedError(
-                "MSTG disk_mode=1 (the host re-rank tier) is not ported yet (ROADMAP queue 1 #9)"
-            )
         with self._lock:
             self._index_descs[name] = desc
             segs = list(self._segments.values())
@@ -1145,8 +1144,9 @@ class Table:
             if not sel.any():
                 continue
             qi, ki = np.nonzero(sel)
-            rows = torch.as_tensor(result.rows[qi, ki].astype(np.int64), device=seg.device)
-            data = seg.vector(column).data[rows, : vtype.dim]
+            data = seg.vector(column).data
+            rows = torch.as_tensor(result.rows[qi, ki].astype(np.int64), device=data.device)
+            data = data[rows, : vtype.dim]
             data = data.to(torch.float32).cpu().numpy().astype(np.float64)
             qq = q[qi]
             if m == Metric.L2:
@@ -1230,10 +1230,11 @@ class Table:
             rmap[: seg.n_rows][alive] = offset + np.arange(n_alive, dtype=np.int32)
             offset += n_alive
             row_maps.append(rmap)
-            keep = torch.from_numpy(np.nonzero(alive)[0]).to(seg.device)
+            keep = torch.from_numpy(np.nonzero(alive)[0])
             for cname, ctype in self.schema.columns.items():
                 if cname in seg.vectors:
-                    data = seg.vector(cname).data[keep]
+                    data = seg.vector(cname).data
+                    data = data[keep.to(data.device)]
                     if not isinstance(ctype, BinaryVector):
                         data = data[:, : ctype.dim].to(torch.float32)
                     cols[cname].append(data.cpu().numpy())

@@ -25,7 +25,10 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, myscaledb_tpu_torch, myscaledb_tpu_torch.storage.convert\n"
         "from myscaledb_tpu_torch.ops import _cuda, binary, bruteforce, gathermv, kmeans, quantize\n"
-        "from myscaledb_tpu_torch.index import binary, hnsw, ivf\n"
+        "from myscaledb_tpu_torch.ops import distance, stream, tilescan\n"
+        "from myscaledb_tpu_torch.index import base, binary, flat, hnsw, ivf\n"
+        "from myscaledb_tpu_torch.search import executor\n"
+        "from myscaledb_tpu_torch.storage import convert, hbm, segment, table\n"
         "from myscaledb_tpu_torch.text import analyzer, inverted, native\n"
         "from myscaledb_tpu_torch.search import fusion, text_executor\n"
         "from myscaledb_tpu_torch.cache import lru\n"

@@ -526,19 +526,59 @@ def test_add_vector_index_without_type_builds_mstg():
     db.close()
 
 
-def test_disk_mode_raises_naming_the_host_tier():
+def _disk_mode_table(path):
+    """A device-tier table of 5,000 rows with an MSTG made disk-mode by
+    `path`: the index parameter, the table's default_mstg_disk_mode, or a
+    direct build of the index class (returned with its segment)."""
     st = tms.Settings()
+    st.table.min_rows_to_build_vector_index = 1_000
+    if path == "table_default":
+        st.table.default_mstg_disk_mode = 1
     db = tms.connect(st, device="cpu")
     t = db.create_table("d", tms.Schema({"id": tms.UInt64(), "vec": tms.FloatVector(D)}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
-        t.add_vector_index("m", "vec", type="MSTG", disk_mode=1)
-    st.table.default_mstg_disk_mode = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
-        t.add_vector_index("m", "vec")
-    seg = _port_segment(np.ones((600, D), np.float32), np.zeros(600, np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
-        ivf.MSTGIndex.build(seg.vector("vec"), 600, metric=Metric.L2, dim=D,
-                            params={"disk_mode": 1})
+    rng, vecs = _blobs(31, 5_000, D)
+    t.insert({"id": np.arange(5_000, dtype=np.uint64), "vec": vecs})
+    if path == "index_param":
+        t.add_vector_index("m", "vec", type="MSTG", disk_mode=1, ncentroids=NCENT)
+    elif path == "table_default":
+        t.add_vector_index("m", "vec", ncentroids=NCENT)
+    else:
+        seg = t.live_segments()[0]
+        idx = ivf.MSTGIndex.build(seg.vector("vec"), 5_000, metric=Metric.L2, dim=D,
+                                  params={"disk_mode": 1, "ncentroids": NCENT})
+        return db, t, vecs, rng, idx
+    assert t.wait_index_built()
+    assert t.index_status("m") == {0: IndexStatus.LOADED}
+    return db, t, vecs, rng, t.loaded_index(0, "vec", Metric.L2)
+
+
+@pytest.mark.parametrize("path", ["index_param", "table_default", "index_build"])
+def test_disk_mode_builds_and_serves(path):
+    """MSTG disk_mode=1, through each of its three entry paths, builds an
+    index whose re-rank rows live in host memory (the stored rows, f32),
+    whose search takes the two-stage path, and whose hits carry the exact
+    f64 distances of their stored rows."""
+    db, t, vecs, rng, idx = _disk_mode_table(path)
+    seg = t.live_segments()[0]
+    stored = seg.vector("vec").data[: seg.n_rows].to(torch.float32)
+    assert isinstance(idx, ivf.MSTGIndex) and idx.raw_data is None and idx.requires_two_stage()
+    assert torch.equal(idx.raw_host, stored)
+    q = (vecs[rng.choice(5_000, NQ, replace=False)] + 0.1 * rng.standard_normal((NQ, D))).astype(np.float32)
+    want = _exact_top(q, stored[:, :D].numpy(), "L2")
+    if path == "index_build":
+        qp = torch.nn.functional.pad(torch.from_numpy(q), (0, stored.shape[1] - D))
+        v, r = idx.search_t(qp, K, params=(("nprobe", 8),))
+        assert _recall(r.numpy(), want) >= 0.95
+        x = stored[r.to(torch.int64)][..., :D].double().numpy()
+        exact = 2 * np.einsum("qd,qkd->qk", q.astype(np.float64), x) - (x ** 2).sum(-1)
+        np.testing.assert_array_equal(v.numpy(), exact.astype(np.float32))
+    else:
+        res, b = _bumps(lambda: t.search("vec", q, k=K, params={"nprobe": 8}))
+        assert b["VectorIndexSearches"] == 0  # a disk-mode index always takes the two-stage path
+        assert _recall(res.rows, want) >= 0.95
+        x = stored[np.maximum(res.rows, 0)][..., :D].double().numpy()
+        exact = ((q.astype(np.float64)[:, None] - x) ** 2).sum(-1)
+        np.testing.assert_allclose(res.distances, exact, **TOL)
     db.close()
 
 

@@ -494,3 +494,64 @@ def test_binary_index_search_on_the_card(cuda_device, metric):
             assert rows_launches == 1 and block_launches == 0
         want, _ = host.search_t(q, 10, params=params)
         assert torch.equal(v.cpu(), want)
+
+
+# ------------------------------------------------------------- host tier
+@pytest.mark.cuda
+def test_host_chunks_bring_the_pinned_rows(cuda_device):
+    """`host_chunks` on the card: every chunk (the padded last one too)
+    holds its pinned host rows while the caller works on it; a pageable
+    host tensor raises instead of taking a staging copy."""
+    from myscaledb_tpu_torch.ops.stream import host_chunks
+
+    n, d, chunk = 300_000, 256, 65_536
+    x = torch.empty((n, d), pin_memory=True).copy_(torch.randn((n, d)))
+    a = torch.empty((n,), pin_memory=True).copy_(torch.arange(n, dtype=torch.float32))
+    for _ in range(2):  # the second call reuses the first one's buffers
+        for i, m, (xc, ac) in host_chunks([x, a], n, cuda_device, chunk, pad=True):
+            _ = (xc * 2.0).sum()  # work on the chunk, enqueued before the next
+            assert torch.equal(xc[:m].cpu(), x[i : i + m]) and torch.equal(ac[:m].cpu(), a[i : i + m])
+            assert not xc[m:].any() and xc.shape == (chunk, d)
+    with pytest.raises(ValueError, match="pinned"):
+        list(host_chunks([torch.zeros((10, 4))], 10, cuda_device, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_stream_scan_over_segments_matches_the_cpu(cuda_device, metric):
+    """Host-tier segments scanned one after another on the card (each scan
+    queued behind the last, no sync between them) return the CPU plain
+    version's rows, and scores within the f32 engine's bound; the rows are
+    pinned and each chunk launches the f32 score kernel."""
+    from myscaledb_tpu_torch.ops import bruteforce
+
+    n, d, nq, k = 200_000, 256, 24, 10
+    schema = Schema({"id": UInt64(), "vec": FloatVector(d)})
+    rng = np.random.default_rng(3)
+    segs = []
+    for s in range(3):
+        v = rng.standard_normal((n, d)).astype(np.float32)
+        cols = {"id": np.arange(n, dtype=np.uint64), "vec": v}
+        segs.append((Segment.from_columns(s, schema, cols, device=cuda_device,
+                                          storage_tier="host"),
+                     Segment.from_columns(s, schema, cols, device="cpu", storage_tier="host")))
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    before = distance.scores.launches_f32
+    got = []
+    for card, _ in segs:
+        p = card.vector("vec")
+        assert p.is_host and p.data.is_pinned() and p.sqnorm.is_pinned()
+        got.append(bruteforce.stream_scan_topk(q.to(cuda_device), p.data, p.aux_for(metric), k=k,
+                                               metric=metric, n_valid=n, chunk=65_536))
+    assert distance.scores.launches_f32 - before == 3 * 4  # 4 chunks a segment
+    for (v, r), (_, host) in zip(got, segs):
+        p = host.vector("vec")
+        wv, wr = bruteforce.stream_scan_topk(q, p.data, p.aux_for(metric), k=k, metric=metric,
+                                             n_valid=n, chunk=65_536)
+        assert torch.equal(r.cpu(), wr)
+        qn = distance.normalize_queries(q, metric)
+        aux = p.aux_for(metric)
+        bound = distance.kernel_error_bound(qn, p.data[:n], None if aux is None else aux[:n],
+                                            metric)
+        bound = torch.gather(bound, 1, wr.to(torch.int64))
+        assert not distance.outside_kernel_bound(v.cpu(), wv, bound).any()

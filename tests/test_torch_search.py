@@ -133,8 +133,6 @@ def test_empty_and_k_beyond_rows():
     with pytest.raises(tms.QueryShapeError):
         t.search("vec", q, k=0)
     # what is still not ported raises, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
-        t.add_vector_index("i", "vec", "MSTG", disk_mode=1)
     st = tms.Settings()
     st.query.use_approx_topk = True
     with pytest.raises(NotImplementedError, match="queue 2 #4"):
@@ -176,12 +174,15 @@ def test_payload_budget_reserves_and_releases():
     db = tms.connect(st, device="cpu")
     t = db.create_table("b", schema)
     before = GOVERNOR.tracked_bytes
-    with pytest.raises(MemoryError, match="ROADMAP queue 1 #9"):
-        t.insert(cols)
-    assert GOVERNOR.tracked_bytes == before and t.live_segments() == []
+    # one byte short: the payload spills to the host tier, reserving nothing
+    t.insert(cols)
+    assert GOVERNOR.tracked_bytes == before
+    (seg,) = t.live_segments()
+    assert seg.vector("vec").is_host and seg.spilled_columns == {"vec"}
     st.server.device_payload_budget_bytes = before + need
     t.insert(cols)
     assert GOVERNOR.tracked_bytes == before + need
+    assert not t.live_segments()[1].vector("vec").is_host
     db.drop_table("b")
     del t
     gc.collect()
