@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main paths once on one GPU.
 
-    python3 chip_smoke.py [--profile [--out DIR]]
+    python3 chip_smoke.py [--profile] [--out DIR] [--f32-tables-only] [--root DIR]
 
 Run from the root of a checkout on a machine with one CUDA GPU (an H100:
 the kernels are built for sm_90a). It imports nothing of JAX and nothing
@@ -15,7 +15,12 @@ of the JAX package. Phases, each of which raises on failure:
      (Q = 300): score and tile_max held to `distance.kernel_error_bound`,
      with a hi-only control (the bf16 payload's query split without its
      lo half) that must fall outside it, and the kernels' own query split
-     checked bit for bit against `split_query_bf16`; gathermv held to
+     checked bit for bit against `split_query_bf16`; over an f32 payload
+     (the 3xTF32 engine, F32_SUM_TOL) with two controls that must fall
+     outside (single-pass TF32, the two-term split without q_hi x_lo),
+     the worst err/bound printed, and two bit-level probes (one-hot rows
+     and depths for the fragment layout; operands whose three TF32
+     products are exact); gathermv held to
      `gathermv.kernel_error_bound`, with a control that skips the query's
      bf16 cast and must fall outside it; the binary kernel, both layouts,
      bit for bit;
@@ -37,6 +42,9 @@ of the JAX package. Phases, each of which raises on failure:
   7. times: each kernel beside its plain version, the library call that
      computes the same function (where there is one) and its bound, and
      for score one bf16 torch.matmul over the same tensor-core work; the
+     f32 engine at a stream chunk, a spilled 128-d chunk and the GIST f32
+     segment beside `torch.matmul` f32, the CUDA-core FMA bound and the
+     3xTF32 tensor-core bound; the
      routing cost model's constants, as medians over COST_RUNS runs of the
      graph search at two batch sizes (host and device time) and of phase
      5's exact scan, with their spread and the HNSW cell's routing at both
@@ -101,7 +109,7 @@ of the JAX package. Phases, each of which raises on failure:
      segment), the first queries against an f64 numpy scan and every hit
      against its row's f64 score, a filter that const-folds nine segments
      away, deletes, and the f32 engine of score and tile_max against its
-     plain version and timed at one stream chunk's operands; (d) a default
+     plain version at one stream chunk's operands; (d) a default
      MSTG over it (disk mode: SQ8 windows on the card, the exact re-rank
      from host rows): build seconds, device bytes, the nprobe sweep to
      recall_ids@10 >= 0.95 against (c), QPS and the speedup over (c);
@@ -110,14 +118,24 @@ of the JAX package. Phases, each of which raises on failure:
      MSTG disk_mode=1 persisted and reloaded; (f) MSTG disk_mode=1 on phase
      3's table against phase 8's MSTG ids; (g) HNSWFLAT over phase 4's
      corpus in a host-tier table (gathermv): recall_ids@10 against phase
-     4's exact results within 0.01 of phase 6's, and against the f32 rows.
+     4's exact results within 0.01 of phase 6's, and against the f32 rows;
+ 13. device f32 tables (storage_dtype='float32'): phase 3's SIFT corpus
+     (L2, batch 100: the f32 tile_max on the 1M segment, the f32 score on
+     the 50k one) and phase 4's GIST corpus (Cosine, batch 256: the f32
+     score), recall@10 = 1.0 against an f64 numpy scan of the f32 rows
+     (near-tie rule), the f32 launches a search, then one-pass QPS over 9
+     passes, device ms and kernels a search (torch.profiler; traces under
+     --out). `--f32-tables-only` runs phase 1 and this phase alone, and
+     `--root DIR` imports the package from another checkout (a parent
+     commit unpacked with `git archive`), for a same-machine comparison.
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
 three over phase 8, score and tile_max over phase 9, the binary rows
 layout, blocks layout and grouping over phase 10, score, tile_max and
-gathermv over phase 11, and over phase 12 also the f32 engine's launches
-of score and tile_max (the record's score_f32 and tile_max_f32 lines);
+gathermv over phase 11, and over phases 12 and 13 also the f32 engine's
+launches of score and tile_max (the record's score_f32 and tile_max_f32
+lines);
 every kernel must have launched on its path, and the record's launches
 are the sums over those paths. The last line of standard output is {"ok": true, "device": {...}};
 the line before it is the per-kernel JSON record. Without CUDA, or without
@@ -150,7 +168,7 @@ GATHERMV_SHAPES = [(256, 8, 32, 1024, 100_000), (13, 8, 64, 128, 5_000),
                    (256, 5, 16, 1024, 20_000)]
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 PROFILE_RUNS = 9  # one-pass runs per cell for --profile's QPS spread
 # the device's sleep while the host enqueues a timed run (~25 ms at the
 # H100's clock; the longest run enqueues in a few ms)
@@ -174,6 +192,17 @@ KERNEL_SHAPES = [("score", 104, 50_176, 128, "L2"), ("score", 256, 114_688, 1024
 RAGGED_SHAPES = [("score", 300, 4_099, 136, "L2"), ("tile_max", 300, 16_512, 1024, "L2")]
 # (Q, D) of the split check: a resident and a streamed query
 SPLIT_SHAPES = [(100, 128), (300, 1024)]
+# (Q, N, D) of the f32 engine's bit-level probes: NT 64 / 104 / 256 / two
+# q-tiles, resident and ringed queries, D across and within 32-deep chunks
+TF32_PROBE_SHAPES = [(64, 512, 64), (104, 4096, 1024), (256, 640, 96), (300, 1024, 136)]
+# (Q, N, D, metric) the f32 engine is timed at (phase 7): one host-tier
+# stream chunk (the record's line), a spilled 128-d chunk, and the GIST
+# f32 table's segment (phase 13)
+F32_TIME_SHAPES = [(104, 131_072, 1024, "L2"), (104, 131_072, 128, "L2"),
+                   (256, 114_688, 1024, "Cosine")]
+# phase 13: one-pass runs per f32-table cell, and the oracle's rows a step
+F32_TABLE_RUNS = 9
+ORACLE_CHUNK = 65_536
 # the IVF path (BASELINE.json config 2, SIFT1M IVFFLAT at ncentroids 1024,
 # as bench.py:424 builds it): the nprobe sweep and its stopping rule
 # (bench.py:443-457), the large batch, the filters (10% of the 1M segment
@@ -330,20 +359,31 @@ def compare_kernels(dev):
     and differ only in the order of their sums. For a bf16 payload a
     control -- the plain version on the queries rounded to bf16, which is
     what a kernel without the query's lo half computes -- must fall outside
-    that bound, so the bound is shown to catch a kernel that drops it."""
+    that bound, so the bound is shown to catch a kernel that drops it. For
+    an f32 payload (the 3xTF32 engine, bound `F32_SUM_TOL`) two controls
+    must fall outside it: single-pass TF32 and the two-term split without
+    q_hi x_lo (`distance.tf32_products`, summed in f64)."""
     import torch
 
     from myscaledb_tpu_torch.metrics import Metric
     from myscaledb_tpu_torch.ops import distance, tilescan
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    err = {"score": 0.0, "tile_max": 0.0}
+    err = {"score": 0.0, "tile_max": 0.0, "score_f32": 0.0, "tile_max_f32": 0.0}
+    ratio = {"score_f32": 0.0, "tile_max_f32": 0.0}
 
-    def operands(q, n, d, dtype, metric):
-        x = (3.0 * torch.randn((n, d), generator=gen, device=dev)).to(dtype)
-        qs = distance.normalize_queries(
-            3.0 * torch.randn((q, d), generator=gen, device=dev), metric
-        ).contiguous()
+    def operands(q, n, d, dtype, metric, data):
+        if data == "clustered":  # bench.py's corpus shape: sums that grow with D
+            centres = 6.0 * torch.randn((64, d), generator=gen, device=dev)
+            pick = torch.randint(0, 64, (n,), generator=gen, device=dev)
+            x = centres[pick] + torch.randn((n, d), generator=gen, device=dev)
+            rows = torch.randint(0, n, (q,), generator=gen, device=dev)
+            qs = x[rows] + 0.3 * torch.randn((q, d), generator=gen, device=dev)
+            x = x.to(dtype)
+        else:
+            x = (3.0 * torch.randn((n, d), generator=gen, device=dev)).to(dtype)
+            qs = 3.0 * torch.randn((q, d), generator=gen, device=dev)
+        qs = distance.normalize_queries(qs, metric).contiguous()
         aux = distance.base_aux(x, metric)
         if aux is None:
             aux = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -355,34 +395,48 @@ def compare_kernels(dev):
         ratio = diff / (bound + distance.KERNEL_RTOL * want.abs())
         return float(diff.max()), float(ratio.max())
 
-    def close(name, got, want, bound, what, control=None):
+    def close(name, got, want, bound, what, controls=()):
         e, r = worst(got, want, bound)
         err[name] = max(err[name], e)
-        line = f"  {name:8s} {what}: max_abs_err={e:.6g} (worst err/bound {r:.3g})"
-        if control is not None:
+        if name in ratio:
+            ratio[name] = max(ratio[name], r)
+        line = f"  {name:12s} {what}: max_abs_err={e:.6g} (worst err/bound {r:.3g})"
+        for label, control in controls:
             ce, cr = worst(control, want, bound)
             n_out = int(distance.outside_kernel_bound(control, want, bound).sum())
-            line += (f"; hi-only control max_abs_err={ce:.6g} (worst err/bound {cr:.3g},"
+            line += (f"; {label} control max_abs_err={ce:.6g} (worst err/bound {cr:.3g},"
                      f" {n_out} of {want.numel()} outside)")
-            check(n_out > 0, f"the bound does not catch a hi-only {name} kernel: {what}")
+            check(n_out > 0, f"the bound does not catch a {label} {name} kernel: {what}")
         log(line)
         check(not bool(distance.outside_kernel_bound(got, want, bound).any()),
               f"{name} disagrees with its plain version: {what}")
 
-    for name, q, n, d, _ in KERNEL_SHAPES + RAGGED_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    def masked_maxes(s, m8):
+        s = torch.where(m8[None, :] != 0, s, torch.full_like(s, tilescan.NEG))
+        return torch.amax(s.reshape(s.shape[0], -1, tilescan.SUB), dim=2)
+
+    tf32_controls = (("single-pass TF32", distance.TF32_SINGLE),
+                     ("two-term (no q_hi x_lo)", distance.TF32_TWO_TERM))
+    for kname, q, n, d, _ in KERNEL_SHAPES + RAGGED_SHAPES:
+        for dtype, data in ((torch.float32, "normal"), (torch.float32, "clustered"),
+                            (torch.bfloat16, "normal")):
             for metric in (Metric.L2, Metric.IP, Metric.COSINE):
-                qs, x, aux = operands(q, n, d, dtype, metric)
+                qs, x, aux = operands(q, n, d, dtype, metric, data)
+                split = dtype == torch.bfloat16
+                name = kname if split else f"{kname}_f32"
+                what = f"Q={q} N={n} D={d} {str(dtype)[6:]} {metric.value} {data}"
                 # a bf16-valued query splits into hi = q, lo = 0
                 hi_only = qs.to(torch.bfloat16).to(torch.float32)
-                split = dtype == torch.bfloat16
-                what = f"Q={q} N={n} D={d} {str(dtype)[6:]} {metric.value}"
-                if name == "score":
+                if kname == "score":
                     want = distance.scores_plain(qs, x, aux, metric)
+                    if split:
+                        controls = [("hi-only", distance.scores_plain(hi_only, x, aux, metric))]
+                    else:
+                        controls = [(label, distance.tf32_products(qs, x, aux, metric, terms))
+                                    for label, terms in tf32_controls]
                     close(name, distance.scores(qs, x, aux, metric=metric), want,
-                          distance.kernel_error_bound(qs, x, aux, metric), what,
-                          distance.scores_plain(hi_only, x, aux, metric) if split else None)
-                    del want
+                          distance.kernel_error_bound(qs, x, aux, metric), what, controls)
+                    del want, controls
                     continue
                 bound = tilescan.tile_error_bound(qs, x, aux, metric)
                 for mname, mask in (
@@ -398,12 +452,21 @@ def compare_kernels(dev):
                     if mname == "all masked":
                         check(bool((got == tilescan.NEG).all()),
                               f"tile_max all-masked must give -3.4e38: {what}")
-                    control = None
-                    if split and mname != "all masked":
-                        control = tilescan.tile_maxes_plain(hi_only, x, aux, m8, metric)
-                    close(name, got, want, bound, f"{what} {mname}", control)
+                    controls = []
+                    if mname != "all masked":
+                        if split:
+                            controls = [("hi-only", tilescan.tile_maxes_plain(
+                                hi_only, x, aux, m8, metric))]
+                        else:
+                            controls = [(label, masked_maxes(distance.tf32_products(
+                                qs, x, aux, metric, terms), m8)) for label, terms in tf32_controls]
+                    close(name, got, want, bound, f"{what} {mname}", controls)
                 del qs, x, aux
+    log(f"  f32 engine: worst err/bound over every shape and metric: score "
+        f"{ratio['score_f32']:.4g}, tile_max {ratio['tile_max_f32']:.4g} (bound: "
+        f"F32_SUM_TOL 2^-18 of sum |q_i x_i| + 1e-5 of the score)")
     check_split(dev, gen)
+    check_tf32_exact(dev)
     sync(dev)
     return err
 
@@ -428,6 +491,61 @@ def check_split(dev, gen):
         log(f"  split    Q={q} D={d} ({'resident' if g.resident else 'streamed'} query): "
             f"{n_diff} of {want.numel()} scores differ from split_query_bf16's")
         check(n_diff == 0, f"the kernel's query split is not split_query_bf16's: Q={q} D={d}")
+
+
+def check_tf32_exact(dev):
+    """Two probes of the f32 engine that must hold bit for bit. (a) The
+    register fragments and the permuted query: payload row r one-hot at
+    depth (7r + 3) % D with value r + 1, query i one-hot at depth i % D:
+    every score is one exact product, so a row, query or depth put in the
+    wrong place shows as a wrong entry. (b) The three products: one side
+    with 22 significant bits (hi + lo holds it exactly), the other +-1 with
+    at most 4 nonzeros a row, so q.x and every partial sum are exact in
+    f32: the kernel must equal the plain version, single-pass TF32 must
+    not."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, tilescan
+
+    rng = np.random.default_rng(7)
+    for q, n, d in TF32_PROBE_SHAPES:
+        r = torch.arange(n)
+        x = torch.zeros((n, d))
+        x[r, (7 * r + 3) % d] = (r + 1).to(torch.float32)
+        i = torch.arange(q)
+        qs = torch.zeros((q, d))
+        qs[i, i % d] = (1 + i // d).to(torch.float32)
+        qs, x = qs.to(dev), x.to(dev)
+        zeros = torch.zeros(n, device=dev)
+        m8 = (torch.arange(n, device=dev) % 5 != 1).to(torch.uint8)
+        same = (torch.equal(distance.scores(qs, x, None, metric=Metric.IP),
+                            distance.scores_plain(qs, x, None, Metric.IP))
+                and torch.equal(tilescan.tile_maxes(qs, x, zeros, m8, metric=Metric.IP),
+                                tilescan.tile_maxes_plain(qs, x, zeros, m8, Metric.IP)))
+        g = distance.f32_scan_geometry(q, n, d)
+        log(f"  tf32     one-hot layout Q={q} N={n} D={d} (NT {g.nt}, "
+            f"{'resident' if g.resident else 'ringed'} query): score and tile_max "
+            f"{'equal' if same else 'DIFFER from'} their plain versions bit for bit")
+        check(same, f"the f32 engine misplaces a fragment: Q={q} N={n} D={d}")
+        for side in ("payload", "query"):
+            dense = (rng.integers(2**21, 2**22, (n if side == "payload" else q, d))
+                     * rng.choice([-1, 1], (n if side == "payload" else q, d)) * 2.0**-20)
+            sparse = np.zeros((q if side == "payload" else n, d), np.float32)
+            for row in sparse:
+                row[rng.choice(d, min(4, d), replace=False)] = rng.choice([-1.0, 1.0], min(4, d))
+            qn, xn = (sparse, dense) if side == "payload" else (dense, sparse)
+            qs = torch.from_numpy(qn.astype(np.float32)).to(dev)
+            x = torch.from_numpy(xn.astype(np.float32)).to(dev)
+            got = distance.scores(qs, x, None, metric=Metric.IP)
+            want = distance.scores_plain(qs, x, None, Metric.IP)
+            single = distance.tf32_products(qs, x, None, Metric.IP, distance.TF32_SINGLE)
+            n_diff = int((got != want).sum())
+            n_single = int((single != want).sum())
+            log(f"  tf32     22-bit {side}, Q={q} N={n} D={d}: {n_diff} of {want.numel()} "
+                f"scores differ from the f32 plain version; single-pass TF32 {n_single}")
+            check(n_diff == 0, f"the f32 engine's three products are not exact: {side} Q={q}")
+            check(n_single > want.numel() // 2, "single-pass TF32 should differ on most scores")
 
 
 def compare_gathermv(dev):
@@ -912,6 +1030,62 @@ def time_kernels(dev, idx, card):
         blocks * m * dt + 4 * qn * dt + 4 * qn * beam + 4 * qn * beam * m,
         2 * qn * beam * m * dt, "f32")  # f32 FMA, no tensor cores
     done("gathermv", rec, call)
+    out.update(time_f32_engine(dev, gen, card))
+    return out
+
+
+def time_f32_engine(dev, gen, card):
+    """The f32 (3xTF32) engine of score and tile_max at F32_TIME_SHAPES,
+    each beside its plain version, `torch.matmul` f32 (score), the
+    CUDA-core FMA bound (what the engine it replaced ran on) and the
+    tensor-core bound of its three TF32 products. The record lines
+    score_f32 and tile_max_f32 take the first shape (one stream chunk)."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, tilescan
+
+    out = {}
+    for qn, n, d, mname in F32_TIME_SHAPES:
+        metric = Metric(mname)
+        x = 3.0 * torch.randn((n, d), generator=gen, device=dev)
+        q = distance.normalize_queries(torch.randn((qn, d), generator=gen, device=dev), metric)
+        aux = distance.base_aux(x, metric)
+        m8 = (torch.rand((n,), generator=gen, device=dev) < 0.99).to(torch.uint8)
+        g = distance.f32_scan_geometry(qn, n, d)
+        shape = f"Q={qn} N={n} D={d} f32 {mname} (NT {g.nt}, {g.stages} stages, " \
+                f"{'resident' if g.resident else 'ringed'} query)"
+        flops = 2 * qn * n * d  # one f32 product
+        fma_ms = bound(0, flops, "f32")[0]
+        for name in ("score_f32", "tile_max_f32"):
+            if name == "score_f32":
+                call = lambda: distance.scores(q, x, aux, metric=metric)  # noqa: E731
+                rec = dict(ms=cuda_time_ms(call),
+                           plain_ms=cuda_time_ms(lambda: distance.scores_plain(q, x, aux, metric)),
+                           library_ms=cuda_time_ms(lambda: torch.matmul(q, x.T)))
+                nbytes = 4 * n * d + 4 * n + 4 * qn * d + 4 * qn * n
+            else:
+                a = aux if aux is not None else torch.zeros((n,), device=dev)
+                call = lambda: tilescan.tile_maxes(q, x, a, m8, metric=metric)  # noqa: E731
+                rec = dict(ms=cuda_time_ms(call),
+                           plain_ms=cuda_time_ms(lambda: tilescan.tile_maxes_plain(
+                               q, x, a, m8, metric)),
+                           library_ms=None)  # no one PyTorch call takes masked sub-tile maxima
+                nbytes = 4 * n * d + 5 * n + 4 * qn * d + 4 * qn * (n // tilescan.SUB)
+            # the least time for the same work: the bytes, or the three TF32
+            # products at the tensor cores' TF32 peak
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * flops, "tf32")
+            lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+            log(f"  {name:12s} {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                f"ms, library (torch.matmul f32) {lib}; bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}; bytes {1e3 * nbytes / PEAK_BYTES_PER_S:.4f}, 3xTF32 "
+                f"{bound(0, 3 * flops, 'tf32')[0]:.4f}, f32 FMA {fma_ms:.4f}): "
+                f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it  [{card}]")
+            if name == "score_f32" and rec["ms"] > rec["library_ms"]:
+                log(f"  NOTE: the f32 score engine is slower than torch.matmul f32 at {shape}")
+            rec["shape"] = shape
+            out.setdefault(name, rec)
+        del x, q, aux, m8
     return out
 
 
@@ -2727,9 +2901,9 @@ def stream_path(ms, dev, t, queries, segs, payload, link, card):
     """Phase 12c: the exact scan of the host-tier table (no index, brute
     force on): two timed passes, the launches, the f64 oracle, a filter
     that const-folds all but the first segment away, deletes, and the f32
-    engine of score and tile_max against its plain version and timed at
-    one stream chunk's operands. Returns (the exact results after the
-    deletes, seconds per pass, the f32 engine's records and max errors)."""
+    engine of score and tile_max against its plain version at one stream
+    chunk's operands (phase 7 times it). Returns (the exact results after
+    the deletes, seconds per pass, the f32 engine's max errors)."""
     import torch
 
     from myscaledb_tpu_torch import F
@@ -2789,8 +2963,8 @@ def stream_path(ms, dev, t, queries, segs, payload, link, card):
     check_host_hits(t, queries, dres, "stream scan after deletes")
     log(f"  delete: {n_del} rows (each query's nearest), none returned; every hit exact")
 
-    # the f32 engine at one stream chunk's operands; these launches compare
-    # and time the kernels, so they stay out of the path's counts
+    # the f32 engine at one stream chunk's operands (phase 7 times it); these
+    # launches compare the kernels, so they stay out of the path's counts
     counts = [(w, w.launches, w.launches_f32) for w in (distance.scores, tilescan.tile_maxes)]
     seg = segs[0]
     p = seg.vector("vec")
@@ -2813,39 +2987,11 @@ def stream_path(ms, dev, t, queries, segs, payload, link, card):
     check(not bool(distance.outside_kernel_bound(got, want, tb).any()),
           "the f32 tile_max engine disagrees with its plain version at a stream chunk")
     log(f"  f32 engine at a stream chunk (Q={qn} N={STREAM_CHUNK:,} D={HOST_DPAD} f32 L2): score "
-        f"max_abs_err {err_s:.6g}, tile_max {err_t:.6g}, within distance.kernel_error_bound")
-    del got, want, bound_s, tb
-    timing = {}
-    shape = f"Q={qn} N={STREAM_CHUNK} D={HOST_DPAD} f32 L2"
-    flops = 2 * qn * STREAM_CHUNK * HOST_DPAD
-    for name in ("score_f32", "tile_max_f32"):
-        if name == "score_f32":
-            call = lambda: distance.scores(q, x, aux, metric=Metric.L2)  # noqa: E731
-            rec = dict(ms=cuda_time_ms(call),
-                       plain_ms=cuda_time_ms(lambda: distance.scores_plain(q, x, aux, Metric.L2)),
-                       library_ms=cuda_time_ms(lambda: torch.matmul(q, x.T)))
-            nbytes = 4 * STREAM_CHUNK * HOST_DPAD + 4 * STREAM_CHUNK + 4 * qn * HOST_DPAD \
-                + 4 * qn * STREAM_CHUNK
-        else:
-            call = lambda: tilescan.tile_maxes(q, x, aux, m8, metric=Metric.L2)  # noqa: E731
-            rec = dict(ms=cuda_time_ms(call),
-                       plain_ms=cuda_time_ms(
-                           lambda: tilescan.tile_maxes_plain(q, x, aux, m8, Metric.L2)),
-                       library_ms=None)  # no one PyTorch call takes masked sub-tile maxima
-            nbytes = 4 * STREAM_CHUNK * HOST_DPAD + 5 * STREAM_CHUNK + 4 * qn * HOST_DPAD \
-                + 4 * qn * (STREAM_CHUNK // tilescan.SUB)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "f32")
-        lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
-        log(f"  {name:12s} {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-            f"library (torch.matmul f32) {lib}, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it)  [{card}]")
-        timing[name] = rec
-    if timing["score_f32"]["ms"] > timing["score_f32"]["library_ms"]:
-        log("  NOTE: the f32 score engine is slower than torch.matmul f32 at the stream's shape")
-    del x, aux, q, m8
+        f"max_abs_err {err_s:.6g}, tile_max {err_t:.6g}, within distance.kernel_error_bound (F32_SUM_TOL)")
+    del got, want, bound_s, tb, x, aux, q, m8
     for w, n_all, n_f32 in counts:
         w.launches, w.launches_f32 = n_all, n_f32
-    return dres, best, timing, {"score_f32": err_s, "tile_max_f32": err_t}
+    return dres, best, {"score_f32": err_s, "tile_max_f32": err_t}
 
 
 def disk_mstg_path(dev, t, queries, gt, stream_s, payload, card):
@@ -3088,8 +3234,8 @@ def host_hnsw_path(ms, dev, gist_batches, gist_gt, phase6_recall, card):
 
 def host_tier_path(ms, dev, sift, sift_batches, gist_batches, gist_gt, op, mstg_op,
                    phase6_recall, card):
-    """Phase 12: the host tier. Returns (the f32 engine's records, their
-    max errors)."""
+    """Phase 12: the host tier. Returns the f32 engine's max errors at a
+    stream chunk."""
     import gc
 
     import torch
@@ -3100,7 +3246,7 @@ def host_tier_path(ms, dev, sift, sift_batches, gist_batches, gist_gt, op, mstg_
         f"vector_storage_tier='host')")
     db, t, queries, segs, payload = host_corpus(ms, dev, card)
     log("[12c] streamed exact scan (copy stream, two device buffers, pinned rows)")
-    gt, stream_s, timing, errs = stream_path(ms, dev, t, queries, segs, payload, link, card)
+    gt, stream_s, errs = stream_path(ms, dev, t, queries, segs, payload, link, card)
     log("[12d] disk-mode MSTG over the host-tier table")
     disk_mstg_path(dev, t, queries, gt, stream_s, payload, card)
     db.close()
@@ -3113,7 +3259,119 @@ def host_tier_path(ms, dev, sift, sift_batches, gist_batches, gist_gt, op, mstg_
     disk_mode_hbm_path(dev, sift, sift_batches, op, mstg_op, card)
     log("[12g] HNSWFLAT over a host-tier table")
     host_hnsw_path(ms, dev, gist_batches, gist_gt, phase6_recall, card)
-    return timing, errs
+    return errs
+
+
+# ---------------------------------------------------------------- phase 13
+def numpy_exact(corpus, queries, k, metric):
+    """The exact top-k of an f64 numpy scan of the f32 rows: ids and
+    max-is-better scores as the engine reports them (L2: 2 q.x - |x|^2,
+    Cosine: q/|q| . x/|x|), ORACLE_CHUNK rows at a time."""
+    q = queries.astype(np.float64)
+    if metric == "Cosine":
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    best_s = np.full((len(q), k), -np.inf)
+    best_i = np.zeros((len(q), k), np.int64)
+    for i0 in range(0, len(corpus), ORACLE_CHUNK):
+        x = corpus[i0 : i0 + ORACLE_CHUNK].astype(np.float64)
+        s = q @ x.T
+        if metric == "L2":
+            s = 2.0 * s - (x * x).sum(1)[None, :]
+        else:
+            s = s / np.linalg.norm(x, axis=1)[None, :]
+        s = np.concatenate([best_s, s], axis=1)
+        ids = np.concatenate([best_i, np.broadcast_to(np.arange(i0, i0 + len(x)), s[:, k:].shape)],
+                             axis=1)
+        top = np.argpartition(-s, k - 1, axis=1)[:, :k]
+        best_s = np.take_along_axis(s, top, 1)
+        best_i = np.take_along_axis(ids, top, 1)
+    order = np.argsort(-best_s, axis=1)
+    return np.take_along_axis(best_i, order, 1), np.take_along_axis(best_s, order, 1)
+
+
+def check_ids(label, t, results, oracle, tol):
+    """recall@k = 1.0 against `oracle` (ids, scores) under section 2's
+    near-tie rule: a query whose ids differ passes only if its sorted
+    scores agree with the oracle's within `tol`."""
+    ids = np.concatenate([t.gather(r, ["id"])["id"] for r in results]).astype(np.int64)
+    vals = np.concatenate([r.scores for r in results]).astype(np.float64)
+    oi, os_ = oracle
+    tied = 0
+    for i in range(len(oi)):
+        if set(ids[i].tolist()) != set(oi[i].tolist()):
+            check(np.allclose(np.sort(vals[i]), np.sort(os_[i]), **tol),
+                  f"{label}: query {i} differs from the exact top-{K}")
+            tied += 1
+    log(f"  {label}: recall@{K} = 1.0 against an f64 numpy scan of the f32 rows "
+        f"({len(oi)} queries, {tied} differ only by near-tied scores)")
+
+
+def f32_table_path(ms, dev, card, out_dir):
+    """Phase 13: exact search over two device-resident f32 tables
+    (storage_dtype="float32"): phase 3's SIFT corpus (1,000,000 + 50,000 x
+    128, L2, batch 100: tile_max's f32 engine on the 1M segment, score's
+    on the 50k one) and phase 4's GIST corpus (100,000 x 960, Cosine,
+    batch 256: score's f32 engine). Each: recall@10 = 1.0 against an f64
+    numpy scan (near-tie rule), the f32 launches a search, then
+    profile_cells (one-pass QPS over F32_TABLE_RUNS passes, device ms and
+    kernels a search from torch.profiler). Returns the launch counts."""
+    import torch
+
+    from myscaledb_tpu_torch.ops import distance, tilescan
+
+    wrappers = (distance.scores, tilescan.tile_maxes)
+    for w in wrappers:
+        w.launches = w.launches_f32 = 0
+    cells, dbs = [], []
+    for label, n, d, metric, batch in (("sift_f32", SIFT_N, SIFT_D, "L2", SIFT_BATCH),
+                                       ("gist_f32", GIST_N, GIST_D, "Cosine", GIST_BATCH)):
+        st = ms.Settings()
+        st.table.storage_dtype = "float32"
+        st.table.float_vector_search_metric_type = metric
+        db = ms.connect(st, device=dev)
+        dbs.append(db)
+        t = db.create_table(label, ms.Schema({"id": ms.UInt64(), "vec": ms.FloatVector(d)}))
+        t0 = time.perf_counter()
+        if label == "sift_f32":  # phase 3's corpus and queries
+            corpus = np.concatenate([make_corpus(n, d, seed=0), make_corpus(
+                SIFT_SMALL_N, d, seed=1, centers=corpus_centers(d))])
+            qrng, nq = np.random.default_rng(1), SIFT_NQ
+        else:  # phase 4's
+            corpus = make_corpus(n, d, seed=3)
+            qrng, nq = np.random.default_rng(4), GIST_NQ
+        qidx = qrng.choice(n, nq, replace=False)
+        queries = (corpus[qidx] + 0.3 * qrng.standard_normal((nq, d))).astype(np.float32)
+        for i0, i1 in ((0, n), (n, len(corpus))) if label == "sift_f32" else ((0, n),):
+            t.insert({"id": np.arange(i0, i1, dtype=np.uint64), "vec": corpus[i0:i1]})
+        sync(dev)
+        segs = t.live_segments()
+        check(all(s.vector("vec").data.dtype == torch.float32
+                  and s.vector("vec").data.device.type == dev.type for s in segs),
+              f"{label}: the payload must be f32 on the device")
+        batches = [queries[i : i + batch] for i in range(0, nq, batch)]
+        before = [w.launches_f32 for w in wrappers]
+        res = [t.search("vec", qb, k=K, metric=metric) for qb in batches]
+        n_score, n_tile = (w.launches_f32 - b for w, b in zip(wrappers, before))
+        want = (len(batches), len(batches)) if label == "sift_f32" else (len(batches), 0)
+        check((n_score, n_tile) == want,
+              f"{label}: f32 launches score {n_score}, tile_max {n_tile}; expected {want}")
+        t1 = time.perf_counter()
+        check_ids(label, t, res, numpy_exact(corpus, queries, K, metric), F32_TOL)
+        log(f"  {label}: {len(corpus):,} x {d} f32 on the card in {[(s.n_rows, s.capacity) for s in segs]}"
+            f"; {n_score / len(batches):.0f} f32 score and {n_tile / len(batches):.0f} f32 tile_max "
+            f"launches a search (batch {batch}); set-up and first pass {t1 - t0:.1f} s, oracle "
+            f"{time.perf_counter() - t1:.1f} s")
+        cells.append((label, (lambda tt, m: lambda qb: tt.search("vec", qb, k=K, metric=m))(
+            t, metric), batches))
+        del corpus
+    log(f"  where the time goes on {card}:")
+    profile_cells(cells, F32_TABLE_RUNS, out_dir, card)
+    counts = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+              "score_f32": distance.scores.launches_f32,
+              "tile_max_f32": tilescan.tile_maxes.launches_f32}
+    for db in dbs:
+        db.close()
+    return counts
 
 
 def main(argv=None):
@@ -3125,14 +3383,20 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="show where each cell's time goes (phases 5 and 6)")
     ap.add_argument("--out", default=os.path.join("myscaledb_tpu_torch", "_build", "profile"),
-                    help="directory for --profile's traces and host profiles")
+                    help="directory for --profile's (and phase 13's) traces and host profiles")
+    ap.add_argument("--f32-tables-only", action="store_true",
+                    help="run the set-up and phase 13 (the device f32 tables) only, and print "
+                         "no record: a side of a same-machine comparison")
+    ap.add_argument("--root", default=None,
+                    help="import myscaledb_tpu_torch from this checkout (another commit's, "
+                         "for a same-machine comparison) instead of this file's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to drive",
               file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
+    here = os.path.abspath(args.root or os.path.dirname(os.path.abspath(__file__)))
     if not os.path.isdir(os.path.join(here, "myscaledb_tpu_torch")):
         print("chip_smoke: run it from a checkout: myscaledb_tpu_torch/ is missing",
               file=sys.stderr)
@@ -3154,6 +3418,11 @@ def main(argv=None):
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_cuda.LIBRARY.build_seconds:.2f} s) -> {_cuda.LIBRARY.path}")
     log_ptxas(_cuda.LIBRARY.ptxas_log())
+    if args.f32_tables_only:
+        log(f"[13] device f32 tables (package from {here})")
+        log(f"  kernel launches on the f32 tables: {f32_table_path(ms, dev, card, args.out)}")
+        log(f"chip_smoke: phase 13 alone passed in {time.perf_counter() - t_start:.1f} s  [{card}]")
+        return 0
 
     # ---- 2. kernels vs their plain versions
     log("[2] kernels vs plain versions on the card")
@@ -3272,8 +3541,8 @@ def main(argv=None):
     for w in (distance.scores, tilescan.tile_maxes):
         w.launches = w.launches_f32 = 0
     gathermv.gather_block_scores.launches = 0
-    t12_timing, e12 = host_tier_path(ms, dev, sift, sift_batches, hb, gist_gt, ivf_op, mstg_op,
-                                     curve[100][0], card)
+    e12 = host_tier_path(ms, dev, sift, sift_batches, hb, gist_gt, ivf_op, mstg_op,
+                         curve[100][0], card)
     p12 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
            "gathermv": gathermv.gather_block_scores.launches,
            "score_f32": distance.scores.launches_f32,
@@ -3283,8 +3552,19 @@ def main(argv=None):
     for name, n in p12.items():
         check(n > 0, f"kernel {name} was not launched on phase 12's paths")
         launches[name] = launches.get(name, 0) + n
-    timing.update(t12_timing)
-    errs.update(e12)
+    for name, e in e12.items():
+        errs[name] = max(errs[name], e)
+
+    # ---- 13. the device f32 tables, with the launch counters zeroed inside
+    t13 = time.perf_counter()
+    log(f"[13] device f32 tables: phase 3's SIFT corpus (L2, batch {SIFT_BATCH}) and phase 4's "
+        f"GIST corpus (Cosine, batch {GIST_BATCH}), storage_dtype='float32', k={K}")
+    p13 = f32_table_path(ms, dev, card, args.out)
+    log(f"  kernel launches on the f32 tables: {p13}; phase 13 took "
+        f"{time.perf_counter() - t13:.2f} s")
+    for name, n in p13.items():
+        check(n > 0, f"kernel {name} was not launched on phase 13's paths")
+        launches[name] += n
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
@@ -3312,7 +3592,8 @@ def main(argv=None):
          "replaces": "myscaledb_tpu/index/binary.py:223",
          "launches": launches["binary_group"], "max_abs_err": errs["binary_group"],
          **{k: timing["binary_group"][k] for k in keys}},
-        # the f32 engine of score and tile_max (f32 payloads: the host tier)
+        # the f32 (3xTF32) engine of score and tile_max (f32 payloads: the
+        # host tier, a spill, storage_dtype="float32"); times from phase 7
         {"name": "score_f32", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/score.cu",
          "replaces": "myscaledb_tpu/ops/distance.py:57",
          "launches": launches["score_f32"], "max_abs_err": errs["score_f32"],

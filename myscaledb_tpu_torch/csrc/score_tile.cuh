@@ -15,11 +15,16 @@
 //   bf16 payload on the tensor cores into one f32 accumulator, as the TPU
 //   kernels do. A single bf16 pass of the query would reorder near-tied
 //   neighbours at SIFT scale.
-// * f32 payload (off the main path) -> `fma_tile`: f32 FMA on the CUDA
-//   cores (no tensor-core format keeps f32 exact), one 128 x 128 tile per
-//   256-thread block. Thread (ty, tx) of a 16 x 16 grid owns queries
-//   ty + 16*i and rows tx + 16*j, which keeps shared-memory reads
-//   conflict-free.
+// * f32 payload (`storage_dtype="float32"`, the host tier's streamed scan,
+//   a spilled table) -> `tf32_scan_kernel`, namespace tf below. It replaces
+//   the `split=False` branch of the same two TPU kernels, a single f32
+//   dot_general under exact_precision. No tensor-core format holds an f32
+//   operand, but three TF32 products keep ~22 bits of it ("3xTF32"): each
+//   f32 value v splits into hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v -
+//   hi) (v - hi is exact in f32), and q.x ~= q_hi.x_hi + q_hi.x_lo +
+//   q_lo.x_hi, all three into one f32 accumulator. Each product errs by at
+//   most ~3 * 2^-22 of |q_i x_i| (ops/distance.py::F32_SUM_TOL holds the
+//   kernel to 2^-18 of sum |q_i x_i|).
 //
 // What bounds the bf16 engine on the H100, and what the design does:
 //
@@ -81,81 +86,14 @@
 
 namespace msd {
 
-constexpr int BM = 128;  // queries per f32 block tile
-constexpr int BN = 128;  // payload rows per f32 block tile (= one tilescan sub-tile)
-constexpr int THREADS = 256;
-constexpr int SLOTS = 16;  // threads sharing one query in an f32 tile
 constexpr float NEG = -3.4e38f;  // the score of a masked row
 
 enum Metric { L2 = 0, IP = 1, COSINE = 2 };
-
-struct Tile {
-    float acc[8][8];  // acc[i][j]: query qi(i), row ni(j)
-    int q_base, n_base;
-    int slot;
-    // tile-local query of acc[i][*] and row of acc[*][j]
-    __device__ __forceinline__ int qi(int i) const { return q_base + 16 * i; }
-    __device__ __forceinline__ int ni(int j) const { return n_base + 16 * j; }
-};
 
 __host__ __device__ __forceinline__ float apply_metric(int metric, float s, float aux) {
     if (metric == L2) return 2.0f * s - aux;
     if (metric == COSINE) return s * aux;
     return s;
-}
-
-// ---------------------------------------------------------------- f32 FMA
-constexpr int FK = 8;  // depth per stage
-
-__device__ __forceinline__ void fma_tile(const float* __restrict__ q, const float* __restrict__ x,
-                                         int Q, int N, int D, int q0, int n0, Tile& t) {
-    __shared__ float As[FK][BM];
-    __shared__ float Bs[FK][BN];
-    const int tid = threadIdx.x;
-    const int ty = tid / 16;
-    const int tx = tid % 16;
-    t.q_base = ty;
-    t.n_base = tx;
-    t.slot = tx;
-    // loader: each thread brings 4 consecutive depth values of one row of
-    // each operand (BM * FK / 4 == THREADS)
-    const int lr = tid / (FK / 4);
-    const int lc = (tid % (FK / 4)) * 4;
-    const bool q_ok = q0 + lr < Q;
-    const bool x_ok = n0 + lr < N;
-    const float* qrow = q + (size_t)(q0 + lr) * D + lc;
-    const float* xrow = x + (size_t)(n0 + lr) * D + lc;
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) t.acc[i][j] = 0.0f;
-
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 a = q_ok ? *reinterpret_cast<const float4*>(qrow) : zero;
-    float4 b = x_ok ? *reinterpret_cast<const float4*>(xrow) : zero;
-    for (int k0 = 0; k0 < D; k0 += FK) {
-        __syncthreads();  // the previous stage is no longer read
-        As[lc + 0][lr] = a.x; As[lc + 1][lr] = a.y; As[lc + 2][lr] = a.z; As[lc + 3][lr] = a.w;
-        Bs[lc + 0][lr] = b.x; Bs[lc + 1][lr] = b.y; Bs[lc + 2][lr] = b.z; Bs[lc + 3][lr] = b.w;
-        __syncthreads();
-        if (k0 + FK < D) {  // prefetch the next stage while this one runs
-            if (q_ok) a = *reinterpret_cast<const float4*>(qrow + k0 + FK);
-            if (x_ok) b = *reinterpret_cast<const float4*>(xrow + k0 + FK);
-        }
-#pragma unroll
-        for (int kk = 0; kk < FK; ++kk) {
-            float ra[8], rb[8];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) ra[i] = As[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) rb[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) t.acc[i][j] = fmaf(ra[i], rb[j], t.acc[i][j]);
-        }
-    }
 }
 
 // --------------------------------------------- bf16: TMA ring + wgmma
@@ -709,4 +647,543 @@ static int launch(const void* q, const void* x, const void* aux, const void* mas
 }
 
 }  // namespace wg
+
+// ------------------------------------- f32: split-TF32 (3xTF32) wgmma
+// What bounds the f32 engine on the H100, and what the design does:
+//
+// * Tensor-core rate. 3xTF32 triples the MMA work: at one host-tier
+//   stream chunk (Q=104, N=131,072, D=1,024) 3 x 27.9 GFLOP, 0.169 ms at
+//   the 495 TF/s TF32 peak, against 0.42 ms of f32 FMA at 67 TF/s (the
+//   CUDA cores, which the engine this replaced ran on). `wgmma` m64nNk8
+//   .tf32 is the instruction; TF32 takes K-major A and B only, which the
+//   payload [N, D] and the query [Q, D] already are.
+// * Payload bytes. The same chunk reads 537 MB of payload and writes 54.5
+//   MB of scores, ~0.177 ms at 3.35 TB/s: the two bounds are close, so
+//   TMA loads of the payload overlap the MMAs as in the bf16 engine (one
+//   producer thread, a ring of 2-4 mbarrier stages, persistent blocks,
+//   `setmaxnreg` 40 / 232).
+// * The payload is the register-A operand: each consumer warpgroup takes
+//   64 payload rows (a block tile is BN = 128 rows, one tilescan sub-tile)
+//   and the query is B from shared memory (n = NT queries: 64, 104 or
+//   128, several q-tiles of 128 above; 104 is a batch of 100 padded to 8,
+//   the batch of bench.py and of the exact paths, which NT = 128 would pad
+//   by 23%; 8-13% faster than 128 there on the H100, ab_f32_engine.py).
+//   The accumulator is two-level (a chunk's wgmmas into a fresh tile,
+//   then f32 adds into the tile's sum; see the consumer loop), which
+//   takes 2 x NT / 2 registers a thread. Each thread loads its A
+//   fragments from the 128B-swizzled f32 stage, splits them in registers
+//   and issues its wgmmas: the huge operand is never written back to
+//   shared memory as hi/lo tiles.
+//   TF32 register-A fragments are 4 x b32 a thread: rows lane/4 and +8,
+//   depth lane%4 and +4 of a k8 step. Loaded as they lie, they would be 16
+//   scalar loads a 32-deep chunk; instead the depth of each 32-deep chunk
+//   is permuted (logical depth 8i + 4h + t holds depth 16h + 4t + i), so
+//   a thread's depths for all four k8 steps are two float4 a row. The
+//   query, split into hi and lo once per call by `split_query_kernel`,
+//   is written in the same permuted order; a dot product does not see the
+//   order of its depth.
+// * The query's L2 -> SM traffic. A 128-row tile needs the whole hi+lo
+//   query: at the stream chunk 2 x 104 x 1,024 x 4 B = 0.85 MB per tile,
+//   1,024 tiles, 0.87 GB against the payload's 0.54 GB. Two m64 tiles a
+//   warpgroup would halve it but need twice the accumulator registers
+//   (2 x NT with the two-level sum): the engine keeps one m64 tile and
+//   rides the query's hi/lo chunk in the ring beside the payload chunk.
+//   Where the
+//   query fits (one q-tile, 2 x NT x D x 4 B <= 128 KiB: the SIFT shapes,
+//   Q <= 128 and D <= 128), each persistent block loads it once and keeps
+//   it resident; the ring then carries only payload, and the L2 -> SM
+//   traffic is the payload's.
+// * Epilogues. The accumulator holds [64 payload rows x NT queries].
+//   score: the metric, then 32 queries at a time transposed through
+//   shared memory into out[q][n] rows of 16-byte stores, masked at the
+//   ragged Q and N edges. tile_max: the max over the tile's 128 rows, in
+//   the thread (2 rows), across the 8 row groups of a warp (`shfl_xor` 4,
+//   8, 16), then across the 8 warps of both warpgroups through shared
+//   memory (one 256-thread barrier, two buffers by tile parity); masked
+//   rows give -3.4e38 exactly.
+//
+// Ragged edges as in the bf16 engine: any Q, any N (N % 128 for
+// tile_max), D % 8 == 0; the geometry comes from ops/distance.py::
+// f32_scan_geometry and is checked here.
+namespace tf {
+
+using wg::fence_acc;
+using wg::make_map;
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::SCORE;
+using wg::smem_u32;
+using wg::sw128_desc;
+using wg::swizzled;
+using wg::TILE_MAX;
+using wg::tma_load_1d;
+using wg::tma_load_2d;
+using wg::warpgroup_bar;
+
+constexpr int BN = 128;  // payload rows per tile: one m64 per consumer warpgroup
+constexpr int BK = 32;   // depth per ring stage: 32 f32 = one 128-byte swizzle row
+constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr uint32_t STAGE_X = BN * BK * 4;  // payload chunk, f32, 128B-swizzled
+constexpr uint32_t STAGE_EPI = 1024;       // the tile's aux (BN f32) and mask (BN u8)
+constexpr uint32_t EPI_AUX = BN * 4, EPI_MASK = BN;
+constexpr int STG_Q = 32;        // queries a score staging round
+constexpr int STG_STRIDE = 68;   // floats a staged query: 64 rows + 4 (conflict-free writes)
+// score staging (both warpgroups) or the tile_max fold (two buffers of 8 warps x NT)
+constexpr uint32_t SCRATCH = 2 * STG_Q * STG_STRIDE * 4;
+constexpr uint32_t RESIDENT_MAX = 131072;  // the resident hi+lo query
+constexpr int PART_CHUNKS = 4;  // depth chunks (128 deep) summed in one `part` accumulator
+static_assert(2 * 8 * 128 * 4 <= SCRATCH, "the tile_max fold must fit the scratch");
+
+// Byte offsets in the dynamic shared memory after aligning its base to
+// 1,024; ops/distance.py::f32_scan_geometry computes the same total. A
+// stage holds the payload chunk, then (unless resident) the query's hi
+// and lo chunks, then the epilogue's aux and mask.
+struct Layout {
+    int nt, stages, resident, kc;
+    uint32_t q_bytes, stage_bytes, epi_off, res_off, scratch_off, bar_off, total;
+    __host__ __device__ Layout(int nt_, int stages_, int resident_, int d)
+        : nt(nt_), stages(stages_), resident(resident_), kc((d + BK - 1) / BK) {
+        q_bytes = nt * BK * 4;  // one hi or lo query chunk
+        epi_off = STAGE_X + (resident ? 0u : 2u * q_bytes);
+        stage_bytes = epi_off + STAGE_EPI;
+        res_off = stages * stage_bytes;
+        scratch_off = res_off + (resident ? 2u * kc * q_bytes : 0u);
+        bar_off = scratch_off + SCRATCH;
+        total = bar_off + (2u * stages + 1u) * 8u + 1024u;
+    }
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+    return r;
+}
+
+// the depth (within its 32-deep chunk) that logical depth l = 8i + 4h + t
+// of the wgmmas holds: 16h + 4t + i
+__host__ __device__ __forceinline__ int chunk_depth(int l) {
+    return 16 * ((l >> 2) & 1) + 4 * (l & 3) + (l >> 3);
+}
+
+// The query's hi and lo halves, [2 * Qp, Dp] as b32: hi in rows [0, Qp),
+// lo in rows [Qp, 2 Qp), each 32-deep chunk in the wgmmas' logical depth
+// order; rows past Q and depth past D are zeros.
+static __global__ void split_query_kernel(const float* __restrict__ q,
+                                          uint32_t* __restrict__ out, int Q, int D, int Qp,
+                                          int Dp) {
+    const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (i >= (size_t)Qp * Dp) return;
+    const int r = static_cast<int>(i / Dp), l = static_cast<int>(i % Dp);
+    const int d = (l & ~31) + chunk_depth(l & 31);
+    const float v = r < Q && d < D ? q[(size_t)r * D + d] : 0.0f;
+    const uint32_t hi = to_tf32(v);
+    out[(size_t)r * Dp + l] = hi;
+    out[(size_t)(Qp + r) * Dp + l] = to_tf32(v - __uint_as_float(hi));
+}
+
+// d[64 x NT] (+)= A[64 x 8] . B[NT x 8]^T, TF32 in, f32 accumulate, A from
+// registers: a[0] row lane/4, depth lane%4; a[1] row +8; a[2] depth +4;
+// a[3] both (rows of warp w offset by 16w). The registers must not change
+// until the wgmma has completed.
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[NT / 2], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                               int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<104>(float (&d)[52], const uint32_t (&a)[4], uint64_t db,
+                                               int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %57, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51"
+        "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                               int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int KIND, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+tf32_scan_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap auxmap,
+                 const __grid_constant__ CUtensorMap maskmap, float* __restrict__ out, int Q,
+                 int N, int D, int metric, int stages, int resident) {
+    extern __shared__ uint8_t smem_raw[];
+    const Layout L(NT, stages, resident, D);
+    uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+    uint64_t* empty = full + stages;
+    uint64_t* qbar = empty + stages;  // the resident query
+    const int q_tiles = (Q + NT - 1) / NT;
+    const int qp = q_tiles * NT;  // the lo half's first row in the split query
+    const int tiles = q_tiles * ((N + BN - 1) / BN);
+    const int group = threadIdx.x / 128;
+    const bool has_aux = metric != IP || KIND == TILE_MAX;  // tile_max's aux is never null
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(&full[s], 1);   // the producer's arrive.expect_tx
+            mbar_init(&empty[s], 8);  // one lane of each consumer warp
+        }
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (group == 2) {
+        // ---- producer: one thread keeps the ring full
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (threadIdx.x == 2 * 128) {
+            if (resident) {  // the whole hi+lo query once, chunk-major after the ring
+                mbar_expect_tx(qbar, 2u * L.kc * L.q_bytes);
+                for (int kc = 0; kc < L.kc; ++kc) {
+                    uint8_t* dst = smem + L.res_off + 2u * kc * L.q_bytes;
+                    tma_load_2d(dst, &qmap, qbar, kc * BK, 0);
+                    tma_load_2d(dst + L.q_bytes, &qmap, qbar, kc * BK, qp);
+                }
+            }
+            int s = 0;
+            uint32_t ph = 0;
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int n0 = (t / q_tiles) * BN, q0 = (t % q_tiles) * NT;
+                for (int kc = 0; kc < L.kc; ++kc) {
+                    mbar_wait(&empty[s], ph ^ 1);
+                    uint8_t* st = smem + s * L.stage_bytes;
+                    const bool last = kc == L.kc - 1;
+                    // boxes count whole, past the edges too
+                    mbar_expect_tx(&full[s], L.epi_off + (last && has_aux ? EPI_AUX : 0) +
+                                                 (last && KIND == TILE_MAX ? EPI_MASK : 0));
+                    tma_load_2d(st, &xmap, &full[s], kc * BK, n0);
+                    if (!resident) {
+                        tma_load_2d(st + STAGE_X, &qmap, &full[s], kc * BK, q0);
+                        tma_load_2d(st + STAGE_X + L.q_bytes, &qmap, &full[s], kc * BK, qp + q0);
+                    }
+                    if (last && has_aux) tma_load_1d(st + L.epi_off, &auxmap, &full[s], n0);
+                    if (last && KIND == TILE_MAX)
+                        tma_load_1d(st + L.epi_off + EPI_AUX, &maskmap, &full[s], n0);
+                    if (++s == stages) { s = 0; ph ^= 1; }
+                }
+            }
+        }
+    } else {
+        // ---- consumers: warpgroup `group` owns payload rows 64*group..+63 of each tile
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+        const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+        const int bar_id = 1 + group;
+        const int g = warp * 16 + lane / 4;  // accumulator rows g and g + 8 of the warpgroup
+        const int col = (lane % 4) * 2;      // and query pairs col + 8j (+1)
+        const int row = group * 64 + g;      // tile row of a[0] / a[2] (a[1] / a[3]: row + 8)
+        // This thread's two float4 of each of its rows in a 128B-swizzled
+        // [128 x 32] payload chunk: the 16-byte pieces 4h + lane%4, h = 0, 1.
+        // Lanes of odd row groups load h = 1 first, so that the eight lanes
+        // of each load phase cover all 32 banks.
+        const int hf = (lane / 4) & 1;
+        const uint32_t first = swizzled(row, 4 * hf + lane % 4);
+        const uint32_t second = swizzled(row, 4 * (hf ^ 1) + lane % 4);
+        // row + 8 has the same swizzle phase (row & 7) as row
+        auto load = [&](int s, float4 (&raw)[4]) {
+            const uint8_t* xs = smem + s * L.stage_bytes;
+            raw[0] = *reinterpret_cast<const float4*>(xs + first);
+            raw[1] = *reinterpret_cast<const float4*>(xs + second);
+            raw[2] = *reinterpret_cast<const float4*>(xs + first + 8 * 128);
+            raw[3] = *reinterpret_cast<const float4*>(xs + second + 8 * 128);
+        };
+        // raw -> the TF32 hi and lo fragments of the chunk's four k8 steps:
+        // step i takes component i of the float4 at depth 16h + 4(lane%4)
+        auto split = [&](const float4 (&raw)[4], uint32_t (&xh)[4][4], uint32_t (&xl)[4][4]) {
+            const float4 r0h0 = hf ? raw[1] : raw[0], r0h1 = hf ? raw[0] : raw[1];
+            const float4 r1h0 = hf ? raw[3] : raw[2], r1h1 = hf ? raw[2] : raw[3];
+            const float v[4][4] = {{r0h0.x, r1h0.x, r0h1.x, r1h1.x},
+                                   {r0h0.y, r1h0.y, r0h1.y, r1h1.y},
+                                   {r0h0.z, r1h0.z, r0h1.z, r1h1.z},
+                                   {r0h0.w, r1h0.w, r0h1.w, r1h1.w}};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    xh[i][e] = to_tf32(v[i][e]);
+                    xl[i][e] = to_tf32(v[i][e] - __uint_as_float(xh[i][e]));
+                }
+        };
+
+        // Each step splits the fragments loaded from its stage and issues
+        // its 12 wgmmas (per k8 step: x_hi.q_hi, x_hi.q_lo, x_lo.q_hi) into
+        // `part`; while they run, it waits for the next stage and loads that
+        // stage's raw fragments, then waits for its wgmmas (a register-A
+        // wgmma's fragments must not change until it completes: the empty
+        // asm after the wait keeps them live until then) and hands its stage
+        // back. Every PART_CHUNKS steps (and at a tile's end) the thread adds
+        // `part` to the tile's sum `acc` with f32 adds, and the next step
+        // starts `part` afresh. A tile's last stage is held until its
+        // epilogue has read the aux and mask. Why two levels: with all of a
+        // tile's wgmmas (384 at D 1,024) adding into one accumulator, L2
+        // scores of clustered data (bench.py's corpus shape: sums that only
+        // grow) fell outside F32_SUM_TOL on the H100, worst err/bound
+        // 1.54-1.61 at the stream chunk; parts of 4 chunks (48 wgmmas) give
+        // 0.33-0.34 for 2.5-3.4% more time (parts of 1 chunk: 0.24, +11%;
+        // ab_f32_engine.py). The tensor cores' accumulation error grows with
+        // the wgmmas that add into an accumulator and with its magnitude.
+        // It costs NT/2 registers, which is why NT stops at 128.
+        float acc[NT / 2], part[NT / 2];
+        uint32_t xh[4][4], xl[4][4];
+        float4 raw[4];
+        int s = 0, parity = 0;
+        uint32_t ph = 0;
+        if (resident) mbar_wait(qbar, 0);
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x, parity ^= 1) {
+            const int n0 = (t / q_tiles) * BN, q0 = (t % q_tiles) * NT;
+            const bool active = n0 + group * 64 < N;  // tile_max: always (N % 128 == 0)
+            int held = s;
+            mbar_wait(&full[s], ph);
+            if (active) load(s, raw);
+            for (int kc = 0; kc < L.kc; ++kc) {
+                const int cur = s;
+                if (active) {
+                    split(raw, xh, xl);
+                    const uint8_t* qh = resident ? smem + L.res_off + 2u * kc * L.q_bytes
+                                                 : smem + cur * L.stage_bytes + STAGE_X;
+                    const uint64_t dh = sw128_desc(smem_u32(qh));
+                    const uint64_t dl = sw128_desc(smem_u32(qh + L.q_bytes));
+                    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+                    fence_acc(part);
+#pragma unroll
+                    for (int i = 0; i < BK / 8; ++i) {  // +32 bytes a k8 step
+                        wgmma_tf32<NT>(part, xh[i], dh + 2 * i, kc % PART_CHUNKS > 0 || i > 0);
+                        wgmma_tf32<NT>(part, xh[i], dl + 2 * i, 1);
+                        wgmma_tf32<NT>(part, xl[i], dh + 2 * i, 1);
+                    }
+                    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+                }
+                if (++s == stages) { s = 0; ph ^= 1; }
+                if (kc + 1 < L.kc) {
+                    mbar_wait(&full[s], ph);
+                    if (active) load(s, raw);
+                }
+                if (active) {
+                    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+                    fence_acc(part);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            asm volatile("" : "+r"(xh[i][e]), "+r"(xl[i][e])::"memory");
+                    if (kc % PART_CHUNKS == PART_CHUNKS - 1 || kc + 1 == L.kc) {
+#pragma unroll
+                        for (int i = 0; i < NT / 2; ++i)
+                            acc[i] = kc >= PART_CHUNKS ? acc[i] + part[i] : part[i];
+                    }
+                }
+                if (kc + 1 < L.kc) {
+                    if (lane == 0) mbar_arrive(&empty[cur]);
+                } else {
+                    held = cur;
+                }
+            }
+            if (active) {
+                // ---- epilogue of tile t; its last stage brought the aux and mask
+                const uint8_t* epi = smem + held * L.stage_bytes + L.epi_off;
+                const float* saux = reinterpret_cast<const float*>(epi);
+                if constexpr (KIND == SCORE) {
+                    if (metric != IP) {
+                        const float a0 = saux[row], a1 = saux[row + 8];
+#pragma unroll
+                        for (int j = 0; j < NT / 8; ++j) {
+                            acc[4 * j] = apply_metric(metric, acc[4 * j], a0);
+                            acc[4 * j + 1] = apply_metric(metric, acc[4 * j + 1], a0);
+                            acc[4 * j + 2] = apply_metric(metric, acc[4 * j + 2], a1);
+                            acc[4 * j + 3] = apply_metric(metric, acc[4 * j + 3], a1);
+                        }
+                    }
+                    // STG_Q queries at a time, transposed through shared
+                    // memory, then rows of 16-byte stores (4-byte where
+                    // N % 4 != 0: rows unaligned)
+                    float* stg = reinterpret_cast<float*>(smem + L.scratch_off) +
+                                 group * STG_Q * STG_STRIDE;
+                    const bool vec = (N % 4) == 0;
+#pragma unroll
+                    for (int c = 0; c < (NT + STG_Q - 1) / STG_Q; ++c) {
+#pragma unroll
+                        for (int jj = 0; jj < STG_Q / 8; ++jj) {
+                            if (STG_Q / 8 * c + jj >= NT / 8) continue;  // NT % 32 != 0
+                            const int i = 4 * (c * STG_Q / 8 + jj), qc = 8 * jj + col;
+                            stg[qc * STG_STRIDE + g] = acc[i];
+                            stg[(qc + 1) * STG_STRIDE + g] = acc[i + 1];
+                            stg[qc * STG_STRIDE + g + 8] = acc[i + 2];
+                            stg[(qc + 1) * STG_STRIDE + g + 8] = acc[i + 3];
+                        }
+                        warpgroup_bar(bar_id);
+#pragma unroll
+                        for (int r = 0; r < STG_Q * 64 / 4 / 128; ++r) {
+                            const int idx = tid + 128 * r, ql = idx / 16, n4 = (idx % 16) * 4;
+                            const int qq = q0 + STG_Q * c + ql, n = n0 + group * 64 + n4;
+                            if (STG_Q * c + ql < NT && qq < Q && n < N) {
+                                const float4 v =
+                                    *reinterpret_cast<const float4*>(&stg[ql * STG_STRIDE + n4]);
+                                float* o = out + (size_t)qq * N + n;
+                                if (vec) {  // N % 4 == 0 and n % 4 == 0: all four in range
+                                    *reinterpret_cast<float4*>(o) = v;
+                                } else {
+                                    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                                    for (int u = 0; u < 4; ++u)
+                                        if (n + u < N) o[u] = e[u];
+                                }
+                            }
+                        }
+                        warpgroup_bar(bar_id);  // the staging rows are free again
+                    }
+                } else {
+                    const uint8_t* smask = epi + EPI_AUX;
+                    const float a0 = saux[row], a1 = saux[row + 8];
+                    const bool k0 = smask[row] != 0, k1 = smask[row + 8] != 0;
+                    // two buffers by tile parity: a warpgroup writes this one
+                    // again only after both have passed the next tile's barrier
+                    float* red = reinterpret_cast<float*>(smem + L.scratch_off) + parity * 8 * NT;
+#pragma unroll
+                    for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            float m = NEG;
+                            if (k0) m = fmaxf(m, apply_metric(metric, acc[4 * j + e], a0));
+                            if (k1) m = fmaxf(m, apply_metric(metric, acc[4 * j + 2 + e], a1));
+                            // the 8 row groups of the warp hold the other rows
+                            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+                            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+                            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+                            if (lane < 4) red[(group * 4 + warp) * NT + 8 * j + col + e] = m;
+                        }
+                    }
+                    asm volatile("bar.sync 3, 256;\n" ::: "memory");  // both consumer warpgroups
+                    const int c = threadIdx.x;  // 0..255: one query each
+                    if (c < NT && q0 + c < Q) {
+                        float m = red[c];
+#pragma unroll
+                        for (int w = 1; w < 8; ++w) m = fmaxf(m, red[w * NT + c]);
+                        out[(size_t)(q0 + c) * (N / BN) + n0 / BN] = m;
+                    }
+                }
+            }
+            if (lane == 0) mbar_arrive(&empty[held]);
+        }
+    }
+}
+
+// ---- host side: split the query, then launch the engine at width NT
+template <int KIND, int NT>
+static int launch_nt(const void* q, void* qsplit, const void* x, const void* aux,
+                     const void* mask, void* out, int Q, int N, int D, int metric, int stages,
+                     int resident, int smem_bytes, int grid, cudaStream_t stream) {
+    const Layout L(NT, stages, resident, D);
+    const int q_tiles = (Q + NT - 1) / NT, qp = q_tiles * NT, dp = L.kc * BK;
+    if (stages < 2 || (resident && (q_tiles != 1 || 2u * L.kc * L.q_bytes > RESIDENT_MAX)) ||
+        (int)L.total > smem_bytes || smem_bytes > wg::SMEM_LIMIT || grid < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap xmap, qmap, auxmap, maskmap;
+    memset(&auxmap, 0, sizeof(auxmap));
+    memset(&maskmap, 0, sizeof(maskmap));
+    const bool ok =
+        make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, D, N, BK, BN,
+                 CU_TENSOR_MAP_SWIZZLE_128B) &&
+        make_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, qsplit, dp, 2 * qp, BK, NT,
+                 CU_TENSOR_MAP_SWIZZLE_128B) &&
+        (aux == nullptr || make_map(&auxmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, aux, N, 0, BN, 0,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE)) &&
+        (mask == nullptr || make_map(&maskmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, mask, N, 0, BN, 0,
+                                     CU_TENSOR_MAP_SWIZZLE_NONE));
+    // the kernel reads aux unless it scores IP, and tile_max reads the mask
+    if (!ok || (aux == nullptr && (metric != IP || KIND == TILE_MAX)) ||
+        (mask == nullptr) != (KIND == SCORE))
+        return static_cast<int>(cudaErrorInvalidValue);
+    static bool sized = false;  // the >48 KiB dynamic shared memory opt-in, once
+    if (!sized) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            tf32_scan_kernel<KIND, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            wg::SMEM_LIMIT);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        sized = true;
+    }
+    const size_t n_split = (size_t)qp * dp;
+    split_query_kernel<<<static_cast<unsigned>((n_split + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<uint32_t*>(qsplit), Q, D, qp, dp);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    tf32_scan_kernel<KIND, NT><<<grid, THREADS, smem_bytes, stream>>>(
+        xmap, qmap, auxmap, maskmap, static_cast<float*>(out), Q, N, D, metric, stages,
+        resident);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// nt: the query tile width (the wgmmas' n), one of 64, 104, 128
+template <int KIND>
+static int launch(const void* q, void* qsplit, const void* x, const void* aux, const void* mask,
+                  void* out, int Q, int N, int D, int metric, int nt, int stages, int resident,
+                  int smem_bytes, int grid, cudaStream_t stream) {
+    switch (nt) {
+        case 64:
+            return launch_nt<KIND, 64>(q, qsplit, x, aux, mask, out, Q, N, D, metric, stages,
+                                       resident, smem_bytes, grid, stream);
+        case 104:
+            return launch_nt<KIND, 104>(q, qsplit, x, aux, mask, out, Q, N, D, metric, stages,
+                                        resident, smem_bytes, grid, stream);
+        case 128:
+            return launch_nt<KIND, 128>(q, qsplit, x, aux, mask, out, Q, N, D, metric, stages,
+                                        resident, smem_bytes, grid, stream);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+}  // namespace tf
 }  // namespace msd

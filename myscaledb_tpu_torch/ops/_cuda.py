@@ -164,10 +164,14 @@ class _Library:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # every pointer and the stream as c_void_p: a bare Python int would
         # be passed as a 32-bit int and cut the pointer
-        lib.msd_scores.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.msd_scores.argtypes = [vp] * 4 + [ci] * 8 + [vp]
         lib.msd_scores.restype = ci
-        lib.msd_tile_max.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.msd_tile_max.argtypes = [vp] * 5 + [ci] * 8 + [vp]
         lib.msd_tile_max.restype = ci
+        lib.msd_scores_f32.argtypes = [vp] * 5 + [ci] * 9 + [vp]
+        lib.msd_scores_f32.restype = ci
+        lib.msd_tile_max_f32.argtypes = [vp] * 6 + [ci] * 9 + [vp]
+        lib.msd_tile_max_f32.restype = ci
         lib.msd_gathermv.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.msd_gathermv.restype = ci
         lib.msd_binary_rows.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]

@@ -13,7 +13,8 @@ Counterpart of myscaledb_tpu/ops/distance.py. Max-is-better scores
 the note there for what bounds it on the H100). A CUDA tensor goes to the
 kernel; a CPU tensor goes to `scores_plain`, the same math in torch ops.
 There is no fallback from one to the other. `scan_geometry` sizes the
-bf16 engine that score.cu and tile_max.cu share (csrc/score_tile.cuh).
+bf16 engine and `f32_scan_geometry` the f32 (3xTF32) engine that score.cu
+and tile_max.cu share (csrc/score_tile.cuh).
 """
 
 from __future__ import annotations
@@ -32,15 +33,27 @@ from ._cuda import LIBRARY, METRIC_CODES, cdiv, check_launch, count_launch, roun
 # loader's 8 values), each wholly inside or outside D.
 D_MULTIPLE = 8
 
-# How far a scan kernel may lie from its plain version. Both compute the
-# same f32 math (for a bf16 payload, the same hi/lo query split) and differ
-# only in the order of their sums, whose error is a few f32 ulps of
-# sum_i |q_i x_i|: at most ~1e-6 of it on an H100 at the main path's
-# shapes. The bound is 2^-16 of that sum plus 1e-5 of the score. A kernel
-# that drops the query's lo half errs by up to 2^-9 of the same sum
-# (typically ~2^-9/sqrt(D)), far outside the bound at every shape.
+# How far a scan kernel may lie from its plain version.
+# * bf16 payload: both compute the same f32 math (the same hi/lo query
+#   split) and differ only in the order of their sums, whose error is a few
+#   f32 ulps of sum_i |q_i x_i|: at most ~1e-6 of it on an H100 at the main
+#   path's shapes. The bound is 2^-16 of that sum plus 1e-5 of the score. A
+#   kernel that drops the query's lo half errs by up to 2^-9 of the same
+#   sum (typically ~2^-9/sqrt(D)), far outside the bound at every shape.
+# * f32 payload: the plain version is the exact f32 product; the kernel
+#   computes it as three TF32 products (`split_tf32`: q_hi x_hi + q_hi x_lo
+#   + q_lo x_hi), each within ~3 * 2^-22 of |q_i x_i|, plus the same
+#   reordered f32 sums. The bound is F32_SUM_TOL = 2^-18 of the sum plus
+#   1e-5 of the score: single-pass TF32 (errors ~2^-11 of each product) and
+#   the two-term split without q_hi x_lo (~2^-12) fall outside it.
 KERNEL_RTOL = 1e-5
 KERNEL_SUM_TOL = 2.0**-16
+F32_SUM_TOL = 2.0**-18
+# the products of the f32 engine, (query half, payload half), and the two
+# controls that its bound must reject
+TF32X3 = (("hi", "hi"), ("hi", "lo"), ("lo", "hi"))
+TF32_SINGLE = (("hi", "hi"),)
+TF32_TWO_TERM = (("hi", "hi"), ("lo", "hi"))
 
 # The bf16 scan engine's tiles (csrc/score_tile.cuh, namespace wg): BM
 # queries x BN payload rows per output tile, BK depth per ring stage.
@@ -89,6 +102,61 @@ def scan_geometry(q: int, n: int, d: int, sms: int = H100_SMS) -> ScanGeometry:
     return ScanGeometry(stages, resident, fixed + stages * stage, max(1, min(sms, tiles)), tiles)
 
 
+# The f32 engine's tiles (csrc/score_tile.cuh, namespace tf): F32_BN
+# payload rows x NT queries (one of F32_WIDTHS, the wgmmas' n; 104 is a
+# batch of 100 padded to 8; above 128 queries, several q-tiles of 128) per
+# output tile, F32_BK depth per ring stage.
+F32_BN, F32_BK = 128, 32
+F32_WIDTHS = (64, 104, 128)
+F32_STAGE_X = F32_BN * F32_BK * 4  # f32 payload chunk
+F32_STAGE_EPI = 1024  # the tile's aux (f32) and mask (u8)
+F32_SCRATCH = 2 * 32 * 68 * 4  # score staging, or the tile_max fold
+F32_RESIDENT_MAX = 131_072  # the resident hi+lo query: 2 x NT x Dp x 4 B
+
+
+@dataclass(frozen=True)
+class F32Geometry:
+    """How the f32 engine runs one call: NT = `nt` queries a tile,
+    `stages` ring stages, the query `resident` in shared memory or its
+    hi/lo chunks riding the ring, `smem_bytes` of dynamic shared memory,
+    `grid` persistent blocks over `tiles` output tiles; the split query
+    takes [2 * qp, dp] b32 (`qp` queries padded to NT, `dp` depth padded
+    to F32_BK)."""
+
+    nt: int
+    stages: int
+    resident: bool
+    smem_bytes: int
+    grid: int
+    tiles: int
+    qp: int
+    dp: int
+
+
+@functools.lru_cache(maxsize=1024)
+def f32_scan_geometry(q: int, n: int, d: int, sms: int = H100_SMS) -> F32Geometry:
+    """The f32 engine's geometry for Q = q, N = n, D = d on a card with
+    `sms` SMs. NT is the narrowest of F32_WIDTHS that holds q (128 above,
+    in several q-tiles). The query is resident when it is one tile and its
+    hi+lo halves take at most 128 KiB (Q <= 128 and D <= 128, the SIFT
+    shapes); the ring then holds only payload chunks (16 KiB). Otherwise
+    each stage carries the payload chunk and the query's hi and lo chunks
+    (2 x NT x 128 B). Each stage also has 1 KiB for a tile's aux and mask.
+    The byte count matches `Layout` in score_tile.cuh (1,024 bytes of slack
+    for the 128B swizzle's alignment, 16 bytes of mbarriers a stage and 8
+    for the resident query's); the kernel checks it."""
+    nt = next((w for w in F32_WIDTHS if q <= w), F32_WIDTHS[-1])
+    dp = round_up(max(d, 1), F32_BK)
+    q_tiles = cdiv(q, nt)
+    resident = q_tiles == 1 and 2 * nt * dp * 4 <= F32_RESIDENT_MAX
+    stage = F32_STAGE_X + (0 if resident else 2 * nt * F32_BK * 4) + F32_STAGE_EPI + 16
+    fixed = 1024 + F32_SCRATCH + 8 + (2 * nt * dp * 4 if resident else 0)
+    stages = min(SCAN_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    tiles = q_tiles * cdiv(n, F32_BN)
+    return F32Geometry(nt, stages, resident, fixed + stages * stage, max(1, min(sms, tiles)),
+                       tiles, q_tiles * nt, dp)
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -96,21 +164,35 @@ def sm_count(device: torch.device) -> int:
 
 def launch_scan(entry: str, queries, base, aux, mask, out, metric) -> None:
     """Launch a scan kernel's C entry point (`msd_scores` without `mask`,
-    `msd_tile_max` with it) with the geometry of `scan_geometry`."""
+    `msd_tile_max` with it; `_f32` for an f32 payload, with scratch for
+    the query's TF32 halves) with the geometry of `scan_geometry` or
+    `f32_scan_geometry`."""
     q, (n, d) = queries.shape[0], base.shape
-    g = scan_geometry(q, n, d, sm_count(base.device))
-    err = getattr(LIBRARY.get(), entry)(
-        queries.data_ptr(),
-        base.data_ptr(),
+    sms = sm_count(base.device)
+    tail = (
         aux.data_ptr() if aux is not None else None,
         *([mask.data_ptr()] if mask is not None else []),
         out.data_ptr(),
         q, n, d,
         METRIC_CODES[metric.value],
-        int(base.dtype == torch.bfloat16),
-        g.stages, int(g.resident), g.smem_bytes, g.grid,
-        stream_ptr(base.device),
     )
+    lib = LIBRARY.get()
+    if base.dtype == torch.float32:
+        g = f32_scan_geometry(q, n, d, sms)
+        # freed when this returns, before the kernel has run: safe, because
+        # the caching allocator hands the block out again only to later
+        # work on this (the launch) stream
+        split = torch.empty((2 * g.qp, g.dp), dtype=torch.float32, device=base.device)
+        err = getattr(lib, entry + "_f32")(
+            queries.data_ptr(), split.data_ptr(), base.data_ptr(), *tail,
+            g.nt, g.stages, int(g.resident), g.smem_bytes, g.grid, stream_ptr(base.device),
+        )
+    else:
+        g = scan_geometry(q, n, d, sms)
+        err = getattr(lib, entry)(
+            queries.data_ptr(), base.data_ptr(), *tail,
+            g.stages, int(g.resident), g.smem_bytes, g.grid, stream_ptr(base.device),
+        )
     check_launch(entry, err)
 
 
@@ -121,14 +203,15 @@ def kernel_error_bound(
     metric: Metric,
 ) -> torch.Tensor:
     """f32[Q, N]: the |kernel - plain| each score may show, without its
-    KERNEL_RTOL part: KERNEL_SUM_TOL times sum_i |q_i x_i|, carried
-    through the metric's scaling (x2 for L2, x 1/|x| for Cosine)."""
+    KERNEL_RTOL part: KERNEL_SUM_TOL (bf16 payload) or F32_SUM_TOL (f32
+    payload) times sum_i |q_i x_i|, carried through the metric's scaling
+    (x2 for L2, x 1/|x| for Cosine)."""
     t = queries.to(torch.float32).abs() @ base.to(torch.float32).abs().T
     if metric == Metric.L2:
         t = 2.0 * t
     elif metric == Metric.COSINE:
         t = t * aux[None, :]
-    return KERNEL_SUM_TOL * t
+    return (KERNEL_SUM_TOL if base.dtype == torch.bfloat16 else F32_SUM_TOL) * t
 
 
 def outside_kernel_bound(
@@ -154,6 +237,42 @@ def split_query_bf16(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo])
 
 
+def _tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """`cvt.rna.tf32.f32` in torch ops: keep 10 explicit mantissa bits,
+    rounding to nearest with ties away from zero, on the int32 view (the
+    low 13 bits become 0; a carry moves into the exponent)."""
+    b = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = ((b + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF
+    return torch.where(b >= 2**31, b - 2**32, b).to(torch.int32).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor):
+    """Split f32 values into TF32 (hi, lo): hi = rna(v), lo = rna(v - hi),
+    bit for bit as the f32 engine splits both operands in the kernel
+    (v - hi is exact in f32; hi + lo keeps ~22 significant bits)."""
+    v = v.to(torch.float32)
+    hi = _tf32_round(v)
+    return hi, _tf32_round(v - hi)
+
+
+def tf32_products(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    aux: Optional[torch.Tensor],
+    metric: Metric,
+    terms=TF32X3,
+) -> torch.Tensor:
+    """f32[Q, N]: the scores from the sum of the given TF32 products
+    (query half, payload half) of `split_tf32`, summed in f64 and rounded
+    once: TF32X3 is the f32 engine's math without its f32 sums' error;
+    TF32_SINGLE and TF32_TWO_TERM are the controls its bound rejects."""
+    qs = dict(zip(("hi", "lo"), (h.to(torch.float64) for h in split_tf32(queries))))
+    xs = dict(zip(("hi", "lo"), (h.to(torch.float64) for h in split_tf32(base))))
+    s = sum(qs[a] @ xs[b].T for a, b in terms)
+    a = None if aux is None else aux.to(torch.float64)[None, :]
+    return _apply_metric(s, a, metric).to(torch.float32)
+
+
 def _apply_metric(s: torch.Tensor, aux: Optional[torch.Tensor], metric: Metric):
     if metric == Metric.L2:
         return 2.0 * s - aux
@@ -165,7 +284,8 @@ def _apply_metric(s: torch.Tensor, aux: Optional[torch.Tensor], metric: Metric):
 def dot_plain(queries: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """q·xᵀ in f32 as the kernels compute it: for a bf16 payload, the sum
     of the products of the query's bf16 hi and lo halves with the payload;
-    for an f32 payload, the f32 product."""
+    for an f32 payload, the f32 product (which the f32 engine approximates
+    within F32_SUM_TOL by three TF32 products)."""
     xf = base.to(torch.float32).T
     if base.dtype == torch.bfloat16:
         hi, lo = split_query_bf16(queries).to(torch.float32)

@@ -13,8 +13,13 @@ order of their sums, so a kernel's score may lie at most 2^-16 of
 sum_i |q_i x_i| plus 1e-5 of the score from the plain version's
 (`distance.kernel_error_bound`). That is far tighter than the JAX
 package's cross-package tolerances, and tight enough to catch a kernel
-that drops the query's lo half (the control tests below). The gathermv
-kernel is held to the same kind of bound around sum_d |bf16(q_d) c_d|
+that drops the query's lo half (the control tests below). Over an f32
+payload the kernels compute the exact f32 product as three TF32 products
+and are held to 2^-18 of the same sum (`distance.F32_SUM_TOL`; its CPU
+tests are in tests/test_torch_f32_engine.py); the card tests below add a
+bit-level probe (operands whose three products are exact) and a one-hot
+probe of the register-fragment layout. The gathermv kernel is held to the
+same kind of bound around sum_d |bf16(q_d) c_d|
 (`gathermv.kernel_error_bound`), which a kernel that skips the query's
 bf16 cast falls outside.
 """
@@ -157,6 +162,145 @@ def test_kernel_split_is_bit_exact(cuda_device, q, d):
     assert torch.equal(got, distance.scores_plain(qs, x, None, Metric.IP))
     # and the lo half matters: the hi half alone differs
     assert not torch.equal(got, qs.to(torch.bfloat16).to(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("q", RAGGED_Q)
+def test_f32_score_kernel_ragged_shapes(cuda_device, metric, q, n, d):
+    """The f32 (3xTF32) engine at shapes that cross its tiles (64 / 104 /
+    128 queries x 128 rows x 32 deep) and its resident / ringed query;
+    single-pass TF32 falls outside the bound at the same shapes."""
+    _, qs, x, aux = _operands(cuda_device, torch.float32, metric, q, n, d, q + n + d)
+    got = distance.scores(qs, x, aux, metric=metric)
+    want = distance.scores_plain(qs, x, aux, metric)
+    bound = distance.kernel_error_bound(qs, x, aux, metric)
+    assert got.shape == (q, n)
+    assert not distance.outside_kernel_bound(got, want, bound).any()
+    if q * n > 1000:  # enough scores that one lies outside
+        single = distance.tf32_products(qs, x, aux, metric, distance.TF32_SINGLE)
+        assert distance.outside_kernel_bound(single, want, bound).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", TILE_KEEP)
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", TILE_D)
+@pytest.mark.parametrize("q", TILE_Q)
+def test_f32_tile_max_kernel_ragged_shapes(cuda_device, q, d, metric, keep):
+    qs, x, aux, m8 = _tile_operands(cuda_device, torch.float32, metric, q, keep, TILE_N, d)
+    got = tilescan.tile_maxes(qs, x, aux, m8, metric=metric)
+    want = tilescan.tile_maxes_plain(qs, x, aux, m8, metric)
+    bound = tilescan.tile_error_bound(qs, x, aux, metric)
+    assert got.shape == (q, TILE_N // tilescan.SUB)
+    assert not distance.outside_kernel_bound(got, want, bound).any()
+    assert torch.equal(got == tilescan.NEG, want == tilescan.NEG)
+
+
+def _clustered_operands(device, metric, q, n, d, seed):
+    """bench.py's corpus shape: rows around 64 centres of 6 x N(0, 1),
+    queries near rows. Same-cluster sums grow with the depth, the regime
+    where one accumulator for a tile's whole depth drifted outside the
+    f32 bound on the card; zero-mean data does not show it."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    centres = 6.0 * torch.randn((64, d), generator=g, device=device)
+    pick = torch.randint(0, 64, (n,), generator=g, device=device)
+    x = centres[pick] + torch.randn((n, d), generator=g, device=device)
+    rows = torch.randint(0, n, (q,), generator=g, device=device)
+    qs = x[rows] + 0.3 * torch.randn((q, d), generator=g, device=device)
+    return distance.normalize_queries(qs, metric).contiguous(), x, distance.base_aux(x, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("q,n,d", [(104, 8192, 1024), (256, 4096, 1024), (100, 16384, 128),
+                                   (300, 2048, 136)])
+def test_f32_engine_on_clustered_data(cuda_device, metric, q, n, d):
+    qs, x, aux = _clustered_operands(cuda_device, metric, q, n, d, q + n + d)
+    got = distance.scores(qs, x, aux, metric=metric)
+    want = distance.scores_plain(qs, x, aux, metric)
+    assert not distance.outside_kernel_bound(
+        got, want, distance.kernel_error_bound(qs, x, aux, metric)).any()
+    a = aux if aux is not None else torch.zeros(n, device=cuda_device)
+    m8 = torch.ones(n, dtype=torch.uint8, device=cuda_device)
+    got = tilescan.tile_maxes(qs, x, a, m8, metric=metric)
+    want = tilescan.tile_maxes_plain(qs, x, a, m8, metric)
+    assert not distance.outside_kernel_bound(
+        got, want, tilescan.tile_error_bound(qs, x, a, metric)).any()
+
+
+def _exact_tf32x3_operands(device, side, q, n, d, seed):
+    """Operands whose three TF32 products are exact: one side dense with
+    22 significant bits (hi + lo holds it exactly), the other TF32-exact
+    (+-1) with at most 4 nonzeros a row, so every partial sum is a multiple
+    of 2^-20 below 16 and exact in f32 in any order."""
+    rng = np.random.default_rng(seed)
+
+    def dense(rows):
+        m = rng.integers(2**21, 2**22, (rows, d)) * rng.choice([-1, 1], (rows, d))
+        return torch.from_numpy((m * 2.0**-20).astype(np.float32))
+
+    def sparse(rows):
+        v = np.zeros((rows, d), np.float32)
+        for r in range(rows):
+            cols = rng.choice(d, min(4, d), replace=False)
+            v[r, cols] = rng.choice([-1.0, 1.0], len(cols))
+        return torch.from_numpy(v)
+
+    qs, x = (sparse(q), dense(n)) if side == "payload" else (dense(q), sparse(n))
+    return qs.to(device), x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.IP, Metric.L2])
+@pytest.mark.parametrize("side", ["payload", "query"])
+@pytest.mark.parametrize("q,n,d", [(104, 4099, 1024), (300, 1000, 136), (13, 50_176, 128)])
+def test_f32_engine_bit_exact_where_three_products_are_exact(cuda_device, side, metric, q, n, d):
+    """With 22 significant bits on one side (`side`) and TF32-exact
+    values on the other, q_hi x_hi + q_hi x_lo + q_lo x_hi is q.x exactly
+    and so is every sum: the kernel must equal the f32 plain version bit
+    for bit; single-pass TF32 (x_hi or q_hi alone) must not."""
+    qs, x = _exact_tf32x3_operands(cuda_device, side, q, n, d, q + n + d)
+    aux = distance.base_aux(x, metric)
+    got = distance.scores(qs, x, aux, metric=metric)
+    want = distance.scores_plain(qs, x, aux, metric)
+    assert torch.equal(got, want)
+    single = distance.tf32_products(qs, x, aux, metric, distance.TF32_SINGLE)
+    assert float((single != want).float().mean()) > 0.5
+    m8 = torch.ones((n,), dtype=torch.uint8, device=cuda_device)
+    n_t = n - n % tilescan.SUB
+    if n_t:
+        a = aux[:n_t] if aux is not None else torch.zeros(n_t, device=cuda_device)
+        got = tilescan.tile_maxes(qs, x[:n_t], a, m8[:n_t], metric=metric)
+        assert torch.equal(got, tilescan.tile_maxes_plain(qs, x[:n_t], a, m8[:n_t], metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d", [(64, 512, 64), (104, 1024, 128), (256, 640, 96), (300, 256, 40)])
+def test_f32_engine_one_hot_fragment_layout(cuda_device, q, n, d):
+    """Payload row r is one-hot at depth (7r + 3) % d with value r + 1;
+    query i is one-hot at depth i % d with value 1 + i // d. A score is
+    nonzero exactly where the depths meet, so a row, a query or a depth
+    that the kernel's fragments or its permuted query put in the wrong
+    place shows as a wrong entry: the kernel must equal the plain version
+    bit for bit, for score and for tile_max."""
+    r = torch.arange(n)
+    x = torch.zeros((n, d))
+    x[r, (7 * r + 3) % d] = (r + 1).to(torch.float32)
+    i = torch.arange(q)
+    qs = torch.zeros((q, d))
+    qs[i, i % d] = (1 + i // d).to(torch.float32)
+    qs, x = qs.to(cuda_device), x.to(cuda_device)
+    got = distance.scores(qs, x, None, metric=Metric.IP)
+    want = distance.scores_plain(qs, x, None, Metric.IP)
+    assert int((want != 0).sum()) > 0
+    assert torch.equal(got, want)
+    zeros = torch.zeros(n, device=cuda_device)
+    m8 = (torch.arange(n, device=cuda_device) % 5 != 1).to(torch.uint8)
+    got = tilescan.tile_maxes(qs, x, zeros, m8, metric=Metric.IP)
+    assert torch.equal(got, tilescan.tile_maxes_plain(qs, x, zeros, m8, Metric.IP))
 
 
 def test_scan_geometry_fits_every_shape_the_gate_admits():
