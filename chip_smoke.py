@@ -127,15 +127,34 @@ of the JAX package. Phases, each of which raises on failure:
      passes, device ms and kernels a search (torch.profiler; traces under
      --out). `--f32-tables-only` runs phase 1 and this phase alone, and
      `--root DIR` imports the package from another checkout (a parent
-     commit unpacked with `git archive`), for a same-machine comparison.
+     commit unpacked with `git archive`), for a same-machine comparison;
+ 14. the front ends, after phase 11 and before phase 12 (which needs the
+     host memory phase 9's table holds until then): (a) 100 one-query
+     distance() statements on phase 3's table against the exact oracle
+     (near-tie rule), a batch_distance of the same queries (and with
+     WHERE id < 10000) equal to Table.search of the batch exactly, EXPLAIN,
+     and each statement's host ms outside its search; (b) textsearch()
+     and hybridsearch('fusion_type=rrf') statements on phase 9's table
+     equal to Table.text_search / hybrid_search; (c) an HNSWFLAT index made
+     by ALTER TABLE on phase 4's table, distance('ef_s=100') statements
+     equal to Table.search with routing off (gathermv) and on; (d) the
+     host syncs of one search (torch.cuda.set_sync_debug_mode "warn"),
+     then SearchServer(max_batch=256, max_delay_ms=2.0) under bench.py's
+     sync and async connection grids (1, 8, 32, 64; windows cut to 2 s),
+     every response against the exact oracle, with QPS, groups and each
+     group's dispatcher and resolution times; (e) HttpFrontend on
+     127.0.0.1 (/ping, /search, /text_search, /hybrid_search, /sql)
+     against the in-process calls, and `python3 -m myscaledb_tpu_torch.cli`
+     as subprocesses: remote against the frontend, local on the card, and
+     local without a visible card (it must raise).
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
 three over phase 8, score and tile_max over phase 9, the binary rows
 layout, blocks layout and grouping over phase 10, score, tile_max and
-gathermv over phase 11, and over phases 12 and 13 also the f32 engine's
-launches of score and tile_max (the record's score_f32 and tile_max_f32
-lines);
+gathermv over phases 11 and 14, and over phases 12 and 13 also the f32
+engine's launches of score and tile_max (the record's score_f32 and
+tile_max_f32 lines);
 every kernel must have launched on its path, and the record's launches
 are the sums over those paths. The last line of standard output is {"ok": true, "device": {...}};
 the line before it is the per-kernel JSON record. Without CUDA, or without
@@ -271,6 +290,17 @@ HOST_RECALL_TARGET = 0.95
 # a top-k small enough that the spilled 128-d f32 chunks take the tile-max
 # route by the JAX package's byte gate (at k 10 its two byte counts tie)
 SPILL_TILE_K = 5
+
+
+# phase 14, the front ends: one-query distance() statements (then one
+# batch_distance of the same queries), text / hybrid statements, HNSW
+# statements; the serving grid (bench.py::sec_serving, :622-694) with its
+# window cut from 4 s; the local CLI's table
+SQL_NQ, SQL_TEXT_NQ, SQL_HNSW_NQ = 100, 10, 20
+SERVER_CONNS = (1, 8, 32, 64)
+SERVER_WINDOW = 4
+SERVER_SECONDS = 2.0
+CLI_ROWS, CLI_D = 256, 16
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -703,7 +733,7 @@ def sift_path(ms, dev):
     gt = exact_topk(t, "vec", queries, K, Metric.L2)
     check_recall("SIFT L2 after delete", dres, gt, F32_TOL)
     log("  delete: 100 rows deleted, none returned, gather(['id']) agrees")
-    return t, batches, flt, queries, gt
+    return t, batches, flt, queries, gt, db
 
 
 def gist_path(ms, dev):
@@ -731,7 +761,7 @@ def gist_path(ms, dev):
     d = np.concatenate([r.distances for r in res])
     check(np.isfinite(d).all() and (d > -1e-3).all() and (d < 2.001).all(),
           "Cosine distances must lie in [0, 2]")
-    return t, batches, gt
+    return t, batches, gt, db
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1711,11 +1741,13 @@ def numpy_fuse(vres, tres, k, fusion_type, fusion_k=HYBRID_FUSION_K, weight=HYBR
     return out_v, out_s, out_r
 
 
-def text_path(ms, dev, card, args):
+def text_path(ms, dev, card, args, db):
     """Phase 9: full-text and hybrid search on a 1,000,000 + 50,000-row
-    table with `body String` (bench.py's 12-word documents) and
-    `vec FloatVector(128)` (phase 3's corpus), through add_fts_index,
-    insert, text_search and hybrid_search. Returns the launch counts."""
+    table "hybrid" in `db` with `body String` (bench.py's 12-word
+    documents) and `vec FloatVector(128)` (phase 3's corpus), through
+    add_fts_index, insert, text_search and hybrid_search. Returns the
+    launch counts, the table (phase 14 searches it, then drops it) and
+    the vector and text query batches."""
     import torch
 
     from myscaledb_tpu_torch import F
@@ -1728,7 +1760,6 @@ def text_path(ms, dev, card, args):
     vecs = np.concatenate([make_corpus(SIFT_N, SIFT_D, seed=0),
                            make_corpus(SIFT_SMALL_N, SIFT_D, seed=1, centers=corpus_centers(SIFT_D))])
     ids = np.arange(n_all, dtype=np.uint64)
-    db = ms.connect(device=dev)
     t = db.create_table("hybrid", ms.Schema({"id": ms.UInt64(), "body": ms.String(),
                                               "vec": ms.FloatVector(SIFT_D)}))
     t1 = time.perf_counter()
@@ -1884,8 +1915,7 @@ def text_path(ms, dev, card, args):
         profile_cells([("text_bm25", text, tb), ("hybrid_rrf", hybrid, pairs_h, TEXT_BATCH)],
                       PROFILE_RUNS, args.out, card)
     launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
-    db.drop_table("hybrid")
-    return launches
+    return launches, t, vb, tb
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3374,6 +3404,528 @@ def f32_table_path(ms, dev, card, out_dir):
     return counts
 
 
+# --------------------------------------------------------------- phase 14
+def vec_literal(v):
+    """A query vector as SQL text; each float32 reads back exactly."""
+    return "[" + ", ".join(repr(float(x)) for x in v) + "]"
+
+
+def id_map(t):
+    """segment id -> the segment's id column."""
+    return {s.segment_id: np.asarray(s.scalar("id")) for s in t.live_segments()}
+
+
+def hit_ids(idmap, segs, rows):
+    """The id column at (segment, row) pairs; -1 where there is no hit."""
+    segs, rows = np.asarray(segs), np.asarray(rows)
+    out = np.full(rows.shape, -1, np.int64)
+    for sid, ids in idmap.items():
+        m = (segs == sid) & (rows >= 0)
+        out[m] = ids[rows[m]]
+    return out
+
+
+def l2_scores(queries, dists):
+    """L2 distances of `queries`' hits in score units (the exact scan's
+    2 q.x - |x|^2 = |q|^2 - distance), where check_recall holds them."""
+    q = np.asarray(queries, np.float64)
+    return np.einsum("ij,ij->i", q, q)[:, None] - np.asarray(dists, np.float64)
+
+
+def check_oracle(label, ids, scores, want_ids, want_scores, tol=F32_TOL):
+    """check_recall's rule over arrays: each row holds the exact oracle's
+    ids, or, where the id sets differ, sorted scores within `tol` of the
+    oracle's (a near-tie resolved the other way); every row's sorted scores
+    lie within `tol` of the oracle's. Returns the near-tied rows."""
+    ids, scores = np.asarray(ids), np.asarray(scores, np.float64)
+    check(ids.shape == want_ids.shape and (ids >= 0).all(),
+          f"{label}: {ids.shape} hits (some missing) where the oracle has {want_ids.shape}")
+    same = (np.sort(ids, 1) == np.sort(want_ids, 1)).all(1)
+    close = np.isclose(np.sort(scores, 1), np.sort(want_scores, 1), **tol).all(1)
+    bad = np.nonzero(~close)[0]
+    check(not bad.size, f"{label}: {bad.size} rows differ from the exact top-{ids.shape[1]} "
+                        f"(first: row {bad[:1].tolist()})")
+    return int((~same).sum())
+
+
+def timed_search(t):
+    """Wrap `t.search` on the instance: each call's seconds, its result's
+    host copy included, go to the returned list (unwrap with `del t.search`)."""
+    spent = []
+    orig = t.search
+
+    def search(*a, **kw):
+        t0 = time.perf_counter()
+        res = orig(*a, **kw)
+        res.rows  # the host copy: the search's device work ends here
+        spent.append(time.perf_counter() - t0)
+        return res
+
+    t.search = search
+    return spent
+
+
+def host_syncs(fn, here):
+    """Run `fn` with torch's sync debug mode on "warn": the host syncs it
+    makes, as {file:line (function): count} of the innermost frame of the
+    package on the stack at each warning. Returns (fn's result, the sites)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    pkg = os.path.join(here, "myscaledb_tpu_torch")
+    sites = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if os.path.basename(f.filename) != "warnings.py"]
+        # the package's innermost frame, else the innermost one outside torch
+        frames = ([f for f in stack if f.filename.startswith(pkg)]
+                  or [f for f in stack if os.sep + "torch" + os.sep not in f.filename])
+        f = frames[-1]
+        if f.name == "host_syncs":  # set_sync_debug_mode's own first call
+            return
+        key = f"{os.path.relpath(f.filename, here)}:{f.lineno} ({f.name}; torch at {filename}:{lineno})"
+        sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def parse_seconds(parser, statement, runs=3):
+    """Median seconds of `runs` parses of `statement` (host only)."""
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        parser.parse(statement)
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out))
+
+
+def sql_exact_path(db, t, queries, oracle, card):
+    """14a: distance() and batch_distance() SELECTs on phase 3's table,
+    against the exact oracle and against Table.search; EXPLAIN; the host
+    time of a statement outside its search."""
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.sql import parser
+
+    qs = queries[:SQL_NQ]
+    want_ids, want_s = oracle[0][:SQL_NQ], oracle[1][:SQL_NQ]
+    stmts = [f"SELECT id, distance(vec, {vec_literal(q)}) AS d FROM {t.name} "
+             f"ORDER BY d LIMIT {K}" for q in qs]
+    db.sql(stmts[0])  # warm
+    spent = timed_search(t)
+    try:
+        ids = np.zeros((SQL_NQ, K), np.int64)
+        dists = np.zeros((SQL_NQ, K))
+        stmt_s, search_s = [], []
+        for i, st in enumerate(stmts):
+            spent.clear()
+            t0 = time.perf_counter()
+            rows = db.sql(st)
+            stmt_s.append(time.perf_counter() - t0)
+            check(len(rows) == K and len(spent) == 1,
+                  f"statement {i}: {len(rows)} rows, {len(spent)} searches")
+            search_s.append(spent[0])
+            ids[i] = [r["id"] for r in rows]
+            dists[i] = [r["d"] for r in rows]
+        check((np.diff(dists, axis=1) >= 0).all(), "SQL L2 distances must be ascending")
+        tied = check_oracle("SQL distance()", ids, l2_scores(qs, dists), want_ids, want_s)
+        parse_s = [parse_seconds(parser, st) for st in stmts[:20]]
+        one = (1e3 * np.median(stmt_s), 1e3 * np.median(search_s),
+               1e3 * np.median(np.subtract(stmt_s, search_s)), 1e3 * np.median(parse_s))
+        log(f"  {SQL_NQ} distance() statements of one query ({len(stmts[0]):,} characters): every "
+            f"statement's ids are the exact oracle's ({tied} near-tied), scores within "
+            f"F32_TOL; median host ms: statement {one[0]:.3f}, its Table.search (host copy "
+            f"included) {one[1]:.3f}, outside the search {one[2]:.3f} (parse alone "
+            f"{one[3]:.3f}, median of 3 parses)  [{card}]")
+
+        def batch_stmt(where):
+            return (f"SELECT id, batch_distance(vec, [{', '.join(vec_literal(q) for q in qs)}]) "
+                    f"AS d FROM {t.name}{where} ORDER BY d.2 LIMIT {K} BY d.1")
+
+        for where, flt in (("", None), (" WHERE id < 10000", F("id") < 10_000)):
+            st = batch_stmt(where)
+            db.sql(st)  # warm
+            spent.clear()
+            t0 = time.perf_counter()
+            rows = db.sql(st)
+            stmt_ms = 1e3 * (time.perf_counter() - t0)
+            parse_ms = 1e3 * parse_seconds(parser, st)
+            check(len(spent) == 1 and len(rows) == SQL_NQ * K,
+                  f"batch_distance{where}: {len(rows)} rows, {len(spent)} searches")
+            ref = t.search("vec", qs, k=K, filter=flt)
+            ref_ids = t.gather(ref, ["id"])["id"]
+            got = {}
+            for r in rows:
+                got.setdefault(r["d"][0], []).append((r["d"][1], r["id"]))
+            for i in range(SQL_NQ):
+                want = sorted((float(ref.distances[i, j]), int(ref_ids[i, j])) for j in range(K))
+                check(sorted(got.get(i, [])) == want,
+                      f"batch_distance{where}: query {i} differs from Table.search of the batch")
+            if flt is not None:
+                check(all(r["id"] < 10_000 for r in rows), "a batch_distance hit fails id < 10000")
+            log(f"  batch_distance{where} over the same {SQL_NQ} queries ({len(st):,} characters): "
+                f"ids and distances equal Table.search of the batch exactly"
+                f"{'; every hit passes id < 10000' if flt is not None else ''}; host ms: "
+                f"statement {stmt_ms:.3f}, its Table.search {1e3 * spent[0]:.3f}, outside the "
+                f"search {stmt_ms - 1e3 * spent[0]:.3f} (parse alone {parse_ms:.3f}, median of 3)  "
+                f"[{card}]")
+    finally:
+        del t.search
+    plan = [r["explain"] for r in db.sql("EXPLAIN " + stmts[0])]
+    routed = {int(ln.split()[1].rstrip(":")) for ln in plan if ln.strip().startswith("segment ")}
+    check(routed == {s.segment_id for s in t.live_segments()},
+          f"EXPLAIN names segments {routed}: {plan}")
+    log(f"  EXPLAIN: {' | '.join(ln.strip() for ln in plan)}")
+
+
+def sql_text_path(db, t, vb, tb, card):
+    """14b: textsearch() and hybridsearch('fusion_type=rrf') SELECTs on
+    phase 9's table against Table.text_search / hybrid_search."""
+    for i in range(SQL_TEXT_NQ):
+        qv, qt = vb[0][i], tb[0][i]
+        for kind in ("text", "hybrid"):
+            if kind == "text":
+                rows = db.sql(f"SELECT id, textsearch(body, '{qt}') AS s FROM {t.name} "
+                              f"ORDER BY s DESC LIMIT {K}")
+                ref = t.text_search("body", qt, k=K)
+            else:
+                rows = db.sql(f"SELECT id, hybridsearch('fusion_type=rrf')(vec, body, "
+                              f"{vec_literal(qv)}, '{qt}') AS s FROM {t.name} "
+                              f"ORDER BY s DESC LIMIT {K}")
+                ref = t.hybrid_search("vec", "body", qv[None], [qt], k=K, fusion_type="rrf")
+            ref_ids = t.gather(ref, ["id"])["id"]
+            want = [(int(ref_ids[0, j]), float(ref.distances[0, j]))
+                    for j in range(K) if ref.valid[0, j]]
+            check([(r["id"], r["s"]) for r in rows] == want,
+                  f"SQL {kind} query {i} {qt!r} differs from the Table call")
+    log(f"  {SQL_TEXT_NQ} textsearch() and {SQL_TEXT_NQ} hybridsearch('fusion_type=rrf') "
+        f"statements: ids and scores equal Table.text_search / hybrid_search exactly  [{card}]")
+
+
+def sql_index_path(db, t, queries, card):
+    """14c: an HNSWFLAT index made by ALTER TABLE on phase 4's table;
+    distance('ef_s=100') SELECTs with cost routing off equal
+    Table.search(params={"ef_s": 100}) with it off (and launch gathermv),
+    with routing on they equal the routed Table.search."""
+    from myscaledb_tpu_torch.index import hnsw
+    from myscaledb_tpu_torch.ops import gathermv
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    t0 = time.perf_counter()
+    db.sql(f"ALTER TABLE {t.name} ADD VECTOR INDEX h14 vec TYPE HNSWFLAT("
+           f"'metric_type=Cosine', 'm={HNSW_PARAMS['m']}', 'ef_c={HNSW_PARAMS['ef_c']}')")
+    check(t.wait_index_built(), "the HNSWFLAT build (ALTER TABLE) did not end")
+    build_s = time.perf_counter() - t0
+    graph = t.settings.override({"cost_based_index_routing": False})
+    base = "SELECT id, distance('ef_s=100')(vec, {}) AS d FROM " + t.name + f" ORDER BY d LIMIT {K}"
+    n_launch, routed = 0, 0
+    for i, q in enumerate(queries[:SQL_HNSW_NQ]):
+        for off in (True, False):
+            st = base.format(vec_literal(q)) + (" SETTINGS cost_based_index_routing=0" if off else "")
+            g0 = gathermv.gather_block_scores.launches
+            r0 = GLOBAL_COUNTERS.get("VectorIndexCostRouteToScan")
+            rows = db.sql(st)
+            if off:
+                n = gathermv.gather_block_scores.launches - g0
+                check(n == hnsw.n_iterations(100),
+                      f"statement {i}: {n} gathermv launches, expected {hnsw.n_iterations(100)}")
+                n_launch += n
+                ref = t.search("vec", q[None], k=K, params={"ef_s": 100}, settings=graph)
+            else:
+                routed += GLOBAL_COUNTERS.get("VectorIndexCostRouteToScan") - r0
+                ref = t.search("vec", q[None], k=K, params={"ef_s": 100})
+            ref_ids = t.gather(ref, ["id"])["id"]
+            want = [(int(ref_ids[0, j]), float(ref.distances[0, j]))
+                    for j in range(K) if ref.valid[0, j]]
+            check([(r["id"], r["d"]) for r in rows] == want,
+                  f"HNSW SQL statement {i} (routing {'off' if off else 'on'}) differs from "
+                  f"Table.search")
+    plans = {}
+    for off in (False, True):
+        st = "EXPLAIN " + base.format(vec_literal(queries[0]))
+        st += " SETTINGS cost_based_index_routing=0" if off else ""
+        plans[off] = " | ".join(r["explain"].strip() for r in db.sql(st) if "segment" in r["explain"])
+    check("HNSWFLAT search" in plans[True], f"EXPLAIN with routing off: {plans[True]}")
+    db.sql(f"ALTER TABLE {t.name} DROP VECTOR INDEX h14")
+    log(f"  ALTER TABLE ADD VECTOR INDEX HNSWFLAT built in {build_s:.2f} s; {SQL_HNSW_NQ} "
+        f"distance('ef_s=100') statements with cost routing off equal Table.search exactly "
+        f"({n_launch} gathermv launches, {hnsw.n_iterations(100)} a statement), and with it on "
+        f"({routed} of {SQL_HNSW_NQ} routed to the exact scan); EXPLAIN: routing on '{plans[False]}', "
+        f"off '{plans[True]}'  [{card}]")
+
+
+class GroupClock:
+    """A SearchServer's dispatch and resolve steps, wrapped on the instance
+    (the server's code runs as it is): per group, its seconds on the
+    dispatcher thread and its seconds from dispatch to resolution."""
+
+    def __init__(self, srv):
+        self.execute, self.finish = srv._execute_group, srv._finish_group
+        self.started, self.groups = {}, []
+        srv._execute_group, srv._finish_group = self._execute, self._finish
+
+    def _execute(self, batch):
+        t0 = time.perf_counter()
+        out = self.execute(batch)
+        self.started[id(batch)] = (t0, time.perf_counter())
+        return out
+
+    def _finish(self, batch, t, res):
+        try:
+            self.finish(batch, t, res)
+        finally:
+            t2 = time.perf_counter()
+            t0, t1 = self.started.pop(id(batch))
+            self.groups.append((t1 - t0, t2 - t0))
+
+
+def serving_grid(srv, clock, table, queries, conns, mode):
+    """bench.py's serving protocol (:622-694) for SERVER_SECONDS: `conns`
+    threads, each blocking on one request at a time ("sync") or keeping
+    SERVER_WINDOW submits outstanding ("async"). Returns (QPS, [(query
+    index, response)], groups, requests, group seconds)."""
+    import threading
+    from collections import deque
+
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    nq = len(queries)
+    got = [[] for _ in range(conns)]
+    errs = []
+    b0, r0 = GLOBAL_COUNTERS.get("ServerBatches"), GLOBAL_COUNTERS.get("ServerRequests")
+    clock.groups = []
+    stop_at = time.perf_counter() + SERVER_SECONDS
+
+    def client(w):
+        try:
+            i = w
+            if mode == "sync":
+                while time.perf_counter() < stop_at:
+                    got[w].append((i % nq, srv.search(table, "vec", queries[i % nq], K)))
+                    i += conns
+                return
+            pend = deque()
+            while time.perf_counter() < stop_at:
+                pend.append((i % nq, srv.submit_search(table, "vec", queries[i % nq], K)))
+                if len(pend) >= SERVER_WINDOW:
+                    qi, f = pend.popleft()
+                    got[w].append((qi, f.result()))
+                i += conns
+            while pend:
+                qi, f = pend.popleft()
+                got[w].append((qi, f.result()))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(w,)) for w in range(conns)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    secs = time.perf_counter() - t0
+    check(not errs, f"{mode} grid at {conns} connections: {errs[:1]}")
+    out = [x for g in got for x in g]
+    return (len(out) / secs, out, GLOBAL_COUNTERS.get("ServerBatches") - b0,
+            GLOBAL_COUNTERS.get("ServerRequests") - r0, list(clock.groups))
+
+
+def serving_path(db, t, queries, oracle, here, card):
+    """14d: the coalescing SearchServer on phase 3's table: the host syncs
+    of one search, then bench.py's sync and async connection grids with
+    every response checked against the exact oracle."""
+    from myscaledb_tpu_torch.service.server import SearchServer
+
+    for nq in (1, 64):
+        res, s_search = host_syncs(lambda: t.search("vec", queries[:nq], k=K), here)
+        _, s_copy = host_syncs(lambda: res.rows, here)
+        log(f"  host syncs of one search at Q {nq} (torch.cuda.set_sync_debug_mode 'warn'): "
+            f"{sum(s_search.values())} inside Table.search (the dispatcher's part) at "
+            f"{s_search or 'no site'}; {sum(s_copy.values())} in the result's host copy (the "
+            f"resolver's part) at {s_copy or 'no site'}")
+    idmap = id_map(t)
+    srv = SearchServer(db, max_batch=256, max_delay_ms=2.0)
+    clock = GroupClock(srv)
+    grid = {}
+    try:
+        for b in (1, 8, 32, 64, 128, 256):  # warm every group size the grid makes
+            for f in [srv.submit_search(t.name, "vec", queries[i % len(queries)], K)
+                      for i in range(b)]:
+                f.result()
+        log(f"  SearchServer(max_batch=256, max_delay_ms=2.0) on {t.name!r}, bench.py's grid "
+            f"(sec_serving) with each point's window cut from 4 s to {SERVER_SECONDS:g} s to "
+            f"keep this script's time; async window {SERVER_WINDOW}")
+        for mode in ("sync", "async"):
+            for conns in SERVER_CONNS:
+                rate, out, groups, reqs, gsec = serving_grid(srv, clock, t.name, queries, conns, mode)
+                qi = np.array([q for q, _ in out])
+                rows = np.stack([o["rows"] for _, o in out])
+                segs = np.stack([o["segments"] for _, o in out])
+                dists = np.stack([o["distances"] for _, o in out])
+                tied = check_oracle(f"server {mode} {conns}", hit_ids(idmap, segs, rows),
+                                    l2_scores(queries[qi], dists), oracle[0][qi], oracle[1][qi])
+                disp = 1e3 * np.median([g[0] for g in gsec])
+                resolve = 1e3 * np.median([g[1] for g in gsec])
+                grid[(mode, conns)] = rate
+                log(f"  {mode} {conns:>2} connections: QPS {rate:.1f}; {groups} groups, mean "
+                    f"group {reqs / max(groups, 1):.2f} requests; median ms a group: on the "
+                    f"dispatcher {disp:.3f}, dispatch to resolution {resolve:.3f} (share "
+                    f"{disp / resolve:.3f}); {len(out)} responses equal the exact oracle "
+                    f"({tied} near-tied)  [{card}]")
+    finally:
+        srv.close()
+    a32, a64 = grid[("async", 32)], grid[("async", 64)]
+    log(f"  async grid at 64 connections {a64:.1f} QPS against {a32:.1f} at 32: "
+        f"{'falls below' if a64 < a32 else 'does not fall below'} it ({a64 / a32:.3f}x)  [{card}]")
+
+
+def post(port, path, payload=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def cli(here, *args, **env):
+    """`python3 -m myscaledb_tpu_torch.cli ARGS` from the checkout, as a
+    subprocess (its CompletedProcess)."""
+    path = os.pathsep.join([here] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    out = subprocess.run([sys.executable, "-m", "myscaledb_tpu_torch.cli", *args], cwd=here,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": path, **env})
+    return out
+
+
+def http_cli_path(db, sift, hyb, queries, vb, tb, here, card):
+    """14e: HttpFrontend on 127.0.0.1 (port 0) over phase 3's database:
+    each endpoint's reply against the in-process call; then the CLI as
+    subprocesses, remote against the frontend and local on the card."""
+    from myscaledb_tpu_torch.service.server import HttpFrontend
+
+    front = HttpFrontend(db, host="127.0.0.1", port=0, max_batch=256, max_delay_ms=2.0)
+    try:
+        check(post(front.port, "/ping") == {"ok": True}, "GET /ping")
+        out = post(front.port, "/search", {"table": sift.name, "column": "vec",
+                                           "vector": queries[0].tolist(), "k": K, "gather": ["id"]})
+        ref = sift.search("vec", queries[:1], k=K)
+        ref_ids = sift.gather(ref, ["id"])["id"][0].tolist()
+        check(out["rows"] == ref.rows[0].tolist() and out["segments"] == ref.segments[0].tolist()
+              and out["distances"] == ref.distances[0].tolist() and out["columns"]["id"] == ref_ids,
+              "POST /search (one vector, gather id) differs from Table.search")
+        nb = SQL_NQ
+        out = post(front.port, "/search", {"table": sift.name, "column": "vec",
+                                           "vectors": queries[:nb].tolist(), "k": K})
+        check(len(out["results"]) == nb, "POST /search with vectors: result count")
+        ref = sift.search("vec", queries[:nb], k=K)
+        ids = hit_ids(id_map(sift), [r["segments"] for r in out["results"]],
+                      [r["rows"] for r in out["results"]])
+        want = sift.gather(ref, ["id"])["id"].astype(np.int64)
+        tied = check_oracle("POST /search (vectors)", ids,
+                            l2_scores(queries[:nb], [r["distances"] for r in out["results"]]),
+                            want, l2_scores(queries[:nb], ref.distances))
+        exact = sum(r["distances"] == ref.distances[i].tolist() for i, r in enumerate(out["results"]))
+        out = post(front.port, "/text_search", {"table": hyb.name, "index": "body",
+                                                "query": tb[0][0], "k": K})
+        ref = hyb.text_search("body", tb[0][0], k=K)
+        v = ref.valid[0]
+        check(out["rows"] == ref.rows[0][v].tolist() and out["distances"] == ref.distances[0][v].tolist(),
+              "POST /text_search differs from Table.text_search")
+        out = post(front.port, "/hybrid_search", {
+            "table": hyb.name, "vector_column": "vec", "text_column": "body",
+            "vector": vb[0][0].tolist(), "text_query": tb[0][0], "k": K, "fusion_type": "rrf"})
+        ref = hyb.hybrid_search("vec", "body", vb[0][:1], tb[0][:1], k=K, fusion_type="rrf")
+        v = ref.valid[0]
+        check(out["rows"] == ref.rows[0][v].tolist() and out["distances"] == ref.distances[0][v].tolist(),
+              "POST /hybrid_search differs from Table.hybrid_search")
+        live = int(sift.n_rows)
+        count_st = f"SELECT count() FROM {sift.name}"
+        check(post(front.port, "/sql", {"query": count_st})["rows"] == [{"count()": live}]
+              == db.sql(count_st), "POST /sql differs from db.sql")
+        st = f"SELECT id, distance(vec, {vec_literal(queries[1])}) AS d FROM {sift.name} ORDER BY d LIMIT {K}"
+        check(post(front.port, "/sql", {"query": st})["rows"] == db.sql(st),
+              "POST /sql (distance) differs from db.sql")
+        log(f"  HttpFrontend: GET /ping; POST /search (one vector with gather, equal to Table.search "
+            f"exactly; {nb} vectors in one request: ids equal ({tied} near-tied), {exact} of {nb} "
+            f"bit-equal, the rest's scores within F32_TOL); /text_search, /hybrid_search and /sql equal the "
+            f"in-process calls  [{card}]")
+        t0 = time.perf_counter()
+        out = cli(here, "--host", "127.0.0.1", "--port", str(front.port), "-q", count_st,
+                  "--format", "JSONEachRow")
+        check(out.returncode == 0, f"the remote CLI failed: {out.stderr[-2000:]}")
+        check(json.loads(out.stdout.strip()) == {"count()": live},
+              f"the remote CLI's count {out.stdout!r} is not the live {live}")
+        remote_s = time.perf_counter() - t0
+    finally:
+        front.close()
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((CLI_ROWS, CLI_D)).astype(np.float32)
+    q = (x[7] + 0.05 * rng.standard_normal(CLI_D)).astype(np.float32)
+    import torch
+
+    xs = torch.from_numpy(x).bfloat16().double().numpy()  # the stored (bf16) rows
+    d_ref = ((xs - q.astype(np.float64)) ** 2).sum(1)
+    order = np.argsort(d_ref, kind="stable")[:5]
+    stmts = [f"CREATE TABLE cli_t (id UInt64, vec Array(Float32), CONSTRAINT c CHECK "
+             f"length(vec) = {CLI_D})",
+             "INSERT INTO cli_t VALUES " + ", ".join(f"({i}, {vec_literal(v)})" for i, v in enumerate(x)),
+             f"SELECT id, distance(vec, {vec_literal(q)}) AS d FROM cli_t ORDER BY d LIMIT 5"]
+    t0 = time.perf_counter()
+    out = cli(here, *[a for st in stmts for a in ("-q", st)], "--format", "JSONEachRow")
+    local_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"the local CLI failed: {out.stderr[-2000:]}")
+    rows = [json.loads(ln) for ln in out.stdout.splitlines() if ln.strip()]
+    check(len(rows) == 5, f"the local CLI returned {rows}")
+    check_oracle("local CLI", np.array([[r["id"] for r in rows]]),
+                 l2_scores(q[None], [[r["d"] for r in rows]]), order[None].astype(np.int64),
+                 l2_scores(q[None], d_ref[order][None]))
+    out = cli(here, "-q", "SELECT 1", CUDA_VISIBLE_DEVICES="")
+    check(out.returncode != 0 and not out.stdout.strip()
+          and "torch.cuda.is_available() is False" in out.stderr,
+          f"the local CLI without a visible card must raise: {out.returncode} {out.stderr[-500:]}")
+    log(f"  CLI: remote -q 'SELECT count()' = {live} (the live rows) in {remote_s:.2f} s; local "
+        f"(default device, the card) CREATE / INSERT {CLI_ROWS} x {CLI_D} / distance() top-5 equal "
+        f"to an f64 scan of the stored rows, in {local_s:.2f} s; without a visible card the local "
+        f"session raises  [{card}]")
+
+
+def frontend_path(ms, here, card, sift_db, sift, sift_queries, gist_db, gist, gist_queries,
+                  hyb, vb, tb):
+    """Phase 14: the front ends on the card: SQL on phase 3's, phase 4's
+    and phase 9's tables, the coalescing server, HTTP and the CLI."""
+    from myscaledb_tpu_torch.metrics import Metric
+
+    gv, gs, gr = exact_topk(sift, "vec", sift_queries, K, Metric.L2)
+    oracle = (hit_ids(id_map(sift), gs, gr), gv.astype(np.float64))  # ids, exact scores
+    log(f"[14a] SQL exact search on phase 3's table (L2, k={K})")
+    sql_exact_path(sift_db, sift, sift_queries, oracle, card)
+    log("[14b] SQL text and hybrid search on phase 9's table")
+    sql_text_path(sift_db, hyb, vb, tb, card)
+    log(f"[14c] SQL through an HNSWFLAT index on phase 4's table ({HNSW_PARAMS}, Cosine)")
+    sql_index_path(gist_db, gist, gist_queries, card)
+    log(f"[14d] the coalescing server on phase 3's table (connections {SERVER_CONNS})")
+    serving_path(sift_db, sift, sift_queries, oracle, here, card)
+    log("[14e] HttpFrontend and the CLI")
+    http_cli_path(sift_db, sift, hyb, sift_queries, vb, tb, here, card)
+
+
 def main(argv=None):
     import argparse
 
@@ -3434,9 +3986,9 @@ def main(argv=None):
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
     log("[3] SIFT1M-shaped exact path (1,000,000 + 50,000 rows x 128, L2, batch 100, k=10)")
-    sift, sift_batches, flt, sift_queries, sift_gt = sift_path(ms, dev)
+    sift, sift_batches, flt, sift_queries, sift_gt, sift_db = sift_path(ms, dev)
     log("[4] GIST-shaped exact path (100,000 x 960, Cosine, batch 256, k=10)")
-    gist, gist_batches, gist_gt = gist_path(ms, dev)
+    gist, gist_batches, gist_gt, gist_db = gist_path(ms, dev)
     launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
     log(f"  kernel launches on the exact paths: {launches}")
     for name in ("score", "tile_max"):
@@ -3497,7 +4049,7 @@ def main(argv=None):
     # ---- 9. text and hybrid search (score and tile_max zeroed inside)
     log(f"[9] text and hybrid path ({SIFT_N:,} + {SIFT_SMALL_N:,} rows: body String of "
         f"{TEXT_WORDS} words from {TEXT_VOCAB:,}, vec FloatVector({SIFT_D}); batch {TEXT_BATCH}, k={K})")
-    p9 = text_path(ms, dev, card, args)
+    p9, hyb, text_vb, text_tb = text_path(ms, dev, card, args, sift_db)
     log(f"  kernel launches on the text and hybrid path: {p9}")
     for name, n in p9.items():
         launches[name] += n
@@ -3535,6 +4087,24 @@ def main(argv=None):
     for name, n in p11.items():
         check(n > 0, f"kernel {name} was not launched on phase 11's paths")
         launches[name] += n
+
+    # ---- 14. the front ends, with the launch counters zeroed (before phase
+    # 12, which needs the host memory that phase 9's table still holds)
+    t14 = time.perf_counter()
+    distance.scores.launches = 0
+    tilescan.tile_maxes.launches = 0
+    gathermv.gather_block_scores.launches = 0
+    frontend_path(ms, here, card, sift_db, sift, sift_queries, gist_db, gist,
+                  np.concatenate(gist_batches), hyb, text_vb, text_tb)
+    p14 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "gathermv": gathermv.gather_block_scores.launches}
+    log(f"  kernel launches on phase 14's paths: {p14}; phase 14 took "
+        f"{time.perf_counter() - t14:.2f} s")
+    for name, n in p14.items():
+        check(n > 0, f"kernel {name} was not launched on phase 14's paths")
+        launches[name] += n
+    sift_db.drop_table("hybrid")
+    del hyb
 
     # ---- 12. the host tier, with the launch counters zeroed
     t12 = time.perf_counter()

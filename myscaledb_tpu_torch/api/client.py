@@ -2,13 +2,14 @@
 cache and the logs. `connect()` is the entry point.
 
 Counterpart of myscaledb_tpu/api/client.py without replicas (ROADMAP
-queue 1 #13), SQL (#11) and sharded tables (#14). The database carries an
+queue 1 #13) and sharded tables (#14). The database carries an
 explicit torch device into every table, segment and index: "cuda" unless
 the caller asks for the CPU, never a quiet fallback.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -76,6 +77,7 @@ class Database:
         # a path) or None (persisted: ATTACH reloads it from disk)
         self._detached: Dict[str, Optional[Table]] = {}
         self._lock = threading.RLock()
+        self._sql_runner = None  # made by the first sql() call
         srv = self.settings.server
         self.scheduler = BuildScheduler(
             n_fast=srv.background_vector_pool_size,
@@ -100,6 +102,13 @@ class Database:
             from ..service.system_log import SystemLogs
 
             self.system_logs = SystemLogs(self, flush_interval_s=srv.system_log_flush_interval_s)
+
+    def on_device(self):
+        """This database's device as the calling thread's current device
+        (each thread has its own; a kernel launches on the current one)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     def _on_cache_evict(self, key, _value) -> None:
         """Route an LRU eviction back to the owning table (CACHE_EXPIRE)."""
@@ -391,6 +400,22 @@ class Database:
             "avg_doc_len": stats.avg_doc_len,
             "doc_freq": {tm: stats.doc_freq.get(tm, 0) for tm in terms},
         }
+
+    # ----------------------------------------------------------------- sql
+    def sql(self, statement: str):
+        """Execute one SQL statement (the reference's dialect subset).
+        Returns a list of row dicts for SELECT, [] for DDL/INSERT. The
+        runner is made once, under the database's lock, and persists
+        across calls so `SET k = v` session settings stick; a statement
+        runs on the database's device, whichever thread calls."""
+        from ..sql.runner import SQLRunner
+
+        with self._lock:
+            if self._sql_runner is None:
+                self._sql_runner = SQLRunner(self)
+            runner = self._sql_runner
+        with self.on_device():
+            return runner.execute(statement)
 
     def close(self) -> None:
         """Flush the system logs and stop the build pools (queued builds

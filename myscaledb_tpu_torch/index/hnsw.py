@@ -100,6 +100,13 @@ def scan_beats_graph(nq: int, ef: int, scan_bytes: int) -> bool:
     return SCAN_FIXED_S + scan_bytes / SCAN_BYTES_PER_S < trav_s
 
 
+def default_ef_search(params) -> int:
+    """ef_default as the build derives it (for descriptor-only cost
+    modeling: EXPLAIN of an index that is built but not loaded)."""
+    ef_c = int((params or {}).get("ef_c", DEFAULT_EF_C))
+    return max(DEFAULT_EF_S, ef_c // 2)
+
+
 def _prune_chunk(
     node_vecs: torch.Tensor,  # f32[B, D]
     cand_vecs: torch.Tensor,  # f32[B, Ck, D]
@@ -464,7 +471,7 @@ class _HNSWBase(VectorIndex):
             dim=dim,
             n_rows=n_rows,
             m=m,
-            ef_default=max(DEFAULT_EF_S, ef_c // 2),
+            ef_default=default_ef_search(params),
             codec=codec,
         )
 

@@ -35,6 +35,9 @@ def test_import_pulls_in_no_jax():
         "from myscaledb_tpu_torch.index import decoupled\n"
         "from myscaledb_tpu_torch.service import background, system_log\n"
         "from myscaledb_tpu_torch.storage import persistence, stores\n"
+        "from myscaledb_tpu_torch.sql import columnar, parser, runner\n"
+        "from myscaledb_tpu_torch.service import server\n"
+        "from myscaledb_tpu_torch import cli\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'myscaledb_tpu'))\n"
         "assert not bad, bad\n"
@@ -83,6 +86,29 @@ def test_connect_cuda_without_cuda_raises():
     out = _run(code, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised:"), out.stdout
+
+
+def _cli(*args, **env):
+    return subprocess.run(
+        [sys.executable, "-m", "myscaledb_tpu_torch.cli", *args], cwd=REPO,
+        capture_output=True, text=True, timeout=120, env={**os.environ, **env},
+    )
+
+
+def test_cli_local_session_without_cuda_raises():
+    """The CLI's local session is on the card unless `--device cpu` asks
+    for the CPU: without CUDA it raises and prints no rows."""
+    out = _cli("-q", "SELECT 1", "--format", "JSONEachRow", CUDA_VISIBLE_DEVICES="")
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "torch.cuda.is_available() is False" in out.stderr
+
+
+def test_cli_local_session_on_cpu_runs():
+    out = _cli("--device", "cpu", "-q", "SELECT 1", "--format", "JSONEachRow",
+               CUDA_VISIBLE_DEVICES="")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '{"1": 1}'
 
 
 def test_chip_smoke_without_cuda_fails_and_prints_no_result():
