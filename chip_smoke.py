@@ -12,9 +12,11 @@ of the JAX package. Phases, each of which raises on failure:
      started together) and what `-Xptxas -v` said of each kernel;
   2. each hand-written kernel against its plain PyTorch version on the
      card, at the shapes the main paths give it and at one ragged shape
-     (Q = 300): score and tile_max held to `distance.kernel_error_bound`,
-     with a hi-only control (the bf16 payload's query split without its
-     lo half) that must fall outside it, and the kernels' own query split
+     (Q = 300): score and tile_max held to `distance.kernel_error_bound`
+     on zero-mean and on clustered data (the worst err/bound of each
+     printed), with a hi-only control (the bf16 payload's query split
+     without its lo half) that must fall outside it, and the kernels' own
+     query split
      checked bit for bit against `split_query_bf16`; over an f32 payload
      (the 3xTF32 engine, F32_SUM_TOL) with two controls that must fall
      outside (single-pass TF32, the two-term split without q_hi x_lo),
@@ -146,13 +148,34 @@ of the JAX package. Phases, each of which raises on failure:
      127.0.0.1 (/ping, /search, /text_search, /hybrid_search, /sql)
      against the in-process calls, and `python3 -m myscaledb_tpu_torch.cli`
      as subprocesses: remote against the frontend, local on the card, and
-     local without a visible card (it must raise).
+     local without a visible card (it must raise);
+ 15. replication and the sharded table, after phase 14 and before phase
+     12, at phase 3's size: (a) two ReplicatedNodes on 127.0.0.1, each over
+     its own Database on the card: A inserts phase 3's corpus (seconds with
+     and without the commit listener), B syncs (seconds, MB/s over
+     loopback) and its 1,000 searches return A's ids under the exact
+     oracle; then through B's sync thread A's 100 deletes (none comes
+     back), an UPDATE tag = 1 WHERE id < 10000 (B's tag == 1 searches,
+     after tag == 2 ones filled its caches, return only marked rows) and a
+     leader merge of two 500,000-row parts (the follower's merge deferred;
+     the same hits on both after); each replica's device bytes; (b)
+     build_vector_index_on_random_single_replica: IVFFLAT (ncentroids
+     1,024) on the 1M segment built by one replica and fetched by the
+     other, over a shared path and over the HTTP exchange, no local build
+     on the fetcher, its ids at phase 8's nprobe the builder's on 1,000 of
+     1,000 queries; (c) phase 3's corpus in a 4-shard table (its hits,
+     unfiltered and under the 1% filter, phase 3's), phase 9's documents
+     in a 4-shard text table (phase 9's 3-word queries score as phase 9's
+     table, within the sparse path's bound: cluster-wide BM25
+     statistics), hybrid RRF against a numpy fuse of its legs; CommitListenerErrors and ReplicationSyncErrors must read 0, and
+     the phase must end within 90 s.
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
 three over phase 8, score and tile_max over phase 9, the binary rows
 layout, blocks layout and grouping over phase 10, score, tile_max and
-gathermv over phases 11 and 14, and over phases 12 and 13 also the f32
+gathermv over phases 11 and 14, score and tile_max over phase 15, and over
+phases 12 and 13 also the f32
 engine's launches of score and tile_max (the record's score_f32 and
 tile_max_f32 lines);
 every kernel must have launched on its path, and the record's launches
@@ -301,6 +324,13 @@ SERVER_CONNS = (1, 8, 32, 64)
 SERVER_WINDOW = 4
 SERVER_SECONDS = 2.0
 CLI_ROWS, CLI_D = 256, 16
+# phase 15, replication and the sharded table at phase 3's size: B's sync
+# thread's interval and the wait for it, the shards, and the hybrid
+# queries checked against a numpy fuse
+REP_SYNC_INTERVAL_S, REP_WAIT_S = 0.05, 120.0
+REP_SHARDS = 4
+REP_HYBRID_NQ = 20
+REP_PHASE_S = 90.0
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -400,7 +430,7 @@ def compare_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"score": 0.0, "tile_max": 0.0, "score_f32": 0.0, "tile_max_f32": 0.0}
-    ratio = {"score_f32": 0.0, "tile_max_f32": 0.0}
+    ratio = {}  # (kernel name, data) -> worst err/bound
 
     def operands(q, n, d, dtype, metric, data):
         if data == "clustered":  # bench.py's corpus shape: sums that grow with D
@@ -425,11 +455,10 @@ def compare_kernels(dev):
         ratio = diff / (bound + distance.KERNEL_RTOL * want.abs())
         return float(diff.max()), float(ratio.max())
 
-    def close(name, got, want, bound, what, controls=()):
+    def close(name, data, got, want, bound, what, controls=()):
         e, r = worst(got, want, bound)
         err[name] = max(err[name], e)
-        if name in ratio:
-            ratio[name] = max(ratio[name], r)
+        ratio[name, data] = max(ratio.get((name, data), 0.0), r)
         line = f"  {name:12s} {what}: max_abs_err={e:.6g} (worst err/bound {r:.3g})"
         for label, control in controls:
             ce, cr = worst(control, want, bound)
@@ -449,7 +478,7 @@ def compare_kernels(dev):
                      ("two-term (no q_hi x_lo)", distance.TF32_TWO_TERM))
     for kname, q, n, d, _ in KERNEL_SHAPES + RAGGED_SHAPES:
         for dtype, data in ((torch.float32, "normal"), (torch.float32, "clustered"),
-                            (torch.bfloat16, "normal")):
+                            (torch.bfloat16, "normal"), (torch.bfloat16, "clustered")):
             for metric in (Metric.L2, Metric.IP, Metric.COSINE):
                 qs, x, aux = operands(q, n, d, dtype, metric, data)
                 split = dtype == torch.bfloat16
@@ -464,7 +493,7 @@ def compare_kernels(dev):
                     else:
                         controls = [(label, distance.tf32_products(qs, x, aux, metric, terms))
                                     for label, terms in tf32_controls]
-                    close(name, distance.scores(qs, x, aux, metric=metric), want,
+                    close(name, data, distance.scores(qs, x, aux, metric=metric), want,
                           distance.kernel_error_bound(qs, x, aux, metric), what, controls)
                     del want, controls
                     continue
@@ -490,11 +519,17 @@ def compare_kernels(dev):
                         else:
                             controls = [(label, masked_maxes(distance.tf32_products(
                                 qs, x, aux, metric, terms), m8)) for label, terms in tf32_controls]
-                    close(name, got, want, bound, f"{what} {mname}", controls)
+                    close(name, data, got, want, bound, f"{what} {mname}", controls)
                 del qs, x, aux
+    worst_of = lambda name: max(r for (n, _), r in ratio.items() if n == name)
     log(f"  f32 engine: worst err/bound over every shape and metric: score "
-        f"{ratio['score_f32']:.4g}, tile_max {ratio['tile_max_f32']:.4g} (bound: "
+        f"{worst_of('score_f32'):.4g}, tile_max {worst_of('tile_max_f32'):.4g} (bound: "
         f"F32_SUM_TOL 2^-18 of sum |q_i x_i| + 1e-5 of the score)")
+    log(f"  bf16 engine: worst err/bound over every shape and metric: normal data score "
+        f"{ratio['score', 'normal']:.4g}, tile_max {ratio['tile_max', 'normal']:.4g}; "
+        f"clustered data score {ratio['score', 'clustered']:.4g}, tile_max "
+        f"{ratio['tile_max', 'clustered']:.4g} (bound: kernel_error_bound, 2^-16 of "
+        f"sum |q_i x_i| + 1e-5 of the score)")
     check_split(dev, gen)
     check_tf32_exact(dev)
     sync(dev)
@@ -3926,6 +3961,391 @@ def frontend_path(ms, here, card, sift_db, sift, sift_queries, gist_db, gist, gi
     http_cli_path(sift_db, sift, hyb, sift_queries, vb, tb, here, card)
 
 
+# --------------------------------------------------------------- phase 15
+def wait_until(cond, what, timeout=REP_WAIT_S):
+    """Poll `cond` until it holds; fail after `timeout` seconds."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline, f"{what}: not within {timeout} s")
+        time.sleep(0.02)
+
+
+def stored_corpus(t):
+    """(ids, f32 rows) of each segment of a bf16 table: the stored values,
+    which a replica's insert stores again unchanged."""
+    import torch
+
+    return [(s.scalar("id")[: s.n_rows].copy(),
+             s.vector("vec").data[: s.n_rows, :SIFT_D].to(torch.float32).cpu().numpy())
+            for s in t.live_segments()]
+
+
+def data_replication_path(ms, dev, sift, queries, card, root):
+    """15a: two ReplicatedNodes on 127.0.0.1 in this process, A and B, each
+    over its own Database on the card. A inserts phase 3's corpus (timed
+    with and without the commit listener), B pulls it (timed, over
+    loopback), then B's sync thread applies A's deletes, UPDATE and a
+    leader merge of two 500,000-row parts; B's searches are held to the
+    exact oracle and to A's hits after each step."""
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.service.data_replication import ReplicatedNode
+
+    parts = stored_corpus(sift)  # phase 3's 1,000,000 + 50,000 rows
+    check([len(i) for i, _ in parts] == [SIFT_N, SIFT_SMALL_N], "phase 3's segments changed")
+    schema = lambda: ms.Schema({"id": ms.UInt64(), "tag": ms.Int32(),
+                                "vec": ms.FloatVector(SIFT_D)})
+    cols = [{"id": i, "tag": (i % 3 + 2).astype(np.int32), "vec": v} for i, v in parts]
+    batches = [queries[i : i + SIFT_BATCH] for i in range(0, SIFT_NQ, SIFT_BATCH)]
+    search = lambda t, flt=None: [t.search("vec", qb, k=K, metric="L2", filter=flt)
+                                  for qb in batches]
+    dbs = [ms.connect(device=dev) for _ in range(2)]
+    a = ReplicatedNode(dbs[0], "a", os.path.join(root, "a"))
+    b = ReplicatedNode(dbs[1], "b", os.path.join(root, "b"))
+    a.peers, b.peers = [b.url], [a.url]
+    try:
+        plain = dbs[0].create_table("plain", schema())
+        t0 = time.perf_counter()
+        for c in cols:
+            plain.insert(c)
+        sync(dev)
+        t_plain = time.perf_counter() - t0
+        dbs[0].drop_table("plain")
+        del plain
+        ta, tb = (db.create_table("rep", schema()) for db in dbs)
+        a.attach(ta)
+        b.attach(tb)
+        t0 = time.perf_counter()
+        for c in cols:
+            ta.insert(c)
+        sync(dev)
+        t_listen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_ops = b.sync()
+        sync(dev)
+        t_sync = time.perf_counter() - t0
+        fetched = tree_bytes(os.path.join(b.root, "repdata"))
+        check(n_ops == 2 and tb.n_rows == ta.n_rows == SIFT_N + SIFT_SMALL_N,
+              f"B applied {n_ops} ops, {tb.n_rows} rows")
+        log(f"  A's insert of {SIFT_N:,} + {SIFT_SMALL_N:,} rows: {t_plain:.2f} s without the "
+            f"commit listener, {t_listen:.2f} s with it (each segment persisted for the peers); "
+            f"B's sync {t_sync:.2f} s for {fetched / 1e6:.1f} MB over loopback "
+            f"({fetched / 1e6 / t_sync:.1f} MB/s, fetch, sha256, load and insert)  [{card}]")
+        res_b = search(tb)
+        check_recall("replica B", res_b, exact_topk(tb, "vec", queries, K, Metric.L2), F32_TOL)
+        nq, tied, worst = same_hits("B against A", hits(tb, res_b),
+                                    hits(ta, search(ta)))
+        log(f"  B's {nq} queries return A's ids ({tied} near-tied; largest |distance difference| "
+            f"{worst:g})")
+
+        # the rest through B's sync thread (on the card: Database.on_device)
+        b.start_sync(REP_SYNC_INTERVAL_S)
+        applied = lambda tname: lambda: (b._applied.get(a.url, {}).get(tname, 0)
+                                         == len(a._log[tname]))
+        check(ta.delete(F("id") < 100) == 100, "delete removed another count of rows")
+        wait_until(applied("rep"), "B applying A's deletes")
+        check(tb.n_rows == ta.n_rows == SIFT_N + SIFT_SMALL_N - 100, f"B holds {tb.n_rows} rows")
+        res_b = search(tb)
+        check((hits(tb, res_b)[0] >= 100).all(), "a row deleted on A came back on B")
+        check_recall("replica B after A's deletes", res_b,
+                     exact_topk(tb, "vec", queries, K, Metric.L2), F32_TOL)
+        # fill B's device mirror of `tag`, its min/max and the filter-mask
+        # cache at the current generation; the UPDATE must replace them
+        two = F("tag") == 2
+        check_recall("replica B tag == 2", search(tb, two),
+                     exact_topk(tb, "vec", queries, K, Metric.L2,
+                                lambda s: s.scalar("tag")[: s.n_rows] == 2), F32_TOL)
+        check(ta.update(F("id") < MUT_IDS, {"tag": 1}) == MUT_IDS - 100, "UPDATE count")
+        wait_until(applied("rep"), "B applying A's UPDATE")
+        one = F("tag") == 1
+        res_b = search(tb, one)
+        got = hits(tb, res_b)
+        live = got[0][np.concatenate([r.valid for r in res_b])]
+        check(len(live) == SIFT_NQ * K and (live < MUT_IDS).all() and (live >= 100).all(),
+              "B's search on tag == 1 returned a row the UPDATE did not mark")
+        check_recall("replica B tag == 1 after A's UPDATE", res_b,
+                     exact_topk(tb, "vec", queries, K, Metric.L2,
+                                lambda s: s.scalar("tag")[: s.n_rows] == 1), F32_TOL)
+        same_hits("B against A, tag == 1", got, hits(ta, search(ta, one)))
+        log(f"  A's 100 deletes and UPDATE tag = 1 WHERE id < {MUT_IDS} reach B through its sync "
+            f"thread: no deleted row returns; B's tag == 1 searches (after tag == 2 ones filled "
+            f"its caches) return only marked rows, as the exact oracle and A do")
+
+        # a leader merge of two 500,000-row parts (phase 11c's layout)
+        ma, mb = (db.create_table("rep_merge", schema()) for db in dbs)
+        a.attach(ma)
+        b.attach(mb)
+        half = SIFT_N // 2
+        t0 = time.perf_counter()
+        for p in (slice(0, half), slice(half, SIFT_N)):
+            ma.insert({c: v[p] for c, v in cols[0].items()})
+        wait_until(applied("rep_merge"), "B applying A's two parts")
+        t1 = time.perf_counter()
+        leader, follower = ((a, ma), (b, mb)) if a.is_merge_leader("rep_merge") else ((b, mb), (a, ma))
+        check(follower[0].is_merge_leader("rep_merge") is False, "two merge leaders")
+        check(follower[1].merge() is None, "the follower's merge was not deferred to the leader")
+        new_id = leader[1].merge()
+        check(new_id is not None, "the leader did not merge")
+        if follower[0] is a:
+            a.sync()
+        else:
+            wait_until(applied("rep_merge"), "B applying A's merge")
+        t2 = time.perf_counter()
+        check([s.n_rows for s in mb.live_segments()] == [s.n_rows for s in ma.live_segments()]
+              == [SIFT_N], "the merge did not converge to one segment on both replicas")
+        res_m = search(mb)
+        check_recall("replica B after the merge", res_m,
+                     exact_topk(mb, "vec", queries, K, Metric.L2), F32_TOL)
+        nq, tied, worst = same_hits("B against A after the merge", hits(mb, res_m),
+                                    hits(ma, search(ma)))
+        log(f"  two {half:,}-row parts on A, on B in {t1 - t0:.2f} s; replica {leader[0].node_id} "
+            f"(the leader) merged, replica {follower[0].node_id}'s merge() was deferred; the "
+            f"merge reached it in {t2 - t1:.2f} s; {nq} queries return the same ids on both "
+            f"({tied} near-tied, largest |distance difference| {worst:g})")
+        nbytes = [sum(s.device_bytes for t in ts for s in t.live_segments())
+                  for ts in ((ta, ma), (tb, mb))]
+        log(f"  device bytes of the vector payloads: replica a {nbytes[0] / 1e6:.1f} MB, "
+            f"replica b {nbytes[1] / 1e6:.1f} MB  [{card}]")
+    finally:
+        a.close()
+        b.close()
+        for db in dbs:
+            db.close()
+    check(b.last_sync_error is None, f"B's sync thread failed: {b.last_sync_error}")
+
+
+def index_replication_path(ms, dev, sift, queries, op, card, root):
+    """15b: build_vector_index_on_random_single_replica over two replica
+    databases on the card, IVFFLAT (ncentroids 1,024) on phase 3's 1M
+    segment: the builder (the JAX package's picker) builds and publishes,
+    the other replica fetches and loads, once over a shared path and once
+    over the HTTP exchange; the fetcher's searches at phase 8's operating
+    nprobe return the builder's ids."""
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+    from myscaledb_tpu_torch.service.exchange import IndexExchangeServer
+    from myscaledb_tpu_torch.service.replication import pick_build_replica
+
+    (ids, vecs), _ = stored_corpus(sift)
+    batches = [queries[i : i + SIFT_BATCH] for i in range(0, SIFT_NQ, SIFT_BATCH)]
+    builder = pick_build_replica("repidx", 0, "ivf", 2)
+    other = 1 - builder
+    st = ms.Settings()
+    st.table.build_vector_index_on_random_single_replica = True
+    for mode in ("a shared path", "the HTTP exchange"):
+        srv = None
+        if mode == "a shared path":
+            paths, peers = [os.path.join(root, "shared")] * 2, None
+        else:
+            paths = [os.path.join(root, f"replica{i}") for i in range(2)]
+            srv = IndexExchangeServer(paths[builder])
+            peers = [None, None]
+            peers[builder] = srv.url
+        dbs = [ms.connect(st, path=paths[i], replica_id=i, n_replicas=2, replica_peers=peers,
+                          device=dev) for i in range(2)]
+        try:
+            ts = [db.create_table("repidx", ms.Schema({"id": ms.UInt64(),
+                                                       "vec": ms.FloatVector(SIFT_D)}))
+                  for db in dbs]
+            for t in ts:
+                t.insert({"id": ids, "vec": vecs})
+            count = lambda: {n: GLOBAL_COUNTERS.get(n) for n in (
+                "VectorIndexBuilds", "ReplicatedPartVectorIndexFetches",
+                "ReplicatedPartVectorIndexFailedFetches")}
+            before = count()
+            t0 = time.perf_counter()
+            for t in ts:
+                t.add_vector_index("ivf", "vec", type="IVFFLAT", ncentroids=IVF_NCENT,
+                                   metric_type="L2")
+            for t in ts:
+                check(t.wait_index_built(), "the replicated index did not land")
+            sync(dev)
+            t1 = time.perf_counter()
+            want = {"VectorIndexBuilds": 1, "ReplicatedPartVectorIndexFetches": 1,
+                    "ReplicatedPartVectorIndexFailedFetches": 0}
+            moved = lambda: {n: v - before[n] for n, v in count().items()}
+            # the builder counts its build just after it publishes, which
+            # the fetcher may already have loaded
+            wait_until(lambda: moved()["VectorIndexBuilds"] >= 1, "the builder's count", 10)
+            check(moved() == want, f"one build and one fetch expected, no local build on the "
+                  f"fetcher: {moved()}")
+            check(ts[other]._slots[(0, "ivf")].path.startswith(paths[other]),
+                  "the fetcher's index is not in its own store")
+            res = [[t.search("vec", qb, k=K, metric="L2", params={"nprobe": op})
+                    for qb in batches] for t in ts]
+            got = [hits(t, r) for t, r in zip(ts, res)]
+            same = int((got[other][0] == got[builder][0]).all(axis=1).sum())
+            check(same == SIFT_NQ, f"the fetcher's ids equal the builder's on {same} of "
+                  f"{SIFT_NQ} queries")
+            check(np.array_equal(got[other][1], got[builder][1]),
+                  "the fetched index scores otherwise than the builder's")
+            check_hits_exact(ts[other], queries, res[other], f"fetched IVFFLAT nprobe={op}")
+            log(f"  over {mode}: replica {builder} built, replica {other} fetched "
+                f"({moved()}) in {t1 - t0:.2f} s; at nprobe {op} the fetcher returns the "
+                f"builder's ids and scores on {same} of {SIFT_NQ} queries  [{card}]")
+        finally:
+            for db in dbs:
+                db.close()
+            if srv is not None:
+                srv.close()
+
+
+def sharded_path(ms, dev, sift, queries, hyb, vb, tb, card):
+    """15c: phase 3's corpus in a 4-shard table sharded by id against phase
+    3's table (no filter and the 1% filter); phase 9's documents in a
+    4-shard text table against phase 9's table (BM25 over cluster-wide
+    statistics); hybrid RRF against a numpy fuse of its own two legs."""
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.text import inverted
+    from myscaledb_tpu_torch.text.inverted import BM25Stats
+
+    db = ms.connect(device=dev)
+    try:
+        sh = db.create_sharded_table("sift_sh", ms.Schema({"id": ms.UInt64(),
+                                                           "vec": ms.FloatVector(SIFT_D)}),
+                                     n_shards=REP_SHARDS, shard_key="id")
+        t0 = time.perf_counter()
+        for ids, vecs in stored_corpus(sift):
+            sh.insert({"id": ids, "vec": vecs})
+        check(sh.delete(F("id") < 100) == 100, "the sharded delete removed another count")
+        sync(dev)
+        t1 = time.perf_counter()
+        shape = [[(s.n_rows, s.capacity) for s in t.live_segments()] for t in sh.shards]
+        log(f"  {REP_SHARDS} shards by id ({t1 - t0:.2f} s): (rows, capacity) {shape}")
+        batches = [queries[i : i + SIFT_BATCH] for i in range(0, SIFT_NQ, SIFT_BATCH)]
+        for label, flt in (("no filter", None), ("id < 10000", F("id") < 10_000)):
+            got = hits(sh, [sh.search("vec", qb, k=K, metric="L2", filter=flt)
+                                      for qb in batches])
+            want = hits(sift, [sift.search("vec", qb, k=K, metric="L2", filter=flt)
+                                         for qb in batches])
+            nq, tied, worst = same_hits(f"sharded against phase 3's table, {label}", got, want)
+            agree = (got[0] == want[0]).all(axis=1)
+            check(np.allclose(got[1][agree], want[1][agree], **F32_TOL),
+                  f"sharded scores differ from phase 3's, {label}")
+            log(f"  {label}: {nq} queries return phase 3's ids ({tied} near-tied, largest "
+                f"|distance difference| {worst:g})")
+
+        # phase 9's documents and vectors, with its deletes
+        src = hyb.live_segments()
+        th = db.create_sharded_table("hyb_sh", ms.Schema({"id": ms.UInt64(), "body": ms.String(),
+                                                          "vec": ms.FloatVector(SIFT_D)}),
+                                     n_shards=REP_SHARDS, shard_key="id")
+        th.add_fts_index("ft", "body")
+        t0 = time.perf_counter()
+        for s, (ids, vecs) in zip(src, stored_corpus(hyb)):
+            th.insert({"id": ids, "body": s.scalar("body")[: s.n_rows], "vec": vecs})
+        dead = np.concatenate([s.scalar("id")[: s.n_rows][s.deleted_host()[: s.n_rows]]
+                               for s in src])
+        check(th.delete(F("id").isin(dead.tolist())) == len(dead) > 0, "the text deletes")
+        sync(dev)
+        t1 = time.perf_counter()
+        # phase 9's 3-word queries; a store routed to the sparse path
+        # (phase 9's 1M store, and here the 262,144-row shards) carries its
+        # bound (`sparse_error_bound`, the query's prefix total), which
+        # each side's score may take
+        tables = [(hyb, [hyb]), (th, th.shards)]
+        worst, tied, sure, n_sparse = 0.0, 0, 0, 0
+        for qb in tb:
+            extra = np.zeros(len(qb))
+            for _, parts in tables:
+                stores = [(t._text_indexes["ft"], s.segment_id)
+                          for t in parts for s in t.live_segments()]
+                stats = BM25Stats.merge([t._text_indexes["ft"].merged_stats(
+                    [s.segment_id for s in t.live_segments()]) for t in parts])
+                for tdef, sid in stores:
+                    store = tdef.store(sid)
+                    if store.plan_batch(qb, stats=stats)[3] == "sparse":
+                        n_sparse += 1
+                        bnd = store.bm25_topk_batch(qb, K, stats=stats, route="sparse")[4]
+                        extra = np.maximum(extra, bnd.cpu().numpy())
+            r_sh, r_one = th.text_search("body", qb, k=K), hyb.text_search("body", qb, k=K)
+            i_sh, i_one = th.gather(r_sh, ["id"])["id"], hyb.gather(r_one, ["id"])["id"]
+            for i in range(len(qb)):
+                a_sc, b_sc = r_sh.scores[i][r_sh.valid[i]], r_one.scores[i][r_one.valid[i]]
+                check(len(a_sc) == len(b_sc), "the sharded text search found another count")
+                tol = 2 * inverted.DENSE_RTOL * np.abs(b_sc) + 2 * extra[i]
+                err = np.abs(np.sort(a_sc) - np.sort(b_sc))
+                check((err <= tol).all(), f"sharded BM25 scores differ from phase 9's by "
+                      f"{err.max():.6g} (bound {tol.max():.6g})")
+                if len(err):
+                    worst = max(worst, float((err / tol).max()))
+                # a row scoring clearly above the k-th on one side is a hit
+                # on the other (rows near the k-th may differ)
+                kth = b_sc.min() if len(b_sc) else 0.0
+                cut = kth * (1 + 8 * inverted.DENSE_RTOL) + 4 * extra[i]
+                x, y = i_sh[i][r_sh.valid[i]], i_one[i][r_one.valid[i]]
+                check(set(x[a_sc > cut].tolist()) <= set(y.tolist())
+                      and set(y[b_sc > cut].tolist()) <= set(x.tolist()),
+                      "sharded BM25 hits differ from phase 9's above the k-th score")
+                sure += int((b_sc > cut).sum())
+                tied += int((b_sc <= cut).sum() > 1)
+        nq = sum(len(qb) for qb in tb)
+        log(f"  text: {REP_SHARDS}-shard table over phase 9's {hyb.n_rows:,} live documents "
+            f"(insert {t1 - t0:.2f} s; the fts stores build in the background); its {nq} "
+            f"3-word queries score as phase 9's table within DENSE_RTOL and the sparse bounds "
+            f"({n_sparse} sparse store-batches; worst err/bound {worst:.3g}); the {sure} hits "
+            f"clearly above each k-th score are phase 9's ({tied} queries with rows near the k-th)")
+
+        # hybrid RRF against a numpy fuse of its own legs (the reference's
+        # Σ 1 / (fusion_k + rank) in f64, ties by (shard, segment, row))
+        n_cand = K * th.shards[0].settings.query.hybrid_search_top_k_multiple_base
+        fk = th.shards[0].settings.query.hybrid_search_fusion_k
+        qv, texts = np.concatenate(vb), [q for qb in tb for q in qb]
+        for j in range(REP_HYBRID_NQ):
+            h = th.hybrid_search("vec", "body", qv[j], texts[j], k=K, fusion_type="rrf")
+            legs = (th.search("vec", qv[j], k=n_cand), th.text_search("body", texts[j], k=n_cand))
+            fused = {}
+            for leg in legs:
+                ok = leg.valid[0]
+                keys = zip(leg.shards[0][ok].tolist(), leg.segments[0][ok].tolist(),
+                           leg.rows[0][ok].tolist())
+                for rank, key in enumerate(keys, start=1):
+                    fused[key] = fused.get(key, 0.0) + 1.0 / (fk + rank)
+            want = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))[:K]
+            got = list(zip(zip(h.shards[0].tolist(), h.segments[0].tolist(), h.rows[0].tolist()),
+                           h.scores[0].tolist()))[: len(want)]
+            check([g[0] for g in got] == [w[0] for w in want]
+                  and np.array_equal(np.float32([g[1] for g in got]), np.float32([w[1] for w in want])),
+                  f"sharded hybrid RRF differs from the numpy fuse of its legs (query {j})")
+        log(f"  hybrid RRF: {REP_HYBRID_NQ} queries equal a numpy fuse of their own two legs "
+            f"({n_cand} candidates a leg, fusion_k {fk})  [{card}]")
+    finally:
+        db.close()
+
+
+def replication_path(ms, dev, sift, queries, op, hyb, vb, tb, card):
+    """Phase 15: replication and the sharded table on the card (15a-c);
+    the commit listeners and the sync thread must have swallowed no
+    error."""
+    import gc
+    import tempfile
+
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    t0 = time.perf_counter()
+    avail = mem_available()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rep_") as root:
+        log(f"[15a] data replication: two ReplicatedNodes on 127.0.0.1, phase 3's corpus, then "
+            f"deletes, UPDATE and a leader merge through B's sync thread")
+        data_replication_path(ms, dev, sift, queries, card, root)
+        gc.collect()  # a closed database and its index cache hold each other
+        t1 = time.perf_counter()
+        log(f"[15b] index replication: IVFFLAT ncentroids={IVF_NCENT} built once, fetched over a "
+            f"shared path and over the HTTP exchange")
+        index_replication_path(ms, dev, sift, queries, op, card, root)
+        gc.collect()
+        t2 = time.perf_counter()
+    log(f"[15c] ShardedTable: phase 3's corpus and phase 9's documents in {REP_SHARDS} shards")
+    sharded_path(ms, dev, sift, queries, hyb, vb, tb, card)
+    gc.collect()
+    t3 = time.perf_counter()
+    log(f"  15a {t1 - t0:.2f} s, 15b {t2 - t1:.2f} s, 15c {t3 - t2:.2f} s; host MemAvailable "
+        f"{avail / 1e9:.1f} GB before, {mem_available() / 1e9:.1f} GB after (phase 12 needs it)")
+    errors = {n: GLOBAL_COUNTERS.get(n) for n in ("CommitListenerErrors", "ReplicationSyncErrors")}
+    check(errors == {"CommitListenerErrors": 0, "ReplicationSyncErrors": 0},
+          f"replication swallowed errors: {errors}")
+    log(f"  swallowed errors: {errors}")
+
+
 def main(argv=None):
     import argparse
 
@@ -4103,6 +4523,20 @@ def main(argv=None):
     for name, n in p14.items():
         check(n > 0, f"kernel {name} was not launched on phase 14's paths")
         launches[name] += n
+
+    # ---- 15. replication and the sharded table, with the launch counters
+    # zeroed (before phase 12 too: it needs phase 9's table)
+    t15 = time.perf_counter()
+    distance.scores.launches = 0
+    tilescan.tile_maxes.launches = 0
+    replication_path(ms, dev, sift, sift_queries, ivf_op, hyb, text_vb, text_tb, card)
+    p15 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    s15 = time.perf_counter() - t15
+    log(f"  kernel launches on phase 15's paths: {p15}; phase 15 took {s15:.2f} s")
+    for name, n in p15.items():
+        check(n > 0, f"kernel {name} was not launched on phase 15's paths")
+        launches[name] += n
+    check(s15 <= REP_PHASE_S, f"phase 15 took {s15:.1f} s, more than {REP_PHASE_S} s")
     sift_db.drop_table("hybrid")
     del hyb
 

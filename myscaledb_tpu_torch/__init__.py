@@ -35,6 +35,21 @@ from .storage.schema import (
 )
 from .storage.table import Table
 
+
+def __getattr__(name):
+    # the scale-out constructs load lazily, as in the JAX package
+    if name == "ShardedTable":
+        from .parallel.sharded_table import ShardedTable
+
+        return ShardedTable
+    if name == "MeshTable":
+        raise AttributeError(
+            "MeshTable (one corpus sharded row-wise over several cards) is not "
+            "ported yet: ROADMAP.md queue 1 #14b"
+        )
+    raise AttributeError(name)
+
+
 __version__ = "0.1.0"
 
 __all__ = [

@@ -1,10 +1,12 @@
 """Database: top-level handle owning the tables, the build pools, the index
 cache and the logs. `connect()` is the entry point.
 
-Counterpart of myscaledb_tpu/api/client.py without replicas (ROADMAP
-queue 1 #13) and sharded tables (#14). The database carries an
-explicit torch device into every table, segment and index: "cuda" unless
-the caller asks for the CPU, never a quiet fallback.
+Counterpart of myscaledb_tpu/api/client.py, with its replica arguments
+(`replica_id`, `n_replicas`, `replica_peers`: one replica of a set that
+builds each index once, service/replication.py) and its sharded tables
+(`create_sharded_table`, parallel/sharded_table.py). The database carries
+an explicit torch device into every table, segment and index: "cuda"
+unless the caller asks for the CPU, never a quiet fallback.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ class Database:
         path: Optional[str] = None,
         event_log_path: Optional[str] = None,
         remote_store=None,
+        replica_id: Optional[int] = None,
+        n_replicas: int = 1,
+        replica_peers=None,
         device="cuda",
     ):
         self.settings = settings or Settings()
@@ -71,6 +76,13 @@ class Database:
 
             remote_store = store_from_url(remote_store)
         self.remote_store = remote_store
+        self.replica = None
+        if replica_id is not None and n_replicas > 1:
+            from ..service.replication import ReplicaContext
+
+            # replica_peers: the peers' IndexExchangeServer URLs by replica
+            # id; index fetches then go over HTTP instead of a shared dir
+            self.replica = ReplicaContext(replica_id, n_replicas, peers=replica_peers)
         self.event_log = EventLog(path=event_log_path)
         self._tables: Dict[str, Table] = {}
         # DETACH TABLE registry: name -> the live Table (a database without
@@ -144,7 +156,7 @@ class Database:
                 sign_column=sign_column, event_log=self.event_log, scheduler=self.scheduler,
                 index_cache=self.index_cache,
                 storage_dir=os.path.join(self.path, name) if self.path else None,
-                remote_store=self.remote_store,
+                remote_store=self.remote_store, replica=self.replica,
             )
             self._tables[name] = t
             return t
@@ -223,6 +235,24 @@ class Database:
             for seg in pending:
                 t._schedule_build(seg, desc)
         return t
+
+    def create_sharded_table(
+        self,
+        name: str,
+        schema: Schema,
+        *,
+        n_shards: int,
+        settings: Optional[Settings] = None,
+        shard_key: Optional[str] = None,
+    ):
+        """Distributed-engine analogue: a logical table over n shard tables
+        of this database, fused on the initiator
+        (parallel/sharded_table.py)."""
+        from ..parallel.sharded_table import ShardedTable
+
+        return ShardedTable(
+            self, name, schema, n_shards=n_shards, settings=settings, shard_key=shard_key
+        )
 
     def table(self, name: str) -> Table:
         with self._lock:
@@ -427,5 +457,6 @@ class Database:
 
 def connect(settings: Optional[Settings] = None, **kw) -> Database:
     """Database(settings, path=..., event_log_path=..., remote_store=...,
-    device="cuda"); pass device="cpu" for the CPU."""
+    replica_id=..., n_replicas=..., replica_peers=..., device="cuda"); pass
+    device="cpu" for the CPU."""
     return Database(settings, **kw)

@@ -74,9 +74,7 @@ class TextIndexDefinition:
     def on_new_segment(self, segment, scheduler=None) -> None:
         """Register (and build) the fts store for a segment: now, or with a
         scheduler as a background job (a search that arrives first builds
-        it on demand). A rebuild replaces the segment's store. (Deletes
-        need no hook: a search masks deleted rows through the alive
-        bitmap.)"""
+        it on demand). A rebuild replaces the segment's store."""
         if scheduler is None:
             store = self._build_store(segment)
             with self._lock:
@@ -109,6 +107,10 @@ class TextIndexDefinition:
             self._stores.pop(segment_id, None)
             self._pending.pop(segment_id, None)
             self._invalidate_locked()
+
+    def on_deletes(self, segment) -> None:
+        """Deletes (local or replicated) need no store change: a search
+        masks deleted rows through the alive bitmap."""
 
     def store(self, segment_id: int) -> Optional[InvertedIndex]:
         with self._lock:

@@ -27,9 +27,17 @@ Counterpart of myscaledb_tpu/storage/table.py:
     (storage/persistence.py); a persisted index comes back BUILT and
     reloads lazily on its first search, through the LRU index cache
 
+  * replication hooks -> commit listeners called after each local commit
+    (insert, mutate, deletes, merge with its row maps, truncate), through
+    which service/data_replication.py publishes; a merge gate that defers
+    merges to the replica set's leader (`force=True` bypasses it); and,
+    with `build_vector_index_on_random_single_replica` and a `replica`
+    context, one replica builds each (segment, index) and publishes it
+    while the others fetch it (a shared directory or the HTTP exchange of
+    service/exchange.py) and load it onto their own device
+
 Every segment and index lives on the table's explicit `device`; a build
-on a worker thread runs under that device. Replication (the merge gate,
-commit listeners, index publication and fetch) is ROADMAP queue 1 #13.
+or an index fetch on a worker thread runs under that device.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import os
 import shutil
 import threading
 import time
+import traceback
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -104,6 +113,7 @@ class Table:
         index_cache=None,
         storage_dir: Optional[str] = None,
         remote_store=None,
+        replica=None,
     ):
         self.name = name
         self.schema = schema
@@ -111,6 +121,9 @@ class Table:
         self.device = torch.device(device)
         self.storage_dir = storage_dir
         self.remote_store = remote_store  # cold tier (storage_policy='remote')
+        # service/replication.py::ReplicaContext when this table is one
+        # replica of a set that builds each index once
+        self.replica = replica
         # Versioned engines: rows sharing key_column supersede or cancel
         # each other; FINAL searches and merges re-read candidates through
         # the merging algorithm (performFinal, ReadWithHybridSearch.cpp:
@@ -153,6 +166,30 @@ class Table:
         self._slots: Dict[tuple, IndexSlot] = {}  # (segment_id, index_name)
         self._text_indexes: Dict[str, Any] = {}  # name -> TextIndexDefinition
         self._executor = VectorSearchExecutor(self)
+        # Commit listeners, called after a local commit (insert / deletes /
+        # mutate / merge / truncate) outside the table's locks: the hook
+        # data replication publishes through (the ReplicatedMergeTree
+        # log-entry write, StorageReplicatedMergeTree.cpp:3183). A
+        # listener must not mutate the table synchronously.
+        self._commit_listeners: List[Any] = []
+        # the traceback of the last listener that raised (the counter
+        # CommitListenerErrors counts them)
+        self.last_listener_error: Optional[str] = None
+        # Merge gate: when set (by a ReplicatedNode), merge() defers to it
+        # unless force=True: the leader-assigned merge (the reference's ZK
+        # merge assignment)
+        self.merge_gate: Optional[Any] = None
+
+    def add_commit_listener(self, fn) -> None:
+        self._commit_listeners.append(fn)
+
+    def _notify_commit(self, op: str, **kw) -> None:
+        for fn in list(self._commit_listeners):
+            try:
+                fn(self, op, **kw)
+            except Exception:  # noqa: BLE001 — replication must not fail DML
+                self.last_listener_error = traceback.format_exc()
+                GLOBAL_COUNTERS.bump("CommitListenerErrors")
 
     # ------------------------------------------------------------- ingest
     def _new_segment(self, columns: Dict[str, Any]) -> Segment:
@@ -195,6 +232,7 @@ class Table:
             tdef.on_new_segment(seg, scheduler=self._scheduler)
         GLOBAL_COUNTERS.bump("InsertedSegments")
         GLOBAL_COUNTERS.bump("InsertedRows", seg.n_rows)
+        self._notify_commit("insert", segment=seg)
         return seg.segment_id
 
     def update(self, filter: Expr, assignments: Dict[str, Any]) -> int:
@@ -212,6 +250,7 @@ class Table:
                     "mutations that keep the vector column intact)"
                 )
         n = 0
+        touched = []
         with self._dml_lock:
             for seg in self.live_segments():
                 m = filter.evaluate(seg) & ~seg.deleted_host()[: seg.n_rows]
@@ -229,18 +268,27 @@ class Table:
                     if any(c in tdef.columns for c in assignments):
                         tdef.on_new_segment(seg)
                 n += len(rows)
+                touched.append(seg)
         GLOBAL_COUNTERS.bump("MutatedRows", n)
+        for seg in touched:
+            self._notify_commit("mutate", segment=seg)
         return n
 
     def delete(self, filter: Expr) -> int:
         """Lightweight DELETE: set delete-bitmap bits on matching rows."""
         n = 0
+        touched = []
         with self._dml_lock:
             for seg in self.live_segments():
                 rows = np.nonzero(filter.evaluate(seg))[0]
                 if len(rows):
                     n += seg.delete_rows(rows)
+                    touched.append(seg)
+                    for tdef in list(self._text_indexes.values()):
+                        tdef.on_deletes(seg)
         GLOBAL_COUNTERS.bump("DeletedRows", n)
+        for seg in touched:
+            self._notify_commit("deletes", segment=seg)
         return n
 
     def add_column(self, name: str, coltype, default=None) -> None:
@@ -382,7 +430,22 @@ class Table:
             )
             return
         slow = seg.n_rows > self.settings.table.max_rows_for_slow_mode_single_vector_index_build
-        self._submit(lambda: self._build_one(seg, desc), slow=slow)
+        if self._replicated_build() and not self.replica.i_build(
+            self.name, seg.segment_id, desc.name
+        ):
+            # another replica builds this one: fetch its files
+            self._submit(lambda: self._fetch_replica_index(seg, desc), slow=slow)
+        else:
+            self._submit(lambda: self._build_one(seg, desc), slow=slow)
+
+    def _replicated_build(self) -> bool:
+        """One replica of the set builds each (segment, index), the others
+        fetch it (build_vector_index_on_random_single_replica)."""
+        return bool(
+            self.replica is not None
+            and self.settings.table.build_vector_index_on_random_single_replica
+            and self.storage_dir
+        )
 
     def _build_one(self, seg: Segment, desc: IndexDescription) -> None:
         key = (seg.segment_id, desc.name)
@@ -437,6 +500,8 @@ class Table:
                 self._index_cache.put(
                     (self.name, desc.name, seg.segment_id), instance, instance.memory_bytes
                 )
+            if self._replicated_build():
+                self._publish_index(seg.segment_id, desc.name, instance)
             self.event_log.record(
                 self.name, desc.name, desc.column, EventType.BUILD_SUCCEED,
                 segment_id=seg.segment_id, elapsed_s=elapsed,
@@ -484,6 +549,78 @@ class Table:
         with self._lock:
             slot.status = IndexStatus.PENDING
         self._submit(lambda: self._build_one(seg, desc))
+
+    def _publish_index(self, segment_id: int, index_name: str, instance) -> None:
+        """Builder replica: write the index into the store at once, so its
+        peers can fetch it (the DataPartsExchange upload side)."""
+        from ..service.replication import index_dir
+
+        path = index_dir(self.storage_dir, segment_id, index_name)
+        try:
+            persistence.save_index(instance, path)
+        except NotImplementedError:
+            return  # a transient index kind is not publishable
+        with self._lock:
+            slot = self._slots.get((segment_id, index_name))
+            if slot is not None:
+                slot.path = path
+
+    def _fetch_replica_index(self, seg: Segment, desc: IndexDescription) -> None:
+        """Non-builder replica: wait for the builder's files (its HTTP
+        exchange with `replica.peers`, else the shared store) and load them
+        onto this table's device (the DataPartsExchange download side). A
+        fetch that never lands, or does not load, builds locally (the
+        reference's fallback)."""
+        from ..service.exchange import fetch_index
+        from ..service.replication import pick_build_replica, wait_for_peer_index
+
+        key = (seg.segment_id, desc.name)
+        rep = self.replica
+        if rep.peers is not None:
+            builder = pick_build_replica(self.name, seg.segment_id, desc.name, rep.n_replicas)
+            url = rep.peers[builder]
+            path = fetch_index(
+                url, self.name, seg.segment_id, desc.name, self.storage_dir,
+                timeout_s=rep.fetch_timeout_s, poll_interval_s=rep.poll_interval_s,
+            ) if url else None
+        else:
+            path = wait_for_peer_index(self.storage_dir, seg.segment_id, desc.name, rep)
+        if path is None:
+            GLOBAL_COUNTERS.bump("ReplicatedPartVectorIndexFailedFetches")
+            self._build_one(seg, desc)
+            return
+        try:
+            inst = persistence.load_index(path, self.device, seg.vector(desc.column))
+            if inst is None:  # FLAT: the segment payload is the index
+                self._build_one(seg, desc)
+                return
+            self._reattach(inst, seg, desc)
+            if self.device.type == "cuda":
+                # a search on another thread may take the index next
+                torch.cuda.current_stream(self.device).synchronize()
+            with self._lock:
+                slot = self._slots.get(key)
+                if slot is None:  # index dropped meanwhile
+                    return
+                slot.instance = inst
+                slot.status = IndexStatus.LOADED
+                slot.path = path
+            if self._index_cache is not None:
+                self._index_cache.put(
+                    (self.name, desc.name, seg.segment_id), inst, inst.memory_bytes
+                )
+            GLOBAL_COUNTERS.bump("ReplicatedPartVectorIndexFetches")
+            self.event_log.record(
+                self.name, desc.name, desc.column, EventType.LOAD_SUCCEED,
+                segment_id=seg.segment_id,
+            )
+        except Exception as e:  # noqa: BLE001 — a bad fetch builds locally
+            GLOBAL_COUNTERS.bump("ReplicatedPartVectorIndexFailedFetches")
+            with self._lock:
+                slot = self._slots.get(key)
+                if slot is not None:
+                    slot.error = f"fetch: {type(e).__name__}: {e}"
+            self._build_one(seg, desc)
 
     @staticmethod
     def _reattach(instance: VectorIndex, seg: Segment, desc: IndexDescription) -> None:
@@ -1204,10 +1341,18 @@ class Table:
         enable_decouple_vector_index and a live index on every source, the
         merged segment is served through a DecoupledIndex (the sources'
         indexes and row-id maps, MergeTask.cpp:319-405) until its own
-        index, built on the scheduler, lands. `force` is the replication
-        merge gate's bypass (ROADMAP queue 1 #13); with no gate here, every
-        merge runs. Returns the merged segment's id, or None."""
-        del force
+        index, built on the scheduler, lands. Returns the merged segment's
+        id, or None.
+
+        In a replica set only the leader initiates merges (`merge_gate`,
+        installed by ReplicatedNode.attach: the ZK leader-assigned merge);
+        on the others merge() returns None and the leader's merge reaches
+        them through the op log. `force=True` bypasses the gate; then
+        convergence rests on origin-addressed delete provenance instead.
+        """
+        if not force and self.merge_gate is not None and not self.merge_gate():
+            GLOBAL_COUNTERS.bump("MergesDeferredToLeader")
+            return None
         with self._lock:
             ids = segment_ids or sorted(self._segments)
             # one segment still merges on a versioned engine: OPTIMIZE
@@ -1322,19 +1467,30 @@ class Table:
             self._schedule_build(new_seg, desc)
         self._forget_segments(ids)
         GLOBAL_COUNTERS.bump("SegmentMerges")
+        # row maps (source row -> merged row, -1 dropped) let replication
+        # compose per-origin row provenance through the merge
+        self._notify_commit(
+            "merge",
+            segment=new_seg,
+            dropped_ids=list(ids),
+            row_maps=[rm[: seg.n_rows] for rm, seg in zip(row_maps, sources)],
+        )
         return new_id
 
     def truncate(self) -> None:
         """TRUNCATE TABLE: drop every segment (the schema and the index
-        definitions stay; new inserts build fresh indexes)."""
+        definitions stay; new inserts build fresh indexes). A replicated
+        table's peers converge through the truncate op."""
         with self._lock:
             seg_ids = list(self._segments)
         self._drop_segments(seg_ids)
         with self._lock:
             self._winners_cache = None
+        self._notify_commit("truncate")
 
     def _drop_segments(self, segment_ids: List[int]) -> None:
-        """Remove segments without merging."""
+        """Remove segments without merging (also a peer's merge applied
+        here: its merged part replaces the sources)."""
         with self._dml_lock, self._lock:
             for i in segment_ids:
                 self._segments.pop(i, None)

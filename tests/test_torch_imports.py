@@ -38,6 +38,9 @@ def test_import_pulls_in_no_jax():
         "from myscaledb_tpu_torch.sql import columnar, parser, runner\n"
         "from myscaledb_tpu_torch.service import server\n"
         "from myscaledb_tpu_torch import cli\n"
+        "from myscaledb_tpu_torch.service import data_replication, exchange, replication\n"
+        "from myscaledb_tpu_torch.parallel import sharded_table\n"
+        "assert myscaledb_tpu_torch.ShardedTable is sharded_table.ShardedTable\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'myscaledb_tpu'))\n"
         "assert not bad, bad\n"
@@ -78,6 +81,23 @@ def test_connect_cuda_without_cuda_raises():
         "import myscaledb_tpu_torch as ms\n"
         "try:\n"
         "    ms.connect(device='cuda')\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+        "else:\n"
+        "    print('no error')\n"
+    )
+    out = _run(code, CUDA_VISIBLE_DEVICES="")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised:"), out.stdout
+
+
+def test_replica_database_without_cuda_raises():
+    """A replica of a set (and so its tables, the sync thread's applies and
+    its index fetches) is on the card unless the caller asks for the CPU."""
+    code = (
+        "import myscaledb_tpu_torch as ms\n"
+        "try:\n"
+        "    ms.connect(replica_id=0, n_replicas=2, replica_peers=['http://127.0.0.1:9', None])\n"
         "except RuntimeError as e:\n"
         "    print('raised:', e)\n"
         "else:\n"

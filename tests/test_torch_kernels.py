@@ -199,9 +199,10 @@ def test_f32_tile_max_kernel_ragged_shapes(cuda_device, q, d, metric, keep):
     assert torch.equal(got == tilescan.NEG, want == tilescan.NEG)
 
 
-def _clustered_operands(device, metric, q, n, d, seed):
+def _clustered_operands(device, metric, q, n, d, seed, dtype=torch.float32):
     """bench.py's corpus shape: rows around 64 centres of 6 x N(0, 1),
-    queries near rows. Same-cluster sums grow with the depth, the regime
+    queries near rows, the payload stored as `dtype` (its norms from the
+    stored values). Same-cluster sums grow with the depth, the regime
     where one accumulator for a tile's whole depth drifted outside the
     f32 bound on the card; zero-mean data does not show it."""
     g = torch.Generator(device=device).manual_seed(seed)
@@ -210,15 +211,19 @@ def _clustered_operands(device, metric, q, n, d, seed):
     x = centres[pick] + torch.randn((n, d), generator=g, device=device)
     rows = torch.randint(0, n, (q,), generator=g, device=device)
     qs = x[rows] + 0.3 * torch.randn((q, d), generator=g, device=device)
+    x = x.to(dtype)
     return distance.normalize_queries(qs, metric).contiguous(), x, distance.base_aux(x, metric)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("q,n,d", [(104, 8192, 1024), (256, 4096, 1024), (100, 16384, 128),
                                    (300, 2048, 136)])
-def test_f32_engine_on_clustered_data(cuda_device, metric, q, n, d):
-    qs, x, aux = _clustered_operands(cuda_device, metric, q, n, d, q + n + d)
+def test_engines_on_clustered_data(cuda_device, metric, q, n, d, dtype):
+    """Both engines of score and tile_max (bf16: the query's hi/lo split
+    on wgmma; f32: split TF32) hold their bound on clustered data."""
+    qs, x, aux = _clustered_operands(cuda_device, metric, q, n, d, q + n + d, dtype)
     got = distance.scores(qs, x, aux, metric=metric)
     want = distance.scores_plain(qs, x, aux, metric)
     assert not distance.outside_kernel_bound(
