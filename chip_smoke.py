@@ -2,6 +2,7 @@
 """Drive the PyTorch + CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py [--profile] [--out DIR] [--f32-tables-only] [--root DIR]
+                          [--mesh-cards]
 
 Run from the root of a checkout on a machine with one CUDA GPU (an H100:
 the kernels are built for sm_90a). It imports nothing of JAX and nothing
@@ -168,14 +169,38 @@ of the JAX package. Phases, each of which raises on failure:
      in a 4-shard text table (phase 9's 3-word queries score as phase 9's
      table, within the sparse path's bound: cluster-wide BM25
      statistics), hybrid RRF against a numpy fuse of its legs; CommitListenerErrors and ReplicationSyncErrors must read 0, and
-     the phase must end within 90 s.
+     the phase must end within 90 s;
+ 16. MeshTable (one corpus sharded row-wise over a grid of devices held by
+     one process) over four shards of the card, `Mesh([[cuda:0] * 4])`,
+     after phase 15 and before phase 12: first `make_mesh` must refuse
+     more cards than the machine has; (a) phase 3's corpus with an Int32
+     price column: exact search against phase 3's oracle (near-tie rule),
+     a 1% filter (price < 10) against the filtered oracle, the top hit of
+     100 queries deleted, a 2x2 grid (query axis 2) returning the same
+     hits, QPS beside phase 3's table (now and in phase 5) and 15c's
+     ShardedTable; (b) build_ivf(1024) with build seconds and each
+     shard's window-gather bytes estimated from bucket_pad (the batch cut
+     while they pass MESH_GATHER_BYTES), an nprobe sweep to recall_ids@10
+     >= 0.95 against (a), every hit's exact f32 score, QPS; 10,000 rows
+     appended without a rebuild, each its own nearest neighbour through
+     the delta scan; (c) build_mstg(1024) from IVF's nprobe, the same
+     checks; (e) save / load of (a)'s table (before (d), which needs the
+     host memory) returning its hits; (d) phase 9's documents and
+     vectors with its deletes in a text MeshTable: 1,000 3-word queries,
+     every hit within DENSE_RTOL of the f64 BM25 under the global
+     statistics, 20 hybrid RRF and 20 RSF searches equal to a numpy fuse
+     of their own legs. The phase logs its seconds and score's launches.
+     `--mesh-cards` (two or more cards) runs phase 1 and phase 3's corpus
+     in a MeshTable with a shard on each card against the same shards on
+     one card (and a 2 x n/2 grid): the same hits, QPS, each card's bytes.
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
 three over phase 8, score and tile_max over phase 9, the binary rows
 layout, blocks layout and grouping over phase 10, score, tile_max and
-gathermv over phases 11 and 14, score and tile_max over phase 15, and over
-phases 12 and 13 also the f32
+gathermv over phases 11 and 14, score and tile_max over phases 15 and 16
+(tile_max need not launch there: no mesh shard meets its alignment), and
+over phases 12 and 13 also the f32
 engine's launches of score and tile_max (the record's score_f32 and
 tile_max_f32 lines);
 every kernel must have launched on its path, and the record's launches
@@ -331,6 +356,14 @@ REP_SYNC_INTERVAL_S, REP_WAIT_S = 0.05, 120.0
 REP_SHARDS = 4
 REP_HYBRID_NQ = 20
 REP_PHASE_S = 90.0
+# phase 16, MeshTable over four shards of the card at phase 3's size: the
+# 1% filter (price < 10 of 0..999), rows appended after each index build,
+# and the most bytes one shard's IVF window gather may take
+MESH_SHARDS = 4
+MESH_PRICE_CUT = 10
+MESH_NEW = 10_000
+MESH_GATHER_BYTES = 8 << 30
+MESH_CARDS_DOCS = 100_000  # --mesh-cards: the documents of its text table
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -1781,8 +1814,8 @@ def text_path(ms, dev, card, args, db):
     table "hybrid" in `db` with `body String` (bench.py's 12-word
     documents) and `vec FloatVector(128)` (phase 3's corpus), through
     add_fts_index, insert, text_search and hybrid_search. Returns the
-    launch counts, the table (phase 14 searches it, then drops it) and
-    the vector and text query batches."""
+    launch counts, the table (phase 14 searches it, then drops it), the
+    vector and text query batches and the f64 BM25 oracle."""
     import torch
 
     from myscaledb_tpu_torch import F
@@ -1950,7 +1983,7 @@ def text_path(ms, dev, card, args, db):
         profile_cells([("text_bm25", text, tb), ("hybrid_rrf", hybrid, pairs_h, TEXT_BATCH)],
                       PROFILE_RUNS, args.out, card)
     launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
-    return launches, t, vb, tb
+    return launches, t, vb, tb, oracle
 
 
 # ---------------------------------------------------------------- phase 10
@@ -4191,9 +4224,10 @@ def index_replication_path(ms, dev, sift, queries, op, card, root):
 
 def sharded_path(ms, dev, sift, queries, hyb, vb, tb, card):
     """15c: phase 3's corpus in a 4-shard table sharded by id against phase
-    3's table (no filter and the 1% filter); phase 9's documents in a
-    4-shard text table against phase 9's table (BM25 over cluster-wide
-    statistics); hybrid RRF against a numpy fuse of its own two legs."""
+    3's table (no filter and the 1% filter), and its QPS; phase 9's
+    documents in a 4-shard text table against phase 9's table (BM25 over
+    cluster-wide statistics); hybrid RRF against a numpy fuse of its own
+    two legs. Returns the vector search's QPS."""
     from myscaledb_tpu_torch import F
     from myscaledb_tpu_torch.text import inverted
     from myscaledb_tpu_torch.text.inverted import BM25Stats
@@ -4223,6 +4257,8 @@ def sharded_path(ms, dev, sift, queries, hyb, vb, tb, card):
                   f"sharded scores differ from phase 3's, {label}")
             log(f"  {label}: {nq} queries return phase 3's ids ({tied} near-tied, largest "
                 f"|distance difference| {worst:g})")
+        sh_qps = qps(lambda qb: sh.search("vec", qb, k=K, metric="L2"), batches, SIFT_BATCH)
+        log(f"  {REP_SHARDS}-shard exact L2 QPS (batch {SIFT_BATCH}, k={K}): {sh_qps:.1f}  [{card}]")
 
         # phase 9's documents and vectors, with its deletes
         src = hyb.live_segments()
@@ -4310,12 +4346,13 @@ def sharded_path(ms, dev, sift, queries, hyb, vb, tb, card):
             f"({n_cand} candidates a leg, fusion_k {fk})  [{card}]")
     finally:
         db.close()
+    return sh_qps
 
 
 def replication_path(ms, dev, sift, queries, op, hyb, vb, tb, card):
     """Phase 15: replication and the sharded table on the card (15a-c);
     the commit listeners and the sync thread must have swallowed no
-    error."""
+    error. Returns 15c's QPS."""
     import gc
     import tempfile
 
@@ -4335,7 +4372,7 @@ def replication_path(ms, dev, sift, queries, op, hyb, vb, tb, card):
         gc.collect()
         t2 = time.perf_counter()
     log(f"[15c] ShardedTable: phase 3's corpus and phase 9's documents in {REP_SHARDS} shards")
-    sharded_path(ms, dev, sift, queries, hyb, vb, tb, card)
+    sh_qps = sharded_path(ms, dev, sift, queries, hyb, vb, tb, card)
     gc.collect()
     t3 = time.perf_counter()
     log(f"  15a {t1 - t0:.2f} s, 15b {t2 - t1:.2f} s, 15c {t3 - t2:.2f} s; host MemAvailable "
@@ -4344,10 +4381,436 @@ def replication_path(ms, dev, sift, queries, op, hyb, vb, tb, card):
     check(errors == {"CommitListenerErrors": 0, "ReplicationSyncErrors": 0},
           f"replication swallowed errors: {errors}")
     log(f"  swallowed errors: {errors}")
+    return sh_qps
+
+
+# --------------------------------------------------------------- phase 16
+class IdResult:
+    """A MeshTable answer (ids, scores) as numpy_fuse reads a SearchResult:
+    one segment, the id in place of the row."""
+
+    def __init__(self, ids, scores):
+        self.rows, self.scores = ids, scores
+        self.segments = np.zeros_like(ids)
+        self.valid = ids >= 0
+        self.nq = ids.shape[0]
+
+
+def mesh_search(t, queries, batch=SIFT_BATCH, **kw):
+    """(ids, scores) of a MeshTable's searches over `queries` in batches."""
+    out = [t.search(queries[i : i + batch], K, **kw) for i in range(0, len(queries), batch)]
+    return np.concatenate([o[0] for o in out]), np.concatenate([o[1] for o in out])
+
+
+def mesh_same(label, got, want):
+    """same_hits over (ids, scores) pairs (the near-tie rule)."""
+    return same_hits(label, (got[0], got[1], got[1]), (want[0], want[1], want[1]))
+
+
+def mesh_recall(got, want):
+    """recall_ids@k of `got` against the exact answers `want` (ids)."""
+    return sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got[0], want[0])) / got[0].size
+
+
+def mesh_exact_scores(label, got, queries, rows_by_id, live):
+    """Every hit is a live row whose score is its stored row's exact L2
+    score 2 q.x - |x|^2 (f64 over the bf16 values), within F32_TOL."""
+    ids, scores = got
+    check((ids >= 0).all(), f"{label}: a query got fewer than {K} hits")
+    check(live[ids].all(), f"{label}: a deleted row came back")
+    x = rows_by_id[ids].astype(np.float64)
+    want = 2.0 * np.einsum("qd,qkd->qk", queries.astype(np.float64), x) - (x * x).sum(-1)
+    ok = np.isclose(scores, want, **F32_TOL)
+    check(ok.all(), f"{label}: {int((~ok).sum())} hits differ from their exact f32 scores "
+          f"(worst {float(np.abs(scores - want).max()):.6g})")
+
+
+def bf16_values(x):
+    """The values a bf16 table stores for f32 rows (round to nearest even)."""
+    import torch
+
+    return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def mesh_index_path(label, t, build, queries, exact, start, rows_by_id, live, new, new_ids, card):
+    """16b / 16c: `build()`, an nprobe sweep over IVF_NPROBES from `start`
+    that stops at recall_ids@10 >= IVF_RECALL_TARGET against `exact`, the
+    window gather's bytes estimated from bucket_pad before the first search
+    (the batch cut while a shard's would pass MESH_GATHER_BYTES), every
+    hit's exact score, QPS at the operating point; then `new` appended
+    without a rebuild, each found by the delta scan as its own nearest
+    neighbour. Returns the operating nprobe."""
+    t0 = time.perf_counter()
+    build()
+    sync(t.mesh.devices[0][0])
+    build_s = time.perf_counter() - t0
+    bpad = (t._ivf or t._mstg)[-1]
+    # a shard's [Q, P*B, D] window gather: the stored rows and their f32 copy
+    # (IVF), or the u8 codes and their f32 copy (two-stage)
+    per_value = 2 + 4 if t._ivf is not None else 1 + 4
+    log(f"  {label}: build {build_s:.2f} s ({IVF_NCENT} centroids, bucket_pad {bpad})  [{card}]")
+    op, res = None, None
+    for p in (x for x in IVF_NPROBES if x >= start):
+        batch = SIFT_BATCH
+        while batch > 8 and batch * p * bpad * SIFT_D * per_value > MESH_GATHER_BYTES:
+            batch //= 2
+        gather = batch * p * bpad * SIFT_D * per_value
+        res = mesh_search(t, queries, batch, params={"nprobe": p})
+        rec = mesh_recall(res, exact)
+        log(f"  nprobe {p}: recall_ids@{K} {rec:.4f}; window gather {gather / 1e6:.1f} MB a "
+            f"shard at batch {batch}" + ("" if batch == SIFT_BATCH else
+                                         f" (cut from {SIFT_BATCH}: over {MESH_GATHER_BYTES} bytes)"))
+        if rec >= IVF_RECALL_TARGET:
+            op = p
+            break
+    check(op is not None, f"{label}: no nprobe reached recall_ids@{K} {IVF_RECALL_TARGET}")
+    mesh_exact_scores(label, res, queries, rows_by_id, live)
+    bq = [queries[i : i + batch] for i in range(0, len(queries), batch)]
+    rate = qps(lambda qb: t.search(qb, K, params={"nprobe": op}), bq, batch)
+    log(f"  {label} operating point nprobe {op}: every hit a live row with its exact f32 score; "
+        f"QPS {rate:.1f} (batch {batch}, k={K})  [{card}]")
+    # appends after the build: served by the delta exact scan
+    sealed, ivf, mstg = t._s, t._ivf, t._mstg
+    t.insert({"id": new_ids, "vec": new, "price": np.zeros(len(new), np.int32)})
+    rows_by_id[new_ids] = bf16_values(new)
+    live[new_ids] = True
+    check(t._s is sealed and t._ivf is ivf and t._mstg is mstg,
+          f"{label}: the append resealed the table or dropped its index")
+    qn = rows_by_id[new_ids[:SIFT_BATCH]]
+    got = t.search(qn, K, params={"nprobe": op})
+    check((got[0][:, 0] == new_ids[:SIFT_BATCH]).all(),
+          f"{label}: the delta scan missed appended rows ({int((got[0][:, 0] != new_ids[:SIFT_BATCH]).sum())})")
+    mesh_exact_scores(f"{label} delta", got, qn, rows_by_id, live)
+    log(f"  {len(new):,} rows appended without a rebuild ({t.n_rows:,} rows): each of "
+        f"{SIFT_BATCH} of them is its own nearest neighbour at nprobe {op} (the delta scan)")
+    return op
+
+
+def mesh_check_text(label, results, query_batches, oracle, alive, full=1):
+    """Every BM25 hit of a MeshTable (ids = document indices) is a live,
+    matching document whose f32 score lies within DENSE_RTOL of the f64
+    BM25 of `oracle` (the mesh's statistics are global: every shard's
+    documents, as the oracle counts them); for the first `full` batches no
+    matching live document left out beats the k-th hit beyond that.
+    Returns the largest |score - f64| / bound."""
+    from myscaledb_tpu_torch.text import inverted
+
+    worst = 0.0
+    for b, (qs, (ids, scores)) in enumerate(zip(query_batches, results)):
+        for i, q in enumerate(qs):
+            terms = list(dict.fromkeys(q.split()))
+            valid = ids[i] >= 0
+            hit, got = ids[i][valid], scores[i][valid]
+            sc, _ = oracle.at(terms, hit)
+            want = np.where((sc > 0) & alive[hit], sc, -np.inf)
+            check(np.isfinite(want).all(), f"{label}: query {i} of batch {b} returned a row that "
+                  "is deleted or matches no term")
+            bnd = inverted.DENSE_RTOL * np.abs(want)
+            if len(got):
+                err = np.abs(got - want)
+                worst = max(worst, float((err / bnd).max()))
+                check((err <= bnd).all(), f"{label}: query {i} of batch {b}: a score lies "
+                      f"{float(err.max()):.6g} from its f64 BM25 (bound {float(bnd.max()):.6g})")
+            if b >= full:
+                continue
+            sc, _ = oracle.full(terms)
+            ok = (sc > 0) & alive
+            ok[hit] = False
+            left = sc[ok]
+            if valid.sum() < K:
+                check(len(left) == 0, f"{label}: query {i} left out {len(left)} matching rows")
+            elif len(left):
+                kth = float(got[-1])
+                check(left.max() <= kth + inverted.DENSE_RTOL * abs(kth),
+                      f"{label}: query {i}: a row left out scores {left.max():.6g} above the "
+                      f"k-th hit's {kth:.6g}")
+    return worst
+
+
+def mesh_path(ms, dev, sift, queries, hyb, oracle, vb, tb, ref_qps, card):
+    """Phase 16: MeshTable over a grid of MESH_SHARDS entries of this card
+    (one controller; each shard's scan is the score kernel): (a) phase 3's
+    corpus with a price column, exact search against phase 3's oracle, a
+    1% filter, deletes, a 2x2 grid, QPS; (b) sharded IVF; (c) sharded
+    two-stage; (d) phase 9's documents, BM25 under global statistics and
+    hybrid RRF / RSF; (e) save / load. Returns the launches of phase 3's
+    table's QPS passes (16a times it beside the mesh)."""
+    import tempfile
+
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, tilescan
+    from myscaledb_tpu_torch.parallel.distributed import Mesh, make_mesh
+
+    batches = [queries[i : i + SIFT_BATCH] for i in range(0, SIFT_NQ, SIFT_BATCH)]
+    n_cards = torch.cuda.device_count()
+    try:
+        make_mesh(n_cards + 1)
+    except RuntimeError as e:
+        check("Mesh(" in str(e), f"make_mesh's refusal does not say how to share a card: {e}")
+    else:
+        raise RuntimeError(f"make_mesh({n_cards + 1}) did not raise with {n_cards} card(s)")
+    grid = Mesh([[dev] * MESH_SHARDS])
+
+    log(f"[16a] MeshTable over {grid}: phase 3's corpus, exact search, a 1% filter, deletes")
+    t0 = time.perf_counter()
+    parts = stored_corpus(sift)
+    ids = np.concatenate([p[0] for p in parts]).astype(np.int64)
+    n0 = len(ids)
+    check(np.array_equal(np.sort(ids), np.arange(n0)), "phase 3's ids are not 0 .. n-1")
+    rows_by_id = np.zeros((n0 + 2 * MESH_NEW, SIFT_D), np.float32)
+    rows_by_id[ids] = np.concatenate([p[1] for p in parts])
+    del parts
+    live = np.zeros(len(rows_by_id), bool)
+    live[ids] = True
+    price = np.random.default_rng(16).integers(0, 1000, n0).astype(np.int32)  # by id
+    t = ms.MeshTable("mesh_sift", SIFT_D, mesh=grid, filter_columns=("price",))
+    t.insert({"id": np.arange(n0), "vec": rows_by_id[:n0], "price": price})
+    check(t.delete(np.arange(100)) == 100, "the mesh delete removed another count")
+    live[:100] = False
+    t1 = time.perf_counter()
+    t._seal()
+    sync(dev)
+    t2 = time.perf_counter()
+    s = t._s
+    log(f"  {n0:,} rows: insert {t1 - t0:.2f} s, seal {t2 - t1:.2f} s (bf16 codes, |x|^2, alive, "
+        f"price onto {MESH_SHARDS} shards of {s.cap:,} slots, fill {s.fill.tolist()})  [{card}]")
+    idm = id_map(sift)
+    gv, gs, gr = exact_topk(sift, "vec", queries, K, Metric.L2)
+    want = (hit_ids(idm, gs, gr), gv)
+    got = mesh_search(t, queries)
+    nq, tied, worst = mesh_same("4-shard exact against phase 3's oracle", got, want)
+    check((got[0] >= 100).all(), "a row deleted before the seal came back")
+    log(f"  exact: {nq} queries return phase 3's oracle ids ({tied} near-tied, largest |score "
+        f"difference| {worst:g})")
+
+    def cheap(price):
+        return price < MESH_PRICE_CUT
+
+    def seg_cheap(sg):
+        return price[sg.scalar("id")[: sg.n_rows].astype(np.int64)] < MESH_PRICE_CUT
+
+    fgot = mesh_search(t, queries, filter=cheap)
+    fv, fs, fr = exact_topk(sift, "vec", queries, K, Metric.L2, seg_cheap)
+    nq, tied, _ = mesh_same("4-shard filtered against phase 3's oracle", fgot,
+                            (hit_ids(idm, fs, fr), fv))
+    check((price[fgot[0]] < MESH_PRICE_CUT).all() and live[fgot[0]].all(),
+          "a filtered hit fails the filter or is deleted")
+    log(f"  filter price < {MESH_PRICE_CUT} ({(price < MESH_PRICE_CUT).mean():.4f} of the rows): "
+        f"every hit passes, {nq} queries equal the filtered oracle ({tied} near-tied)")
+    dead = np.unique(got[0][:SIFT_BATCH, 0])
+    check(t.delete(dead) == len(dead), "the mesh delete removed another count")
+    live[dead] = False
+    got = mesh_search(t, queries)
+    check(live[got[0]].all(), "a deleted row came back")
+
+    def seg_live(sg):
+        return live[sg.scalar("id")[: sg.n_rows].astype(np.int64)]
+
+    dv, ds, dr = exact_topk(sift, "vec", batches[0], K, Metric.L2, seg_live)
+    mesh_same("4-shard after deletes", (got[0][:SIFT_BATCH], got[1][:SIFT_BATCH]),
+              (hit_ids(idm, ds, dr), dv))
+    log(f"  delete: the top hit of each of the first {SIFT_BATCH} queries ({len(dead)} rows), none "
+        f"returned; batch 1 equals the oracle without them")
+    t0 = time.perf_counter()
+    g22 = ms.MeshTable("mesh_sift_2x2", SIFT_D, mesh=Mesh([[dev] * 2] * 2),
+                       filter_columns=("price",))
+    g22.insert({"id": np.arange(n0), "vec": rows_by_id[:n0], "price": price})
+    g22.delete(np.nonzero(~live[:n0])[0])
+    got22 = mesh_search(g22, queries)
+    nq, tied, _ = mesh_same("2x2 grid against the 4-shard table", got22, got)
+    log(f"  2x2 grid (query axis 2, {g22.n_shards} data shards of {g22._s.cap:,} slots, "
+        f"{time.perf_counter() - t0:.2f} s): {nq} queries return the 4-shard table's ids "
+        f"({tied} near-tied)")
+    del g22
+    mesh_qps = qps(lambda qb: t.search(qb, K), batches, SIFT_BATCH)
+    before = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    one_qps = qps(lambda qb: sift.search("vec", qb, k=K, metric="L2"), batches, SIFT_BATCH)
+    ref_launches = {"score": distance.scores.launches - before["score"],
+                    "tile_max": tilescan.tile_maxes.launches - before["tile_max"]}
+    log(f"  exact L2 QPS (batch {SIFT_BATCH}, k={K}, best of 3 passes): MeshTable {MESH_SHARDS} "
+        f"shards {mesh_qps:.1f} (host arrays back each batch); phase 3's table now {one_qps:.1f}, "
+        f"in phase 5 {ref_qps['phase 5']:.1f}; 15c's {REP_SHARDS}-shard ShardedTable "
+        f"{ref_qps['15c']:.1f}  [{card}]")
+
+    new = make_corpus(2 * MESH_NEW, SIFT_D, seed=16, centers=corpus_centers(SIFT_D))
+    new_ids = np.arange(n0, n0 + 2 * MESH_NEW)
+    log(f"[16b] sharded IVF (build_ivf({IVF_NCENT}): global k-means, a cluster-major layout a "
+        f"shard), nprobe sweep against 16a's exact answers")
+    op = mesh_index_path("IVF", t, lambda: t.build_ivf(IVF_NCENT), queries, got, 1, rows_by_id,
+                         live, new[:MESH_NEW], new_ids[:MESH_NEW], card)
+    log(f"[16c] sharded two-stage (build_mstg({IVF_NCENT}): SQ8 codes, the exact re-rank on each "
+        f"shard), from IVF's nprobe {op}")
+    exact_c = mesh_search(t, queries)  # 16a's path, with the appended rows
+    mesh_index_path("two-stage", t, lambda: t.build_mstg(IVF_NCENT), queries, exact_c, op,
+                    rows_by_id, live, new[MESH_NEW:], new_ids[MESH_NEW:], card)
+
+    log(f"[16e] save / load of 16a's table ({t.n_rows:,} rows) in the per-shard layout")
+    want = mesh_search(t, queries)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        t0 = time.perf_counter()
+        t.save(root)
+        t1 = time.perf_counter()
+        t2 = ms.MeshTable.load(root, mesh=grid)
+        back = mesh_search(t2, queries)
+        t3 = time.perf_counter()
+        files = sorted(os.listdir(root))
+        size = tree_bytes(root)
+    check(t2.n_rows == t.n_rows, f"the reloaded table holds {t2.n_rows} rows, not {t.n_rows}")
+    check(files == ["meshtable.json"] + [f"shard_{i}.npz" for i in range(MESH_SHARDS)],
+          f"checkpoint files {files}")
+    nq, tied, _ = mesh_same("reloaded against the saved table", back, want)
+    log(f"  save {t1 - t0:.2f} s ({size / 1e6:.1f} MB in {files}), load and search "
+        f"{t3 - t1:.2f} s: {nq} queries return the saved table's hits ({tied} near-tied)")
+    del t, t2
+
+    log(f"[16d] MeshTable with a text column over phase 9's documents and vectors, "
+        f"{MESH_SHARDS} shards")
+    segs = hyb.live_segments()
+    hids = np.concatenate([sg.scalar("id")[: sg.n_rows] for sg in segs]).astype(np.int64)
+    docs = np.concatenate([sg.scalar("body")[: sg.n_rows] for sg in segs]).astype(object)
+    dead_t = hids[np.concatenate([sg.deleted_host()[: sg.n_rows] for sg in segs])]
+    check(np.array_equal(np.sort(hids), np.arange(oracle.n)), "phase 9's ids are not 0 .. n-1")
+    hv = np.concatenate([v for _, v in stored_corpus(hyb)])
+    alive = np.ones(oracle.n, bool)
+    alive[dead_t] = False
+    t0 = time.perf_counter()
+    tt = ms.MeshTable("mesh_text", SIFT_D, mesh=grid, text_column="body")
+    tt.insert({"id": hids, "vec": hv, "body": docs})
+    check(tt.delete(dead_t) == len(dead_t) > 0, "the text deletes")
+    del hv, docs
+    t1 = time.perf_counter()
+    ti = tt._text_index()
+    sync(dev)
+    t2 = time.perf_counter()
+    log(f"  insert {t1 - t0:.2f} s; per-shard inverted indexes {t2 - t1:.2f} s by the "
+        f"{[ix.builder for ix in ti.shards]} builders (postings a shard "
+        f"{[int(ix.term_offsets[-1]) for ix in ti.shards]}, budget cap {ti.budget_cap}); global "
+        f"statistics: {ti.stats.total_docs:,} documents, average length "
+        f"{ti.stats.avg_doc_len:.4f} (the oracle's {oracle.avg_len:.4f})  [{card}]")
+    res = [tt.text_search(qb, K) for qb in tb]
+    sync(dev)
+    w = mesh_check_text("mesh text", res, tb, oracle, alive)
+    t3 = time.perf_counter()
+    check(not np.isin(np.concatenate([r[0] for r in res]), dead_t).any(),
+          "a deleted document came back")
+    log(f"  text_search, {TEXT_NQ} 3-word queries (batch {TEXT_BATCH}, {t3 - t2:.2f} s with the "
+        f"checks): every hit a live document within DENSE_RTOL of its f64 BM25 under the global "
+        f"statistics (worst err/bound {w:.3g}); no row left out of batch 1 beats the k-th")
+    qv, texts = np.concatenate(vb), [q for qb in tb for q in qb]
+    for ftype in ("rrf", "rsf"):
+        for j in range(REP_HYBRID_NQ):
+            h = tt.hybrid_search(qv[j], texts[j], K, fusion_type=ftype)
+            legs = (IdResult(*tt.search(qv[j], K)), IdResult(*tt.text_search(texts[j], K)))
+            nv, _, nr = numpy_fuse(*legs, K, ftype)
+            if ftype == "rrf":
+                check(np.array_equal(h[0], nr) and np.array_equal(h[1], nv),
+                      f"mesh hybrid RRF differs from the numpy fuse of its legs (query {j})")
+            else:
+                check(np.allclose(h[1], nv, rtol=0, atol=1e-6),
+                      f"mesh hybrid RSF scores differ from the numpy fuse of its legs (query {j})")
+                nb = np.pad(nv, ((0, 0), (1, 1)), constant_values=np.nan)
+                with np.errstate(invalid="ignore"):
+                    apart = ~(np.abs(nv - nb[:, :-2]) <= 1e-6) & ~(np.abs(nv - nb[:, 2:]) <= 1e-6)
+                apart &= np.isfinite(nv)
+                check((h[0][apart] == nr[apart]).all(),
+                      f"mesh hybrid RSF ids differ from the numpy fuse of its legs (query {j})")
+            check(alive[h[0][h[0] >= 0]].all(), "a deleted document came back from hybrid search")
+    log(f"  hybrid RRF and RSF: {REP_HYBRID_NQ} queries each equal a numpy fuse of their own two "
+        f"legs (k {K} candidates a leg)")
+    del tt
+    return ref_launches
+
+
+def mesh_cards_path(ms, devices, card):
+    """--mesh-cards: phase 3's corpus (with 16a's price column and deletes)
+    in a MeshTable with one shard on each of `devices` (a card each),
+    against the same shards all on the first card and, with four or more
+    cards, a 2 x n/2 grid: exact and 1% filtered hits (near-tie rule), IVF
+    and two-stage at nprobe 2 (ids against the one-card table where the
+    shard count is the same, else recall against the exact answers), BM25 and hybrid RRF over 100,000 of phase
+    9's documents (the one-card table's ids), QPS, seconds, each card's
+    bytes and the score launches."""
+    import torch
+
+    from myscaledb_tpu_torch.ops import distance
+    from myscaledb_tpu_torch.parallel.distributed import Mesh
+
+    n = len(devices)
+    corpus = np.concatenate([make_corpus(SIFT_N, SIFT_D, seed=0),
+                             make_corpus(SIFT_SMALL_N, SIFT_D, seed=1,
+                                         centers=corpus_centers(SIFT_D))])
+    rows = len(corpus)
+    rng = np.random.default_rng(1)
+    qidx = rng.choice(SIFT_N, SIFT_NQ, replace=False)
+    queries = (corpus[qidx] + 0.3 * rng.standard_normal((SIFT_NQ, SIFT_D))).astype(np.float32)
+    batches = [queries[i : i + SIFT_BATCH] for i in range(0, SIFT_NQ, SIFT_BATCH)]
+    price = np.random.default_rng(16).integers(0, 1000, rows).astype(np.int32)
+    docs, trng = text_corpus(MESH_CARDS_DOCS)
+    words = [f"term{i}" for i in range(TEXT_VOCAB)]
+    texts = [" ".join(words[j] for j in r) for r in trng.integers(0, TEXT_VOCAB, (TEXT_BATCH, 3))]
+    grids = {"one card": Mesh([[devices[0]] * n]), f"{n} cards": Mesh([devices])}
+    if n >= 4 and n % 2 == 0:
+        grids[f"2 x {n // 2} over {n} cards"] = Mesh([devices[: n // 2], devices[n // 2 :]])
+    first = None
+    for label, grid in grids.items():
+        t0 = time.perf_counter()
+        t = ms.MeshTable("cards", SIFT_D, mesh=grid, filter_columns=("price",))
+        t.insert({"id": np.arange(rows), "vec": corpus, "price": price})
+        t.delete(np.arange(100))
+        t._seal()
+        for d in devices:
+            sync(d)
+        seal_s = time.perf_counter() - t0
+        held = [torch.cuda.memory_allocated(d) if d.type == "cuda" else 0 for d in devices]
+        distance.scores.launches = 0
+        got = {"exact": mesh_search(t, queries),
+               "filtered": mesh_search(t, queries, filter=lambda price: price < MESH_PRICE_CUT)}
+        rate = {"exact": qps(lambda qb: t.search(qb, K), batches, SIFT_BATCH)}
+        builds = {}
+        for kind, build in (("IVF", "build_ivf"), ("two-stage", "build_mstg")):
+            t0 = time.perf_counter()
+            getattr(t, build)(IVF_NCENT)
+            for d in devices:
+                sync(d)
+            builds[kind] = time.perf_counter() - t0
+            got[kind] = mesh_search(t, queries, params={"nprobe": 2})
+            rate[kind] = qps(lambda qb: t.search(qb, K, params={"nprobe": 2}), batches, SIFT_BATCH)
+        tt = ms.MeshTable("cards_text", SIFT_D, mesh=grid, text_column="body")
+        tt.insert({"id": np.arange(MESH_CARDS_DOCS), "vec": corpus[:MESH_CARDS_DOCS], "body": docs})
+        got["text"] = tt.text_search(texts, K)
+        got["hybrid"] = tt.hybrid_search(queries[:TEXT_BATCH], texts, K)
+        launches = distance.scores.launches
+        log(f"  {label} ({grid}): seal {seal_s:.2f} s; bytes a card "
+            f"{[round(b / 1e6, 1) for b in held]} MB; builds IVF {builds['IVF']:.2f} s, two-stage "
+            f"{builds['two-stage']:.2f} s; QPS exact {rate['exact']:.1f}, IVF nprobe 2 "
+            f"{rate['IVF']:.1f}, two-stage {rate['two-stage']:.1f} (batch {SIFT_BATCH}); score "
+            f"launches {launches}  [{card}]")
+        check(launches > 0, f"{label}: kernel score was not launched")
+        # with another shard count the k-means sums run in another order:
+        # the indexes are held to recall there, not to the one-card ids
+        same_layout = grid.shape["data"] == n
+        if first is None or not same_layout:
+            for kind in ("IVF", "two-stage"):
+                rec = mesh_recall(got[kind], got["exact"])
+                log(f"    {kind} recall_ids@{K} at nprobe 2: {rec:.4f}")
+                check(rec >= IVF_RECALL_TARGET, f"{kind} at nprobe 2: recall_ids@{K} {rec:.4f}")
+        if first is None:
+            first = got
+        else:
+            same = [k for k in ("exact", "filtered") + (("IVF", "two-stage") if same_layout else ())
+                    if mesh_same(f"{label} {k} against one card", got[k], first[k])]
+            check(all(np.array_equal(got[k][0], first[k][0]) for k in ("text", "hybrid")),
+                  f"{label}: BM25 or hybrid ids differ from the one-card table's")
+            log(f"    {', '.join(same)}: the one-card table's ids (near-tie rule); BM25 and hybrid "
+                f"RRF over {MESH_CARDS_DOCS:,} documents: its ids")
+        del t, tt  # before the next grid's bytes are read
 
 
 def main(argv=None):
     import argparse
+    import gc
 
     import torch
 
@@ -4356,6 +4819,9 @@ def main(argv=None):
                     help="show where each cell's time goes (phases 5 and 6)")
     ap.add_argument("--out", default=os.path.join("myscaledb_tpu_torch", "_build", "profile"),
                     help="directory for --profile's (and phase 13's) traces and host profiles")
+    ap.add_argument("--mesh-cards", action="store_true",
+                    help="run the set-up and MeshTable over every visible card (two or more) "
+                         "against the same shards on one card, and print no record")
     ap.add_argument("--f32-tables-only", action="store_true",
                     help="run the set-up and phase 13 (the device f32 tables) only, and print "
                          "no record: a side of a same-machine comparison")
@@ -4390,6 +4856,21 @@ def main(argv=None):
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_cuda.LIBRARY.build_seconds:.2f} s) -> {_cuda.LIBRARY.path}")
     log_ptxas(_cuda.LIBRARY.ptxas_log())
+    if args.mesh_cards:
+        from myscaledb_tpu_torch.parallel.distributed import make_mesh
+
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        check(len(devices) >= 2, f"--mesh-cards needs two or more cards, {len(devices)} visible")
+        check(make_mesh().devices == (tuple(devices),), "make_mesh() is not one row of the cards")
+        for line in subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True, timeout=60).stdout.splitlines():
+            log(f"  {line}")
+        log(f"[16x] MeshTable over {len(devices)} cards against the same shards on one card")
+        mesh_cards_path(ms, devices, card)
+        log(f"chip_smoke: the mesh over {len(devices)} cards passed in "
+            f"{time.perf_counter() - t_start:.1f} s  [{card}]")
+        return 0
     if args.f32_tables_only:
         log(f"[13] device f32 tables (package from {here})")
         log(f"  kernel launches on the f32 tables: {f32_table_path(ms, dev, card, args.out)}")
@@ -4469,7 +4950,7 @@ def main(argv=None):
     # ---- 9. text and hybrid search (score and tile_max zeroed inside)
     log(f"[9] text and hybrid path ({SIFT_N:,} + {SIFT_SMALL_N:,} rows: body String of "
         f"{TEXT_WORDS} words from {TEXT_VOCAB:,}, vec FloatVector({SIFT_D}); batch {TEXT_BATCH}, k={K})")
-    p9, hyb, text_vb, text_tb = text_path(ms, dev, card, args, sift_db)
+    p9, hyb, text_vb, text_tb, text_oracle = text_path(ms, dev, card, args, sift_db)
     log(f"  kernel launches on the text and hybrid path: {p9}")
     for name, n in p9.items():
         launches[name] += n
@@ -4529,7 +5010,7 @@ def main(argv=None):
     t15 = time.perf_counter()
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
-    replication_path(ms, dev, sift, sift_queries, ivf_op, hyb, text_vb, text_tb, card)
+    sh_qps = replication_path(ms, dev, sift, sift_queries, ivf_op, hyb, text_vb, text_tb, card)
     p15 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
     s15 = time.perf_counter() - t15
     log(f"  kernel launches on phase 15's paths: {p15}; phase 15 took {s15:.2f} s")
@@ -4537,6 +5018,24 @@ def main(argv=None):
         check(n > 0, f"kernel {name} was not launched on phase 15's paths")
         launches[name] += n
     check(s15 <= REP_PHASE_S, f"phase 15 took {s15:.1f} s, more than {REP_PHASE_S} s")
+
+    # ---- 16. MeshTable over four shards of the card, with the launch
+    # counters zeroed (before phase 12 too: it needs phase 9's table, and
+    # its objects are collected before phase 12 needs the host memory)
+    t16 = time.perf_counter()
+    distance.scores.launches = 0
+    tilescan.tile_maxes.launches = 0
+    ref16 = mesh_path(ms, dev, sift, sift_queries, hyb, text_oracle, text_vb, text_tb,
+                      {"phase 5": sift_qps, "15c": sh_qps}, card)
+    p16 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    del text_oracle
+    gc.collect()
+    log(f"  kernel launches on phase 16's paths: {p16} ({ref16} of them phase 3's table's QPS "
+        f"passes in 16a); phase 16 took {time.perf_counter() - t16:.2f} s (host MemAvailable "
+        f"{mem_available() / 1e9:.1f} GB after)")
+    check(p16["score"] - ref16["score"] > 0, "kernel score was not launched by the mesh")
+    for name, n in p16.items():
+        launches[name] += n
     sift_db.drop_table("hybrid")
     del hyb
 

@@ -43,10 +43,9 @@ def __getattr__(name):
 
         return ShardedTable
     if name == "MeshTable":
-        raise AttributeError(
-            "MeshTable (one corpus sharded row-wise over several cards) is not "
-            "ported yet: ROADMAP.md queue 1 #14b"
-        )
+        from .parallel.mesh_table import MeshTable
+
+        return MeshTable
     raise AttributeError(name)
 
 

@@ -607,6 +607,25 @@ static bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The >48 KiB dynamic shared memory opt-in of `kernel`, once a device: the
+// attribute belongs to the current device, so a process that launches on
+// several cards sets it on each. `done` holds the caller's flags, one a
+// device.
+constexpr int MAX_DEVICES = 64;
+template <typename Kernel>
+static cudaError_t opt_in_smem(Kernel kernel, bool (&done)[MAX_DEVICES]) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (!done[dev]) {
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+        if (e != cudaSuccess) return e;
+        done[dev] = true;
+    }
+    return cudaSuccess;
+}
+
 template <int KIND>
 static int launch(const void* q, const void* x, const void* aux, const void* mask, void* out,
                   int Q, int N, int D, int metric, int stages, int resident, int smem_bytes,
@@ -633,13 +652,9 @@ static int launch(const void* q, const void* x, const void* aux, const void* mas
     if (!ok || (aux == nullptr && (metric != IP || KIND == TILE_MAX)) ||
         (mask == nullptr) != (KIND == SCORE))
         return static_cast<int>(cudaErrorInvalidValue);
-    static bool sized = false;  // the >48 KiB dynamic shared memory opt-in, once
-    if (!sized) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            wgmma_scan_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        sized = true;
-    }
+    static bool sized[MAX_DEVICES] = {};
+    const cudaError_t opt = opt_in_smem(wgmma_scan_kernel<KIND>, sized);
+    if (opt != cudaSuccess) return static_cast<int>(opt);
     wgmma_scan_kernel<KIND><<<grid, THREADS, smem_bytes, stream>>>(
         xmap, qmap, auxmap, maskmap, static_cast<const float*>(q), static_cast<float*>(out), Q, N,
         D, metric, stages, resident);
@@ -1146,14 +1161,9 @@ static int launch_nt(const void* q, void* qsplit, const void* x, const void* aux
     if (!ok || (aux == nullptr && (metric != IP || KIND == TILE_MAX)) ||
         (mask == nullptr) != (KIND == SCORE))
         return static_cast<int>(cudaErrorInvalidValue);
-    static bool sized = false;  // the >48 KiB dynamic shared memory opt-in, once
-    if (!sized) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            tf32_scan_kernel<KIND, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            wg::SMEM_LIMIT);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        sized = true;
-    }
+    static bool sized[wg::MAX_DEVICES] = {};
+    const cudaError_t opt = wg::opt_in_smem(tf32_scan_kernel<KIND, NT>, sized);
+    if (opt != cudaSuccess) return static_cast<int>(opt);
     const size_t n_split = (size_t)qp * dp;
     split_query_kernel<<<static_cast<unsigned>((n_split + 255) / 256), 256, 0, stream>>>(
         static_cast<const float*>(q), static_cast<uint32_t*>(qsplit), Q, D, qp, dp);

@@ -13,8 +13,7 @@ Table of the same Database, its segments on that database's device. On
 one card the fan-out is sequential dispatch, as in the JAX package; the
 initiator fuses on the host (numpy), so the shards' kernels are the only
 device work. Rows are addressed (shard, segment, row). The row-sharded
-single corpus over several cards (the JAX package's
-parallel/mesh_table.py) is not ported yet.
+single corpus over a grid of devices is parallel/mesh_table.py.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ bytes as a JAX segment, given its arrays as numpy. `hnsw_from_state_dict`,
 `ivf_from_state_dict` and `binary_from_state_dict` build the port's HNSW,
 IVF and binary indexes from a JAX index's `state_dict()`
 (`index_from_state_dict` picks one by kind); `inverted_from_state_dict`
-builds a segment's fts store from a JAX `InvertedIndex.state_dict()`.
+builds a segment's fts store from a JAX `InvertedIndex.state_dict()`;
+`mesh_indexes_from_arrays` installs a JAX MeshTable's sharded IVF or
+two-stage index on a port MeshTable that holds the same rows.
 They let the port search exactly what the JAX package searches (the
 parity tests use them), and are the route by which a segment or an index
 built by one package serves in the other.
@@ -244,3 +246,53 @@ def index_from_state_dict(state: Dict, device, payload=None):
     if kind.startswith("Binary"):
         return binary_from_state_dict(state, device, payload)
     return ivf_from_state_dict(state, device, payload)
+
+
+def _mesh_parts(mesh, arr):
+    """A JAX [S, ...] per-shard stack (numpy; a bf16 array as its bits)
+    as the port's list of [1, ...] parts, one on each shard's device."""
+    from ..parallel.distributed import shard_rows
+
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return [p.view(torch.bfloat16) for p in shard_rows(mesh, a.view(np.uint16))]
+    return shard_rows(mesh, a)
+
+
+def mesh_indexes_from_arrays(table, ivf=None, mstg=None) -> None:
+    """Install a JAX MeshTable's index on the port MeshTable `table`,
+    which must hold the same rows in the same slot layout (the same rows
+    inserted in the same order over the same shard count, e.g. through
+    `save` / `load`). `ivf` is the JAX table's `_ivf` tuple (centroids
+    [S, C, D], csq, perm_data, perm_aux, perm_rows, cluster_start,
+    bucket_pad), `mstg` its `_mstg` tuple (centroids, csq, lo, scale,
+    codes, psq, perm_rows, cluster_start, bucket_pad), every array as
+    numpy. Rows appended after the install are served by the delta scan,
+    as after a build."""
+    from ..parallel.distributed import replicate
+
+    if (ivf is None) == (mstg is None):
+        raise ValueError("pass exactly one of ivf= and mstg=")
+    s = table._seal()
+    rows = np.asarray((ivf if ivf is not None else mstg)[-3])  # perm_rows in both
+    if rows.shape != (table.n_shards, s.cap):
+        raise SchemaError(
+            f"the index covers [shards, slots] {rows.shape}, the table "
+            f"({table.n_shards}, {s.cap})"
+        )
+    mesh = table.mesh
+    if ivf is not None:
+        *arrays, bpad = ivf
+        table._ivf = tuple(_mesh_parts(mesh, a) for a in arrays) + (int(bpad),)
+        table._mstg = None
+    else:
+        cents, csq, lo, scale, *arrays, bpad = mstg
+        table._mstg = (
+            _mesh_parts(mesh, cents), _mesh_parts(mesh, csq),
+            replicate(mesh, np.asarray(lo, np.float32)),
+            replicate(mesh, np.asarray(scale, np.float32)),
+            *(_mesh_parts(mesh, a) for a in arrays), int(bpad),
+        )
+        table._ivf = None
+    table._ivf_fill = s.fill.copy()
+    table._delta_mask = None

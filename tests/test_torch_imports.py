@@ -41,6 +41,8 @@ def test_import_pulls_in_no_jax():
         "from myscaledb_tpu_torch.service import data_replication, exchange, replication\n"
         "from myscaledb_tpu_torch.parallel import sharded_table\n"
         "assert myscaledb_tpu_torch.ShardedTable is sharded_table.ShardedTable\n"
+        "from myscaledb_tpu_torch.parallel import distributed, mesh_table\n"
+        "assert myscaledb_tpu_torch.MeshTable is mesh_table.MeshTable\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'myscaledb_tpu'))\n"
         "assert not bad, bad\n"
