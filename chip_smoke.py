@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py [--profile] [--out DIR] [--f32-tables-only] [--root DIR]
-                          [--mesh-cards]
+                          [--mesh-cards] [--approx-only]
 
 Run from the root of a checkout on a machine with one CUDA GPU (an H100:
 the kernels are built for sm_90a). It imports nothing of JAX and nothing
@@ -192,11 +192,36 @@ of the JAX package. Phases, each of which raises on failure:
      of their own legs. The phase logs its seconds and score's launches.
      `--mesh-cards` (two or more cards) runs phase 1 and phase 3's corpus
      in a MeshTable with a shard on each card against the same shards on
-     one card (and a 2 x n/2 grid): the same hits, QPS, each card's bytes.
+     one card (and a 2 x n/2 grid): the same hits, QPS, each card's bytes;
+ 17. the approximate top-k (use_approx_topk: each score row folded into L
+     strided bins, the bins' winners' exact top-k), after phase 5 and
+     before phase 6 indexes phase 4's table: (a) its partial-reduce
+     kernel (`approx_bin_max`) against its plain version bit for bit,
+     values and indices, at the main path's shapes (a SIFT chunk at L
+     1,024 and 128, the GIST segment, a binary chunk, the dense text
+     store), with -inf rows, exact ties, an N that is not a multiple of L
+     and a column slice read in place; its time beside its plain
+     version, the library call (`torch.max` over the [Q, N/L, L] view)
+     and its bound, and `torch.topk`'s; (b) phase 3's SIFT table and (c)
+     phase 4's GIST table at recall targets 0.9, 0.95 and 0.99:
+     recall_ids@10 against phase 3's / 4's exact oracle (>= the target -
+     0.01, and >= 0.98 at 0.99), every hit's exact f32 score, device ms a
+     search and QPS beside the exact search; (d) phase 10's 1M x 1,024-bit
+     rows through `binary_scan_topk(approx=True)`: recall of the exact
+     top-k's scores and every Hamming distance numpy's; (f)
+     `distributed_scan_topk(approx=True)` over phase 3's 1M segment on
+     `Mesh([[cuda:0] * 4])` against the exact mesh scan; (g) an IVFFLAT
+     and an HNSWFLAT index on phase 4's table return the same ids with
+     the setting as without it. (e) runs after phase 9: the 50k store's
+     dense BM25 path with `approx=True`, every hit within DENSE_RTOL of
+     the f64 BM25 and the exact call's top-k scores recalled. With the
+     setting off no other phase launches the kernel (checked).
+     `--approx-only` runs phases 1, 3, 4 and 17 (without (e)).
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
-three over phase 8, score and tile_max over phase 9, the binary rows
+three over phase 8, score and tile_max over phase 9, approx_bin_max
+(with score and tile_max) over phase 17, the binary rows
 layout, blocks layout and grouping over phase 10, score, tile_max and
 gathermv over phases 11 and 14, score and tile_max over phases 15 and 16
 (tile_max need not launch there: no mesh shard meets its alignment), and
@@ -364,6 +389,22 @@ MESH_PRICE_CUT = 10
 MESH_NEW = 10_000
 MESH_GATHER_BYTES = 8 << 30
 MESH_CARDS_DOCS = 100_000  # --mesh-cards: the documents of its text table
+# phase 17, the approximate top-k: the recall targets driven, the recall_ids@10
+# floor at 0.99 and the slack below each target, the ids a (g) index is
+# held to, and the (Q, N, L, share of rows kept, exact ties) the partial
+# reduce is compared at: a SIFT chunk (batch 100 padded to 104) at r 0.99
+# (the record's line) and 0.9, the GIST segment (batch 256) at 0.99, a
+# binary chunk and the 50k text store at 0.99 (batch 100), -inf rows with
+# 1% kept, and an N that is not a multiple of L with exact ties
+APPROX_TARGETS = (0.9, 0.95, 0.99)
+APPROX_MIN_RECALL, APPROX_SLACK = 0.98, 0.01
+APPROX_SHAPES = [(104, 131_072, 1_024, 1.0, False), (104, 131_072, 128, 1.0, False),
+                 (256, 114_688, 896, 1.0, False), (100, 65_536, 1_024, 1.0, False),
+                 (100, 50_176, 1_664, 1.0, False), (104, 131_072, 1_024, 0.01, False),
+                 (100, 100_003, 896, 1.0, True)]
+APPROX_TIMED = 3  # the first shapes are timed; the record takes the first
+APPROX_IVF_NCENT = 256
+APPROX_BIN_CAP = 1_048_576  # phase 10's segment capacity: 16 chunks of 65,536
 
 
 def make_corpus(n, d, seed=0, centers=None):
@@ -1302,13 +1343,17 @@ def cost_model(gist, scan, graph, hb, card, out_dir):
 
 
 # ---------------------------------------------------------------- phase 8
-def check_hits_exact(table, queries, results, label):
-    """Every hit is a live row whose score is the exact f32 L2 score of its
-    stored row (2 q.x - |x|^2 over the widened bf16 values, `scores_ref`'s
+def check_hits_exact(table, queries, results, label, metric="L2"):
+    """Every hit is a live row whose score is the exact f32 score of its
+    stored row (L2: 2 q.x - |x|^2 over the widened bf16 values, Cosine:
+    the normalised query's q.x times 1 / |x|, IP: q.x; `scores_ref`'s
     formula on that row alone), within F32_TOL."""
     import torch
 
     from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance
+
+    metric = Metric(metric)
 
     dev = table.device
     q = torch.from_numpy(queries).to(dev)
@@ -1327,8 +1372,14 @@ def check_hits_exact(table, queries, results, label):
         check(alive is None or bool(alive[r].all()), f"{label}: a deleted row came back")
         p = seg.vector("vec")
         x = p.data[r].to(torch.float32)
-        qq = torch.nn.functional.pad(q[qi], (0, x.shape[1] - q.shape[1]))
-        want[sel] = (2.0 * (qq * x).sum(-1) - p.aux_for(Metric.L2)[r]).cpu().numpy()
+        qq = distance.normalize_queries(
+            torch.nn.functional.pad(q[qi], (0, x.shape[1] - q.shape[1])), metric)
+        dot = (qq * x).sum(-1)
+        if metric == Metric.L2:
+            dot = 2.0 * dot - p.aux_for(metric)[r]
+        elif metric == Metric.COSINE:
+            dot = dot * p.aux_for(metric)[r]
+        want[sel] = dot.cpu().numpy()
     ok = np.isclose(scores, want, **F32_TOL)
     check(ok.all(), f"{label}: {int((~ok).sum())} hits differ from their exact f32 scores "
           f"(worst {float(np.nanmax(np.abs(scores - want))):.6g})")
@@ -4807,6 +4858,361 @@ def mesh_cards_path(ms, devices, card):
                 f"RRF over {MESH_CARDS_DOCS:,} documents: its ids")
         del t, tt  # before the next grid's bytes are read
 
+# --------------------------------------------------------------- phase 17
+def compare_approx(dev):
+    """17a: `approx_bin_max` against `approx_bin_max_plain` bit for bit
+    (values and indices) at APPROX_SHAPES, each over a column slice of a
+    wider matrix (the kernel reads the row stride in place). Returns the
+    largest |kernel - plain| value (0)."""
+    import torch
+
+    from myscaledb_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = 0.0
+    for q, n, L, keep, ties in APPROX_SHAPES:
+        s = 3.0 * torch.randn((q, n + 8), generator=gen, device=dev)
+        if ties:
+            s = torch.round(4.0 * s) / 4.0
+        if keep < 1.0:
+            drop = torch.rand(s.shape, generator=gen, device=dev) >= keep
+            s = s.masked_fill(drop, float("-inf"))
+        view = s[:, 3 : 3 + n]
+        before = topk.approx_bin_max.launches
+        v, i = topk.approx_bin_max(view, L)
+        pv, pi = topk.approx_bin_max_plain(view, L)
+        sync(dev)
+        check(topk.approx_bin_max.launches == before + 1, "approx_bin_max did not launch")
+        err = float(torch.where(v == pv, torch.zeros_like(v), (v - pv).abs()).max())
+        bad = int((i != pi).sum())
+        check(torch.equal(v, pv) and bad == 0,
+              f"approx_bin_max Q={q} N={n} L={L}: kernel differs from plain (max |dv| {err}, "
+              f"{bad} indices differ)")
+        worst = max(worst, err)
+        log(f"  approx_bin_max Q={q} N={n} L={L} kept {keep:g}{' ties' if ties else ''}: kernel "
+            f"== plain bit for bit (values and indices)")
+    return worst
+
+
+def time_approx(dev, card):
+    """17a's times: the kernel, its plain version and the library call
+    (`torch.max` over the [Q, N/L, L] view, which computes the same
+    function up to the order of ties) at the first APPROX_TIMED shapes,
+    with the bound of the kernel's bytes, and beside them the exact
+    selection the branch replaces (`torch.topk` of the row) and the whole
+    approximate selection (`topk_scores(approx=True)`). Returns the
+    record's fields from the first shape."""
+    import torch
+
+    from myscaledb_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=dev).manual_seed(171)
+    out = None
+    for q, n, L, _, _ in APPROX_SHAPES[:APPROX_TIMED]:
+        s = 3.0 * torch.randn((q, n), generator=gen, device=dev)
+        r = 0.9 if L == 128 else 0.99
+        check(topk.approx_reduction_output_size(n, K, r) == L, f"L at N={n} r={r} is not {L}")
+        call = lambda: topk.approx_bin_max(s, L)  # noqa: E731
+        fold = s.view(q, n // L, L) if n % L == 0 else None
+        rec = dict(
+            ms=cuda_time_ms(call),
+            plain_ms=cuda_time_ms(lambda: topk.approx_bin_max_plain(s, L)),
+            library_ms=None if fold is None else cuda_time_ms(lambda: torch.max(fold, dim=1)),
+        )
+        # every score read once, each bin's value and index written once; a
+        # compare a score
+        rec["bound_ms"], rec["bound_by"] = bound(4 * q * n + 8 * q * L, q * n, "f32")
+        exact_ms = cuda_time_ms(lambda: torch.topk(s, K, dim=1))
+        whole_ms = cuda_time_ms(lambda: topk.topk_scores(s, K, approx=True, recall_target=r))
+        lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+        log(f"  approx_bin_max Q={q} N={n} L={L}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, library {lib}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it); the whole "
+            f"approximate top-{K} {whole_ms:.4f} ms, torch.topk(s, {K}) {exact_ms:.4f} ms  "
+            f"[{card}]")
+        out = out or rec
+        del s, fold
+    return out
+
+
+def approx_settings(t, r):
+    """The table's settings with the approximate top-k at target r."""
+    return t.settings.override({"use_approx_topk": "1", "approx_topk_recall_target": str(r)})
+
+
+def id_recall(results, gt):
+    """recall_ids@k by (segment, row) against the exact (scores,
+    segments, rows) `gt`."""
+    segs = np.concatenate([r.segments for r in results])
+    rows = np.concatenate([r.rows for r in results])
+    _, gs, gr = gt
+    return sum(len(set(zip(segs[i].tolist(), rows[i].tolist()))
+                   & set(zip(gs[i].tolist(), gr[i].tolist()))) for i in range(len(rows))) / rows.size
+
+
+def approx_table_path(label, t, batches, gt, nb, metric, out_dir, card):
+    """17b / 17c: the table's exact search and its approximate one at
+    each APPROX_TARGETS target: recall_ids@10 against the exact oracle,
+    every hit's exact f32 score (`check_hits_exact`), device ms a search
+    (torch.profiler) and QPS."""
+    queries = np.concatenate(batches)
+
+    def run(settings):
+        def search(qb):
+            return t.search("vec", qb, k=K, metric=metric, settings=settings)
+        return search
+
+    def shares(by_name, total):
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        return "; ".join(f"{name[:48]} {100 * ms_ / total:.1f}%" for name, ms_ in top)
+
+    exact = run(None)
+    ex_qps = qps(exact, batches, nb)
+    ex_ms = device_trace(exact, batches, os.path.join(out_dir, f"trace_approx_{label}_exact.json"))
+    log(f"  {label} exact: {ex_ms[0] / len(batches):.4f} device ms a search ({ex_ms[2]} kernels "
+        f"over {len(batches)} searches; {shares(ex_ms[1], ex_ms[0])}), QPS {ex_qps:.1f}  [{card}]")
+    for r in APPROX_TARGETS:
+        search = run(approx_settings(t, r))
+        res = [search(qb) for qb in batches]
+        rec = id_recall(res, gt)
+        check(rec >= r - APPROX_SLACK, f"{label} at r {r}: recall_ids@{K} {rec:.4f}")
+        if r == max(APPROX_TARGETS):
+            check(rec >= APPROX_MIN_RECALL, f"{label} at r {r}: recall_ids@{K} {rec:.4f} is under "
+                  f"{APPROX_MIN_RECALL}")
+        check_hits_exact(t, queries, res, f"{label} approx r {r}", metric=metric)
+        d = np.concatenate([r_.distances for r_ in res])
+        check(np.isfinite(d).all() and (np.diff(d, axis=1) >= 0).all(),
+              f"{label} at r {r}: distances must be finite and ascending")
+        rate = qps(search, batches, nb)
+        dms = device_trace(search, batches,
+                           os.path.join(out_dir, f"trace_approx_{label}_{r}.json"))
+        log(f"  {label} approx r {r}: recall_ids@{K} {rec:.4f}, every hit's exact f32 score; "
+            f"{dms[0] / len(batches):.4f} device ms a search ({dms[2]} kernels; "
+            f"{shares(dms[1], dms[0])}), QPS {rate:.1f} ({rate / ex_qps:.3f} x the exact "
+            f"search's)  [{card}]")
+
+
+def scores_recalled(want, got):
+    """How many of `want`'s finite scores (a multiset) `got` holds: the
+    recall of a top-k whose scores tie (Hamming, BM25)."""
+    a = sorted(x for x in want.tolist() if np.isfinite(x))
+    b = sorted(x for x in got.tolist() if np.isfinite(x))
+    hit = 0
+    while a and b:
+        if a[-1] == b[-1]:
+            hit, _, _ = hit + 1, a.pop(), b.pop()
+        elif a[-1] > b[-1]:
+            a.pop()
+        else:
+            b.pop()
+    return hit, int(np.isfinite(want).sum())
+
+
+def approx_binary_path(dev, card):
+    """17d: phase 10's rows (the same corpus and queries, padded to its
+    segment's capacity) through `binary_scan_topk` exact and with
+    `approx=True`, Hamming: the share of each query's exact top-k scores
+    the approximate one recalls, and every Hamming distance numpy's."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import binary
+
+    packed = torch.zeros((APPROX_BIN_CAP, BIN_DIM // 8), dtype=torch.uint8, device=dev)
+    packed[:BIN_N] = binary_corpus(dev, BIN_N, BIN_DIM, seed=5)
+    x = packed[:BIN_N].cpu().numpy()
+    rng = np.random.default_rng(6)
+    flips = np.packbits(rng.random((BIN_NQ, BIN_DIM)) < 0.05, axis=1)
+    queries = x[rng.choice(BIN_N, BIN_NQ, replace=False)] ^ flips
+    q64, x64 = queries.view(np.uint64), x.view(np.uint64)
+    hit = tot = 0
+    t_ex = t_ap = 0.0
+    for i in range(0, BIN_NQ, BIN_BATCH):
+        qb = torch.from_numpy(queries[i : i + BIN_BATCH]).to(dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        ev, _ = binary.binary_scan_topk(qb, packed, k=K, metric=Metric.HAMMING, n_valid=BIN_N)
+        sync(dev)
+        t1 = time.perf_counter()
+        av, ar = binary.binary_scan_topk(qb, packed, k=K, metric=Metric.HAMMING, n_valid=BIN_N,
+                                         approx=True)
+        sync(dev)
+        t_ex, t_ap = t_ex + t1 - t0, t_ap + time.perf_counter() - t1
+        ev, av, ar = ev.cpu().numpy(), av.cpu().numpy(), ar.cpu().numpy()
+        check((ar >= 0).all() and (ar < BIN_N).all(), "17d: a hit outside the rows")
+        for j in range(len(ar)):
+            want = binary_oracle(x64[ar[j]], q64[i + j : i + j + 1], "Hamming")
+            check(np.array_equal(av[j], want), f"17d: query {i + j}'s Hamming distances differ "
+                  "from numpy's")
+            h, n = scores_recalled(ev[j], av[j])
+            hit, tot = hit + h, tot + n
+    rec = hit / tot
+    check(rec >= 0.99 - APPROX_SLACK, f"17d: the approximate scan recalls {rec:.4f} of the exact "
+          "top-k's scores")
+    n_b = BIN_NQ // BIN_BATCH
+    log(f"  binary {BIN_N:,} x {BIN_DIM} bits, Hamming, batch {BIN_BATCH}: approx (r 0.99) recalls "
+        f"{rec:.4f} of the exact top-{K}'s scores, every distance numpy's; host ms a search "
+        f"(synchronised) exact {1e3 * t_ex / n_b:.3f}, approx {1e3 * t_ap / n_b:.3f}  [{card}]")
+
+
+def approx_mesh_path(dev, sift, queries, card):
+    """17f: phase 3's 1M segment as four row shards of this card
+    (`Mesh([[cuda:0] * 4])`), live rows as the mask, through
+    `distributed_scan_topk` exact and with `approx=True`: recall_ids@10 of
+    the approximate scan against the exact one, and every hit's exact f32
+    score."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.parallel.distributed import Mesh, distributed_scan_topk, shard_rows
+
+    grid = Mesh([[dev] * MESH_SHARDS])
+    seg = sift.live_segments()[0]
+    p = seg.vector("vec")
+    ok = torch.arange(seg.capacity, device=dev) < seg.n_rows
+    alive = seg.alive_mask_device()
+    if alive is not None:
+        ok &= alive
+    data, aux = shard_rows(grid, p.data), shard_rows(grid, p.aux_for(Metric.L2))
+    mask = shard_rows(grid, ok)
+    per = seg.capacity // MESH_SHARDS
+    hit = 0
+    worst = 0.0
+    for i in range(0, len(queries), SIFT_BATCH):
+        qb = torch.from_numpy(queries[i : i + SIFT_BATCH]).to(dev)
+        qb = torch.nn.functional.pad(qb, (0, p.data.shape[1] - qb.shape[1]))
+        kw = dict(k=K, metric=Metric.L2, rows_per_shard=per, mask=mask)
+        _, er = distributed_scan_topk(grid, qb, data, aux, **kw)
+        av, ar = distributed_scan_topk(grid, qb, data, aux, approx=True, **kw)
+        check(bool((ar >= 0).all()) and bool(ok[ar.long()].all()), "17f: a masked row came back")
+        x = p.data[ar.long()].to(torch.float32)
+        want = 2.0 * (qb[:, None, :] * x).sum(-1) - p.aux_for(Metric.L2)[ar.long()]
+        close = torch.isclose(av, want, rtol=F32_TOL["rtol"], atol=F32_TOL["atol"])
+        check(bool(close.all()), "17f: a hit's score is not its row's exact f32 score")
+        worst = max(worst, float((av - want).abs().max()))
+        er, ar = er.cpu().numpy(), ar.cpu().numpy()
+        hit += sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ar, er))
+    rec = hit / (len(queries) * K)
+    check(rec >= APPROX_MIN_RECALL, f"17f: recall_ids@{K} {rec:.4f} against the exact mesh scan")
+    log(f"  {grid}: distributed_scan_topk(approx=True) over phase 3's {seg.n_rows:,}-row segment "
+        f"in {MESH_SHARDS} shards: recall_ids@{K} {rec:.4f} against the exact mesh scan, every "
+        f"hit's exact f32 score (largest |diff| {worst:.3g})  [{card}]")
+
+
+def approx_index_path(dev, t, batches, card):
+    """17g: an IVFFLAT, then an HNSWFLAT index on phase 4's table (built,
+    searched with cost-based routing off, dropped): the same ids and
+    distances with the setting as without it."""
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    for name, kw in (("ivf17", dict(type="IVFFLAT", ncentroids=APPROX_IVF_NCENT)),
+                     ("hnsw17", dict(type="HNSWFLAT", **HNSW_PARAMS))):
+        t0 = time.perf_counter()
+        t.add_vector_index(name, "vec", metric_type="Cosine", **kw)
+        check(t.wait_index_built(), f"17g: the {kw['type']} build did not end")
+        sync(dev)
+        build_s = time.perf_counter() - t0
+        plain = t.settings.override({"cost_based_index_routing": "0"})
+        appr = approx_settings(t, min(APPROX_TARGETS)).override({"cost_based_index_routing": "0"})
+        n0 = GLOBAL_COUNTERS.get("VectorIndexSearches")
+        for qb in batches:
+            want = t.search("vec", qb, k=K, settings=plain)
+            got = t.search("vec", qb, k=K, settings=appr)
+            check(np.array_equal(got.rows, want.rows) and np.array_equal(got.segments, want.segments)
+                  and np.array_equal(got.distances, want.distances),
+                  f"17g: {kw['type']} answers differently with use_approx_topk")
+        n_idx = GLOBAL_COUNTERS.get("VectorIndexSearches") - n0
+        check(n_idx == 2 * len(batches), f"17g: {kw['type']} searched {n_idx} times, not through "
+              "the index every time")
+        t.drop_vector_index(name)
+        log(f"  {kw['type']} on phase 4's table (built in {build_s:.2f} s): {len(batches)} batches "
+            f"return the same ids and distances with use_approx_topk (r {min(APPROX_TARGETS)}) as "
+            f"without it")
+
+
+def approx_path(ms, dev, sift, sift_batches, sift_gt, gist, gist_batches, gist_gt, card, out_dir):
+    """Phase 17 (b, c, d, f, g): the approximate top-k's paths."""
+    log(f"[17b] phase 3's SIFT table (L2, batch {SIFT_BATCH}) at recall targets {APPROX_TARGETS}")
+    approx_table_path("SIFT", sift, sift_batches, sift_gt, SIFT_BATCH, "L2", out_dir, card)
+    log(f"[17c] phase 4's GIST table (Cosine, batch {GIST_BATCH}) at recall targets "
+        f"{APPROX_TARGETS}")
+    approx_table_path("GIST", gist, gist_batches, gist_gt, GIST_BATCH, "Cosine", out_dir, card)
+    log(f"[17d] phase 10's rows through binary_scan_topk(approx=True)")
+    approx_binary_path(dev, card)
+    log(f"[17f] distributed_scan_topk(approx=True) on Mesh([[cuda:0] * {MESH_SHARDS}])")
+    approx_mesh_path(dev, sift, np.concatenate(sift_batches), card)
+    log("[17g] index searches ignore the setting")
+    approx_index_path(dev, gist, gist_batches[:2], card)
+
+
+def approx_phase(ms, dev, sift, sift_batches, sift_gt, gist, gist_batches, gist_gt, card, args,
+                 errs):
+    """Phase 17 but (e): the kernel compared (into `errs`) and timed, then
+    the paths with the launch counters zeroed just before and read just
+    after. Returns (the paths' launches by kernel, the timing record)."""
+    from myscaledb_tpu_torch.ops import distance, gathermv, tilescan, topk
+
+    t17 = time.perf_counter()
+    log(f"[17a] the approximate top-k's partial reduce against its plain version, and its "
+        f"times  [{card}]")
+    errs["approx_bin_max"] = compare_approx(dev)
+    timing = time_approx(dev, card)
+    t_paths = time.perf_counter()
+    distance.scores.launches = 0
+    tilescan.tile_maxes.launches = 0
+    gathermv.gather_block_scores.launches = 0
+    topk.approx_bin_max.launches = 0
+    approx_path(ms, dev, sift, sift_batches, sift_gt, gist, gist_batches, gist_gt, card, args.out)
+    p17 = {"approx_bin_max": topk.approx_bin_max.launches, "score": distance.scores.launches,
+           "tile_max": tilescan.tile_maxes.launches,
+           "gathermv": gathermv.gather_block_scores.launches}
+    log(f"  kernel launches on phase 17's paths: {p17}; phase 17 took "
+        f"{time.perf_counter() - t17:.2f} s ({time.perf_counter() - t_paths:.2f} s of paths)")
+    for name in ("approx_bin_max", "score", "gathermv"):
+        check(p17[name] > 0, f"kernel {name} was not launched on phase 17's paths")
+    topk.approx_bin_max.launches = 0
+    return p17, timing
+
+
+def approx_text_path(t, oracle, tb, card):
+    """17e, after phase 9: its 50k store's dense BM25 path over its 1,000
+    three-word queries with `approx=True` (r 0.99) beside the exact call:
+    every hit within DENSE_RTOL of the f64 BM25, and the share of the
+    exact call's top-k scores recalled."""
+    from myscaledb_tpu_torch.text import inverted
+
+    tdef = t._text_indexes["ft"]
+    segs = t.live_segments()
+    stats = tdef.merged_stats([s.segment_id for s in segs])
+    seg = segs[1]
+    store = tdef.store(seg.segment_id)
+    doc = seg.scalar("id")[: seg.n_rows].astype(np.int64)
+    check(store.plan_batch(tb[0], stats=stats)[3] == "dense", "17e: the 50k store is not dense")
+    hit = tot = 0
+    worst = 0.0
+    for qb in tb:
+        ev = store.bm25_topk_batch(qb, K, stats=stats)[0].cpu().numpy()
+        av, ar = (a.cpu().numpy() for a in store.bm25_topk_batch(qb, K, stats=stats,
+                                                                  approx=True)[:2])
+        for i, q in enumerate(qb):
+            fin = np.isfinite(av[i])
+            sc, cnt = oracle.at(list(dict.fromkeys(q.split())), doc[ar[i][fin]])
+            err = np.abs(av[i][fin] - sc)
+            bnd = inverted.DENSE_RTOL * np.abs(sc)
+            check((cnt >= 1).all() and (err <= bnd).all(),
+                  f"17e: query {q!r}: a hit lies outside DENSE_RTOL of its f64 BM25")
+            if fin.any():
+                worst = max(worst, float((err / bnd).max()))
+            h, n = scores_recalled(ev[i], av[i])
+            hit, tot = hit + h, tot + n
+    rec = hit / max(tot, 1)
+    check(rec >= 0.99 - APPROX_SLACK, f"17e: the approximate BM25 recalls {rec:.4f} of the exact "
+          "top-k's scores")
+    log(f"  the {seg.n_rows:,}-row store's dense BM25, {sum(map(len, tb))} 3-word queries: "
+        f"approx (r 0.99) recalls {rec:.4f} of the exact top-{K}'s scores; every hit within "
+        f"DENSE_RTOL of the f64 BM25 (worst err/bound {worst:.3g})  [{card}]")
+
+
 
 def main(argv=None):
     import argparse
@@ -4825,6 +5231,9 @@ def main(argv=None):
     ap.add_argument("--f32-tables-only", action="store_true",
                     help="run the set-up and phase 13 (the device f32 tables) only, and print "
                          "no record: a side of a same-machine comparison")
+    ap.add_argument("--approx-only", action="store_true",
+                    help="run the set-up, phases 3-4 and phase 17 (the approximate top-k, "
+                         "without its text part) only, and print no record")
     ap.add_argument("--root", default=None,
                     help="import myscaledb_tpu_torch from this checkout (another commit's, "
                          "for a same-machine comparison) instead of this file's")
@@ -4841,7 +5250,7 @@ def main(argv=None):
         return 1
     sys.path.insert(0, here)
     import myscaledb_tpu_torch as ms
-    from myscaledb_tpu_torch.ops import _cuda, distance, gathermv, tilescan
+    from myscaledb_tpu_torch.ops import _cuda, distance, gathermv, tilescan, topk
 
     # ---- 1. set-up
     t_start = time.perf_counter()
@@ -4878,10 +5287,12 @@ def main(argv=None):
         return 0
 
     # ---- 2. kernels vs their plain versions
-    log("[2] kernels vs plain versions on the card")
-    errs = compare_kernels(dev)
-    errs["gathermv"] = compare_gathermv(dev)
-    errs["binary"] = compare_binary(dev)
+    errs = {}
+    if not args.approx_only:
+        log("[2] kernels vs plain versions on the card")
+        errs = compare_kernels(dev)
+        errs["gathermv"] = compare_gathermv(dev)
+        errs["binary"] = compare_binary(dev)
 
     # ---- 3./4. the exact paths, with their launch counters zeroed
     distance.scores.launches = 0
@@ -4894,8 +5305,15 @@ def main(argv=None):
     log(f"  kernel launches on the exact paths: {launches}")
     for name in ("score", "tile_max"):
         check(launches[name] > 0, f"kernel {name} was not launched on the exact paths")
+    check(topk.approx_bin_max.launches == 0, "the exact paths launched approx_bin_max")
 
     # ---- 5. the exact paths' QPS (before phase 6 indexes the GIST table)
+    if args.approx_only:
+        approx_phase(ms, dev, sift, sift_batches, sift_gt, gist, gist_batches, gist_gt, card,
+                     args, errs)
+        log(f"chip_smoke: phases 3, 4 and 17 passed in {time.perf_counter() - t_start:.1f} s  "
+            f"[{card}]")
+        return 0
     log(f"[5] exact-path QPS on {card}")
     sift_qps = qps(lambda qb: sift.search("vec", qb, k=K, metric="L2"), sift_batches, SIFT_BATCH)
     sift_fqps = qps(lambda qb: sift.search("vec", qb, k=K, metric="L2", filter=flt),
@@ -4914,6 +5332,11 @@ def main(argv=None):
             ("gist_exact", lambda qb: gist.search("vec", qb, k=K), gist_batches),
         ], PROFILE_RUNS, args.out, card)
 
+    # ---- 17. the approximate top-k on phases 3-4's tables (before phase 6
+    # indexes phase 4's), with the launch counters zeroed inside
+    p17, timing17 = approx_phase(ms, dev, sift, sift_batches, sift_gt, gist, gist_batches,
+                                 gist_gt, card, args, errs)
+
     # ---- 6. the HNSW path, with the gathermv launch counter zeroed
     log("[6] HNSW path on phase 4's table (HNSWFLAT m=32 ef_c=100, Cosine, batch 256, k=10)")
     gathermv.gather_block_scores.launches = 0
@@ -4927,9 +5350,13 @@ def main(argv=None):
             "vec", qb, k=K, params={"ef_s": 100}, settings=graph), hb)],
             PROFILE_RUNS, args.out, card)
 
+    for name, n in p17.items():
+        launches[name] = launches.get(name, 0) + n
+
     # ---- 7. times
     log(f"[7] times on {card}")
     timing = time_kernels(dev, idx, card)
+    timing["approx_bin_max"] = timing17
     cost_model(gist, gist_scan, graph, hb, card, args.out)
 
     # ---- 8. the IVF family and HNSWPQ, with the launch counters zeroed
@@ -4954,6 +5381,17 @@ def main(argv=None):
     log(f"  kernel launches on the text and hybrid path: {p9}")
     for name, n in p9.items():
         launches[name] += n
+
+    # ---- 17e. the approximate top-k on phase 9's dense store, with its
+    # counter zeroed (phases 6-9 must not have launched it)
+    check(topk.approx_bin_max.launches == 0, "a phase without the setting launched approx_bin_max")
+    log(f"[17e] phase 9's 50k store's dense BM25 with approx=True")
+    approx_text_path(hyb, text_oracle, text_tb, card)
+    n17e = topk.approx_bin_max.launches
+    check(n17e > 0, "kernel approx_bin_max was not launched on phase 17e's path")
+    launches["approx_bin_max"] += n17e
+    log(f"  approx_bin_max launches on 17e: {n17e}")
+    topk.approx_bin_max.launches = 0
 
     # ---- 10. binary vectors (the binary counters zeroed inside)
     log(f"[10] binary path ({BIN_N:,} x BinaryVector({BIN_DIM}), Hamming and Jaccard, exact scan "
@@ -5069,6 +5507,7 @@ def main(argv=None):
         check(n > 0, f"kernel {name} was not launched on phase 13's paths")
         launches[name] += n
 
+    check(topk.approx_bin_max.launches == 0, "a phase without the setting launched approx_bin_max")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
         {"name": "score", "route": "cuda", "source": "myscaledb_tpu_torch/csrc/score.cu",
@@ -5105,6 +5544,11 @@ def main(argv=None):
          "replaces": "myscaledb_tpu/ops/tilescan.py:66",
          "launches": launches["tile_max_f32"], "max_abs_err": errs["tile_max_f32"],
          **{k: timing["tile_max_f32"][k] for k in keys}},
+        {"name": "approx_bin_max", "route": "cuda",
+         "source": "myscaledb_tpu_torch/csrc/approx_topk.cu",
+         "replaces": "myscaledb_tpu/ops/topk.py:39",
+         "launches": launches["approx_bin_max"], "max_abs_err": errs["approx_bin_max"],
+         **{k: timing["approx_bin_max"][k] for k in keys}},
     ]}
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s  [{card}]")
     print(json.dumps(record), flush=True)

@@ -3,7 +3,10 @@
 Counterpart of myscaledb_tpu/index/flat.py: the scan of ops/bruteforce.py
 over the segment's own payload (no memory beyond the stored
 auxiliaries); over a host-tier payload, the streamed scan
-(`stream_scan_topk`). The executor instantiates it ad hoc for index-less
+(`stream_scan_topk`, exact). With `approx` (QuerySettings.use_approx_topk)
+a device payload's scan takes the approximate top-k at `recall_target`
+when the segment holds more than 4k rows, as in the JAX package. The
+executor instantiates it ad hoc for index-less
 segments (the brute-force path); `add_vector_index(type="FLAT")` builds
 it as a segment's index, and a checkpoint keeps only its metadata (it is
 rebuilt from the segment payload on load).
@@ -32,6 +35,8 @@ class FlatIndex(VectorIndex):
         dim: int,
         n_rows: int,
         host: bool = False,
+        approx: bool = False,
+        recall_target: float = 0.99,
     ):
         self.data = data
         self.aux = aux
@@ -39,13 +44,17 @@ class FlatIndex(VectorIndex):
         self.dim = dim
         self.n_rows = n_rows
         self.host = host  # the payload is in the host tier
+        self.approx = approx
+        self.recall_target = recall_target
 
     @classmethod
     def build(cls, payload, n_rows: int, *, metric: Metric, dim: int, params=None,
               settings=None, cancel_cb=None) -> "FlatIndex":
-        del params, settings, cancel_cb
+        del params, cancel_cb
         return cls(payload.data, payload.aux_for(metric), metric=metric, dim=dim, n_rows=n_rows,
-                   host=payload.is_host)
+                   host=payload.is_host,
+                   approx=bool(settings and settings.query.use_approx_topk),
+                   recall_target=settings.query.approx_topk_recall_target if settings else 0.99)
 
     def search_t(
         self,
@@ -56,8 +65,12 @@ class FlatIndex(VectorIndex):
         params: ParamsKey = (),
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         del params  # FLAT has no search parameters
-        scan = bruteforce.stream_scan_topk if self.host else bruteforce.scan_topk_t
-        return scan(
+        if self.host:  # the host tier streams exactly, as in the JAX package
+            return bruteforce.stream_scan_topk(
+                queries, self.data, self.aux, k=k, metric=self.metric, n_valid=self.n_rows,
+                mask=mask,
+            )
+        return bruteforce.scan_topk_t(
             queries,
             self.data,
             self.aux,
@@ -65,6 +78,8 @@ class FlatIndex(VectorIndex):
             metric=self.metric,
             n_valid=self.n_rows,
             mask=mask,
+            approx=self.approx and self.n_rows > 4 * k,
+            recall_target=self.recall_target,
         )
 
     @property

@@ -180,6 +180,8 @@ class _Library:
         lib.msd_binary_group.restype = ci
         lib.msd_binary_blocks.argtypes = [vp] * 9 + [ci] * 7 + [vp]
         lib.msd_binary_blocks.restype = ci
+        lib.msd_approx_bin_max.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+        lib.msd_approx_bin_max.restype = ci
         return lib
 
 

@@ -345,11 +345,13 @@ def binary_scan_topk(
     n_valid: int,
     mask: Optional[torch.Tensor] = None,
     chunk_rows: int = DEFAULT_CHUNK_ROWS,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked exact binary top-k, in the JAX package's row chunks (the
-    largest multiple of 1,024 rows that divides N and is at most
-    `chunk_rows`): one kernel launch and one `torch.topk` per chunk, then
-    one merge."""
+    """Masked binary top-k, in the JAX package's row chunks (the largest
+    multiple of 1,024 rows that divides N and is at most `chunk_rows`):
+    one kernel launch and one `topk_scores` per chunk, then one merge.
+    Exact, or with `approx` each chunk's top-k by the approximate branch
+    at the JAX package's default recall target (the scores stay exact)."""
     n, _ = base.shape
     chunk = n
     if n > chunk_rows and n % 1024 == 0:
@@ -364,7 +366,7 @@ def binary_scan_topk(
         m = None if mask is None else mask[off : off + chunk]
         s = binary_scores(queries, base[off : off + chunk], metric,
                           n_valid=max(0, min(chunk, n_valid - off)), mask=m)
-        v, i = topk_scores(s, k)
+        v, i = topk_scores(s, k, approx=approx)
         cvals.append(v)
         cidx.append(torch.where(i >= 0, i + off, i))
     if len(cvals) == 1:

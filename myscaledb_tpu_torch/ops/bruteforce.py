@@ -5,7 +5,9 @@ device-resident payload: it either takes the tile-max pruned route
 (ops/tilescan.py) or computes score chunks with the score kernel
 (ops/distance.py), applies the filter/validity mask as a -inf select
 (pre-filter semantics: masked rows can never enter the top-k), takes a
-per-chunk top-k and merges chunk results exactly. `stream_scan_topk`
+per-chunk top-k and merges chunk results exactly. With `approx` it skips
+the prune and takes each chunk's top-k by the approximate branch of
+`topk_scores`, as the JAX package does. `stream_scan_topk`
 scans a host-tier payload: fixed-shape chunks stream through the device
 (ops/stream.py) and each goes through `scan_topk_t`.
 """
@@ -20,7 +22,7 @@ from ..metrics import Metric
 from . import distance, tilescan
 from ._cuda import round_up
 from .stream import host_chunks
-from .topk import NEG_INF, merge_topk, merge_topk_lists, wide_exact_topk
+from .topk import NEG_INF, merge_topk, merge_topk_lists, topk_scores, wide_exact_topk
 
 # Rows per scan chunk. 128k rows x 128 dims of bf16 = 32 MiB per chunk read.
 DEFAULT_CHUNK_ROWS = 128 * 1024
@@ -58,6 +60,8 @@ def scan_topk_t(
     n_valid: int,
     mask: Optional[torch.Tensor] = None,
     chunk_rows: int = DEFAULT_CHUNK_ROWS,
+    approx: bool = False,
+    recall_target: float = 0.99,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Brute-force top-k over a (possibly padded, possibly filtered) base.
 
@@ -65,8 +69,10 @@ def scan_topk_t(
     base:    [N, D] storage payload (f32 or bf16), rows >= n_valid are padding.
     aux:     f32[N] per-row metric auxiliary (base_aux), or None to compute.
     mask:    optional bool[N] pre-filter (WHERE bitmap ∩ delete bitmap).
+    approx:  each chunk's top-k by the approximate branch of `topk_scores`
+             at `recall_target` (the scores stay exact; rows may be missed).
     Returns (scores f32[Q, k], indices int32[Q, k]); missing slots are
-    (-inf, -1). Exact only: the approximate top-k is not ported.
+    (-inf, -1).
     """
     nq, d = queries.shape
     n = base.shape[0]
@@ -88,7 +94,7 @@ def scan_topk_t(
     if mask is not None:
         valid = torch.logical_and(valid, mask)
 
-    if tilescan.supports(n, d, nq_pad, k):
+    if not approx and tilescan.supports(n, d, nq_pad, k):
         # Strategy gate, the JAX package's byte model: the tile-max prune
         # re-reads ksel*SUB raw rows per query for the exact rescore;
         # the full-scores path pays the [Q, N] score matrix round-trips
@@ -111,7 +117,10 @@ def scan_topk_t(
             queries, base[off : off + chunk], aux[off : off + chunk], metric
         )
         s = torch.where(valid[None, off : off + chunk], s, torch.full_like(s, NEG_INF))
-        cv, ci = wide_exact_topk(s, k)
+        if approx:
+            cv, ci = topk_scores(s, k, approx=True, recall_target=recall_target)
+        else:
+            cv, ci = wide_exact_topk(s, k)
         cvals.append(cv)
         cidx.append(torch.where(ci >= 0, ci + off, ci))
     if len(cvals) == 1:

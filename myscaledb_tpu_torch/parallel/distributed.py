@@ -286,16 +286,16 @@ def distributed_scan_topk(
     pre-filter (WHERE ∩ alive). Per shard: the port's `scan_topk_t`
     (the score / tile_max kernels), then the shards' top-k lists gathered
     onto the row's first device and merged. A missing `aux` is zero, as
-    in the JAX package."""
-    if approx:
-        raise NotImplementedError("the approximate top-k is not ported (ROADMAP queue 2 #4)")
+    in the JAX package. `approx` takes each shard's top-k by the
+    approximate branch at the JAX package's default recall target."""
 
     def local(d, q, dev):
         x = _part(data, d, dev)
         a = (_part(aux, d, dev) if aux is not None
              else torch.zeros((x.shape[0],), dtype=torch.float32, device=dev))
         m = _part(mask, d, dev) if mask is not None else None
-        v, r = scan_topk_t(q, x, a, k=k, metric=metric, n_valid=rows_per_shard, mask=m)
+        v, r = scan_topk_t(q, x, a, k=k, metric=metric, n_valid=rows_per_shard, mask=m,
+                           approx=approx)
         return _globalize(v, r, k, d * rows_per_shard)
 
     return _over_mesh(mesh, queries, local, k)

@@ -321,11 +321,6 @@ class VectorSearchExecutor:
                 f"top-k window {k} exceeds max_search_result_window="
                 f"{st.query.max_search_result_window}"
             )
-        if st.query.use_approx_topk:
-            raise NotImplementedError(
-                "approximate top-k (use_approx_topk) is not ported; see ROADMAP "
-                "queue 2 #4"
-            )
         metric = metric or t.index_metric_for(column)
         is_binary = isinstance(vtype, BinaryVector)
         if is_binary:
@@ -414,6 +409,8 @@ class VectorSearchExecutor:
                         dim=vtype.dim,
                         n_rows=seg.n_rows,
                         host=payload.is_host,  # a host-tier payload streams
+                        approx=st.query.use_approx_topk,
+                        recall_target=st.query.approx_topk_recall_target,
                     )
                 GLOBAL_COUNTERS.bump("VectorBruteForceSearches")
             else:

@@ -28,7 +28,9 @@ corpus statistics (summed over segments), in two programs of torch ops:
 
 Every top-k here (`topk_stable`) orders exact ties as `jax.lax.top_k`
 does, lower position first; BM25 scores tie exactly as a rule (equal
-document lengths and tf = 1).
+document lengths and tf = 1). The dense path takes `approx` (the
+approximate branch of `topk_stable`, ties among the bin winners by lower
+row); the sparse path stays exact, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -142,9 +144,11 @@ def _bm25_score_topk_batch(
     capacity: int,
     k: int,
     need_counts: bool,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched dense BM25: add every query's term chunks into per-row
-    scores, one chunk per step in order, then a tie-stable top-k per query.
+    scores, one chunk per step in order, then a tie-stable top-k per query
+    (with `approx`, its approximate branch).
     A term's chunks partition its posting rows, so the per-row
     matched-term count used for AND semantics is unaffected by chunking.
     need_counts=False (OR queries) skips the matched-term count: a BM25
@@ -175,7 +179,7 @@ def _bm25_score_topk_batch(
     if mask is not None:
         hit = torch.logical_and(hit, mask if mask.dim() == 2 else mask[None, :])
     scores = torch.where(hit, scores, torch.full_like(scores, NEG_INF))
-    vals, rows = topk_stable(scores, k)
+    vals, rows = topk_stable(scores, k, approx=approx)
     rows, tags = _tags(vals, rows)
     return vals, rows, tags
 
@@ -573,13 +577,17 @@ class InvertedIndex:
         stats: Optional[BM25Stats] = None,
         operator: str = "OR",
         mask=None,
+        approx: bool = False,
         route: Optional[str] = None,
     ):
         """Device BM25 top-k for a batch of query strings against this
         segment, with table-level `stats` (segment-local when None).
         Terms whose posting lists exceed the scan budget are split into
-        chunks (never truncated). `route` forces "sparse" or "dense" (a
-        measurement hook; None takes the JAX package's rule). Returns
+        chunks (never truncated). `approx` takes the dense path's top-k by
+        the approximate branch (the sparse path's run totals are few and
+        stay exact, as in the JAX package). `route` forces "sparse" or
+        "dense" (a measurement hook; None takes the JAX package's rule).
+        Returns
         (vals, rows, tags, per-query terms, bound): tags is the
         single-segment tag column (0 valid / -1 empty), bound the error
         bound of each query's scores on the sparse path (f32[Q],
@@ -603,9 +611,27 @@ class InvertedIndex:
             )
             return vals, rows, tags, all_terms, sparse_error_bound(prefix_max)
         vals, rows, tags = _bm25_score_topk_batch(
-            *args, budget=budget, capacity=self.capacity, k=k, need_counts=need_counts
+            *args, budget=budget, capacity=self.capacity, k=k, need_counts=need_counts,
+            approx=approx,
         )
         return vals, rows, tags, all_terms, None
+
+    def bm25_topk(
+        self,
+        query: str,
+        k: int,
+        *,
+        stats: Optional[BM25Stats] = None,
+        operator: str = "OR",
+        mask=None,
+        approx: bool = False,
+    ):
+        """Single-query convenience wrapper over `bm25_topk_batch`: (vals
+        f32[1, k], rows int32[1, k], the query's terms)."""
+        vals, rows, _tags, terms, _bound = self.bm25_topk_batch(
+            [query], k, stats=stats, operator=operator, mask=mask, approx=approx
+        )
+        return vals, rows, terms[0]
 
     # ----------------------------------------------------------- persist
     def state_dict(self) -> Dict[str, Any]:

@@ -21,7 +21,9 @@ bit-level probe (operands whose three products are exact) and a one-hot
 probe of the register-fragment layout. The gathermv kernel is held to the
 same kind of bound around sum_d |bf16(q_d) c_d|
 (`gathermv.kernel_error_bound`), which a kernel that skips the query's
-bf16 cast falls outside.
+bf16 cast falls outside. The approximate top-k's partial reduce
+(`topk.approx_bin_max`) compares and selects only, so it equals its plain
+version bit for bit, values and indices, ties included.
 """
 
 import numpy as np
@@ -30,7 +32,7 @@ import torch
 
 from myscaledb_tpu_torch.index import hnsw
 from myscaledb_tpu_torch.metrics import Metric
-from myscaledb_tpu_torch.ops import binary, distance, gathermv, tilescan
+from myscaledb_tpu_torch.ops import binary, distance, gathermv, tilescan, topk
 from myscaledb_tpu_torch.storage.schema import FloatVector, Schema, UInt64
 from myscaledb_tpu_torch.storage.segment import Segment
 
@@ -704,3 +706,43 @@ def test_stream_scan_over_segments_matches_the_cpu(cuda_device, metric):
                                             metric)
         bound = torch.gather(bound, 1, wr.to(torch.int64))
         assert not distance.outside_kernel_bound(v.cpu(), wv, bound).any()
+
+
+# (Q, N, L, share kept, ties): the approximate top-k's partial reduce at the
+# main path's shapes (a SIFT chunk at L 1,024 and 128, the GIST segment, a
+# binary chunk, the 50k dense text store), -inf rows, an N that is not a
+# multiple of L, and a Q past one grid row of 65,535 blocks
+APPROX_SHAPES = [(104, 131_072, 1_024, 1.0, False), (104, 131_072, 128, 1.0, False),
+                 (256, 114_688, 896, 1.0, False), (100, 65_536, 1_024, 1.0, False),
+                 (100, 50_176, 1_664, 1.0, False), (104, 131_072, 1_024, 0.01, False),
+                 (37, 100_003, 896, 0.5, True), (70_000, 256, 128, 1.0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,L,keep,ties", APPROX_SHAPES)
+def test_approx_bin_max_kernel_vs_plain(cuda_device, q, n, L, keep, ties):
+    g = torch.Generator(device=cuda_device).manual_seed(n + L)
+    s = 3.0 * torch.randn((q, n + 5), generator=g, device=cuda_device)
+    if ties:
+        s = torch.round(2.0 * s) / 2.0
+    if keep < 1.0:
+        s = s.masked_fill(torch.rand(s.shape, generator=g, device=cuda_device) >= keep,
+                          float("-inf"))
+    for x in (s[:, :n].contiguous(), s[:, 5:]):  # dense rows, and a column slice in place
+        before = topk.approx_bin_max.launches
+        v, i = topk.approx_bin_max(x, L)
+        pv, pi = topk.approx_bin_max_plain(x, L)
+        torch.cuda.synchronize()
+        assert topk.approx_bin_max.launches == before + 1
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.cuda
+def test_approx_bin_max_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    s = torch.zeros((4, 1_000), device=cuda_device)
+    with pytest.raises(TypeError):
+        topk.approx_bin_max(s.to(torch.float16), 128)
+    with pytest.raises(ValueError):
+        topk.approx_bin_max(s, 1_001)
+    with pytest.raises(ValueError):
+        topk.approx_bin_max(s.T.contiguous().T, 128)  # columns not of unit stride

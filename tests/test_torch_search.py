@@ -132,11 +132,13 @@ def test_empty_and_k_beyond_rows():
         t.search("vec", np.ones(3, np.float32), k=3)
     with pytest.raises(tms.QueryShapeError):
         t.search("vec", q, k=0)
-    # what is still not ported raises, naming its ROADMAP item
+    # the approximate top-k answers; at 5 rows (<= 4k) its branch is the
+    # exact one, as in the JAX package
     st = tms.Settings()
     st.query.use_approx_topk = True
-    with pytest.raises(NotImplementedError, match="queue 2 #4"):
-        t.search("vec", q, k=3, settings=st)
+    ra, re = t.search("vec", q, k=3, settings=st), t.search("vec", q, k=3)
+    np.testing.assert_array_equal(ra.rows, re.rows)
+    np.testing.assert_array_equal(ra.distances, re.distances)
     # two-stage search over segments without a two-stage index is the
     # plain search
     r2 = t.search("vec", q, k=8, two_stage=True)
