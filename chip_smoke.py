@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py [--profile] [--out DIR] [--f32-tables-only] [--root DIR]
-                          [--mesh-cards] [--approx-only]
+                          [--mesh-cards] [--approx-only] [--programs-only]
 
 Run from the root of a checkout on a machine with one CUDA GPU (an H100:
 the kernels are built for sm_90a). It imports nothing of JAX and nothing
@@ -216,24 +216,44 @@ of the JAX package. Phases, each of which raises on failure:
      dense BM25 path with `approx=True`, every hit within DENSE_RTOL of
      the f64 BM25 and the exact call's top-k scores recalled. With the
      setting off no other phase launches the kernel (checked).
-     `--approx-only` runs phases 1, 3, 4 and 17 (without (e)).
+     `--approx-only` runs phases 1, 3, 4 and 17 (without (e));
+ 18. the search programs (every search above already replays one CUDA
+     graph a search: search/program.py), after phase 10: on phase 3's
+     and phase 4's tables exact, HNSWFLAT at ef_s 100 on phase 4's table
+     and IVFFLAT at phase 8's nprobe on phase 3's (both built fresh and
+     dropped after), and phase 10's binary table (the Jaccard exact scan,
+     BinaryMSTG), each batch through the table's program (a graph replay)
+     and through the same program's body run eagerly (`eager_bodies`):
+     ids, tags and scores bit-equal; for both paths the host launch-API
+     calls, kernels, device ms and busy share a search (torch.profiler)
+     and the median QPS of 5 one-pass rounds run in turns; captures,
+     replays and the recapture after a mutation (an ADD / DROP COLUMN
+     pair, or a delete). 18g, inside 14d: the server's sync 8 and async
+     64 points, 5 one-second windows a path in turns, every response
+     against the exact oracle. `--programs-only` runs phases 1, 3, 4 and
+     18 (IVFFLAT at nprobe 2, its own binary table, 18g on its own server).
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
 three over phase 8, score and tile_max over phase 9, approx_bin_max
 (with score and tile_max) over phase 17, the binary rows
-layout, blocks layout and grouping over phase 10, score, tile_max and
+layout, blocks layout and grouping over phase 10, those three with
+score, tile_max and gathermv over phase 18, score, tile_max and
 gathermv over phases 11 and 14, score and tile_max over phases 15 and 16
 (tile_max need not launch there: no mesh shard meets its alignment), and
 over phases 12 and 13 also the f32
 engine's launches of score and tile_max (the record's score_f32 and
 tile_max_f32 lines);
 every kernel must have launched on its path, and the record's launches
-are the sums over those paths. The last line of standard output is {"ok": true, "device": {...}};
+are the sums over those paths. A graph replay counts the launches its
+capture recorded; a program's warm-up run before its capture counts
+apart (SearchProgramWarmupLaunches).
+The last line of standard output is {"ok": true, "device": {...}};
 the line before it is the per-kernel JSON record. Without CUDA, or without
 the package beside this file, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1008,10 +1028,10 @@ def qps(search, batches, nq_per_batch):
     return nq_per_batch / search_seconds(search, batches)
 
 
-def device_trace(search, batches, trace_path):
-    """One pass of `search` over `batches` under torch.profiler; its chrome
-    trace's kernel, memcpy and memset events give (device ms of the pass,
-    device ms by name, kernels launched). The trace goes to `trace_path`."""
+def trace_events(search, batches, trace_path):
+    """One pass of `search` over `batches` under torch.profiler: the chrome
+    trace's events (the trace goes to `trace_path`) and its kernel, memcpy
+    and memset events, which must not be empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1025,6 +1045,13 @@ def device_trace(search, batches, trace_path):
         events = json.load(f)["traceEvents"]
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     check(dev, f"{trace_path}: the profiler saw no device activity")
+    return events, dev
+
+
+def device_trace(search, batches, trace_path):
+    """One profiled pass (`trace_events`): (device ms of the pass, device
+    ms by name, kernels launched)."""
+    _, dev = trace_events(search, batches, trace_path)
     by_name = {}
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
@@ -2551,8 +2578,7 @@ def binary_path(ms, dev, card, args):
     if args.profile:
         profile_cells([("binary_mstg", lambda qb: t.search("bv", qb, k=K), batches)],
                       PROFILE_RUNS, args.out, card)
-    db.drop_table("bin")
-    return launches, timing, errs
+    return launches, timing, errs, (db, t, batches)
 
 
 # ---------------------------------------------------------------- phase 11
@@ -3811,8 +3837,9 @@ class GroupClock:
             self.groups.append((t1 - t0, t2 - t0))
 
 
-def serving_grid(srv, clock, table, queries, conns, mode):
-    """bench.py's serving protocol (:622-694) for SERVER_SECONDS: `conns`
+def serving_grid(srv, clock, table, queries, conns, mode, seconds=None):
+    """bench.py's serving protocol (:622-694) for `seconds` (by default
+    SERVER_SECONDS): `conns`
     threads, each blocking on one request at a time ("sync") or keeping
     SERVER_WINDOW submits outstanding ("async"). Returns (QPS, [(query
     index, response)], groups, requests, group seconds)."""
@@ -3826,7 +3853,7 @@ def serving_grid(srv, clock, table, queries, conns, mode):
     errs = []
     b0, r0 = GLOBAL_COUNTERS.get("ServerBatches"), GLOBAL_COUNTERS.get("ServerRequests")
     clock.groups = []
-    stop_at = time.perf_counter() + SERVER_SECONDS
+    stop_at = time.perf_counter() + (SERVER_SECONDS if seconds is None else seconds)
 
     def client(w):
         try:
@@ -3904,6 +3931,8 @@ def serving_path(db, t, queries, oracle, here, card):
                     f"dispatcher {disp:.3f}, dispatch to resolution {resolve:.3f} (share "
                     f"{disp / resolve:.3f}); {len(out)} responses equal the exact oracle "
                     f"({tied} near-tied)  [{card}]")
+        log("[18g] the same server, graph replays against eager bodies in turns")
+        program_serving(srv, clock, t, queries, oracle, card)
     finally:
         srv.close()
     a32, a64 = grid[("async", 32)], grid[("async", 64)]
@@ -5214,6 +5243,293 @@ def approx_text_path(t, oracle, tb, card):
 
 
 
+# ---------------------------------------------------------------- phase 18
+@contextlib.contextmanager
+def eager_bodies():
+    """While open, every search program (search/program.py) runs its body
+    -- the module-level `_fused_multi_search` -- eagerly on the card
+    through the same static buffers and output copy instead of replaying
+    its graph: the eager side of phase 18's comparison, made here and
+    nowhere in the package (the package has no such setting)."""
+    import torch
+
+    from myscaledb_tpu_torch.search import program
+
+    real = program.Program.run
+
+    def run(self, queries, masks=(), dyn=None):
+        on_card = torch.cuda.device(self.device) if self.device.type == "cuda" else (
+            contextlib.nullcontext())
+        with self.lock, on_card:
+            self._load(queries, masks, dyn)
+            self.out.copy_(self._call_body())
+            return self.out.clone()
+
+    program.Program.run = run
+    try:
+        yield
+    finally:
+        program.Program.run = real
+
+
+PROGRAM_ROUNDS = 5  # one-pass QPS rounds of each path, run in turns
+PROGRAM_COUNTERS = ("SearchProgramCaptures", "SearchProgramReplays", "SearchProgramEvictions",
+                    "SearchProgramWarmupLaunches")
+PROGRAM_SERVER_POINTS = (("sync", 8), ("async", 64))
+PROGRAM_SERVER_SECONDS = 1.0
+
+
+def program_counters():
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    return {n: GLOBAL_COUNTERS.get(n) for n in PROGRAM_COUNTERS}
+
+
+def counter_delta(before):
+    now = program_counters()
+    return {n[len("SearchProgram"):]: now[n] - before[n] for n in PROGRAM_COUNTERS}
+
+
+def same_packed(label, got, want):
+    """Two lists of SearchResults hold the same ids, tags and scores, bit
+    for bit (the packed int32 outputs and the segment tables)."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g._packed is not None and w._packed is not None, f"{label}: not a program's result")
+        check(torch.equal(g._packed, w._packed) and np.array_equal(g._seg_ids, w._seg_ids),
+              f"{label}: batch {i}: the graph replay and the eager body disagree")
+
+
+def api_trace(search, batches, trace_path):
+    """One profiled pass (`trace_events`): (device ms, kernels, host
+    launch-API calls, graph launches) of the pass. The launch calls are
+    the CUDA runtime and driver events that launch, copy or set
+    (cudaLaunchKernel, cudaGraphLaunch, cudaMemcpyAsync, cudaMemsetAsync,
+    their driver forms): what the host pays a search."""
+    events, dev = trace_events(search, batches, trace_path)
+    api = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+           and any(w in e.get("name", "") for w in ("Launch", "Memcpy", "Memset"))]
+    graphs = sum("GraphLaunch" in e["name"] for e in api)
+    return (sum(e["dur"] for e in dev) / 1e3, sum(e["cat"] == "kernel" for e in dev), len(api),
+            graphs)
+
+
+def one_pass_seconds(search, batches):
+    import torch
+
+    t0 = time.perf_counter()
+    for qb in batches:
+        search(qb)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def program_cells(cells, card, out_dir):
+    """Phase 18 over `cells` of (label, search, batches, mutate): each
+    batch through the table's program (a graph replay) and through the
+    same program's body run eagerly (`eager_bodies`), bit for bit; per
+    search for both paths the host launch-API calls, the kernels, device
+    ms and busy share (device ms over the median unprofiled pass), and the
+    median one-pass QPS of PROGRAM_ROUNDS passes, run in turns (graph,
+    eager, eager, graph, ...); the captures and replays of the first pass,
+    then `mutate()` (which moves the table's segment-set version without
+    changing its rows) and the recapture it costs. Returns {label: the
+    numbers}."""
+    import statistics
+
+    out = {}
+    for label, search, batches, mutate in cells:
+        nb, nq = len(batches), sum(len(qb) for qb in batches)
+        c0 = program_counters()
+        graph = [search(qb) for qb in batches]
+        first = counter_delta(c0)
+        with eager_bodies():
+            eager = [search(qb) for qb in batches]
+        same_packed(label, graph, eager)
+        check(first["Replays"] == nb, f"{label}: the first pass made {first}, not {nb} replays")
+        walls = {"graph": [], "eager": []}
+        for r in range(PROGRAM_ROUNDS):
+            for side in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+                if side == "eager":
+                    with eager_bodies():
+                        walls[side].append(one_pass_seconds(search, batches))
+                else:
+                    walls[side].append(one_pass_seconds(search, batches))
+        c1 = program_counters()
+        stats = {}
+        for side in ("graph", "eager"):
+            path = os.path.join(out_dir, f"trace_program_{label}_{side}.json")
+            if side == "eager":
+                with eager_bodies():
+                    dev_ms, kernels, api, graph_launches = api_trace(search, batches, path)
+            else:
+                dev_ms, kernels, api, graph_launches = api_trace(search, batches, path)
+            wall = statistics.median(walls[side])
+            stats[side] = dict(
+                qps=statistics.median(nq / w for w in walls[side]), api=api / nb,
+                graph_launches=graph_launches / nb, kernels=kernels / nb, dev_ms=dev_ms / nb,
+                busy=dev_ms / (1e3 * wall), wall_ms=1e3 * wall / nb)
+        steady = counter_delta(c1)
+        check(steady["Captures"] == 0, f"{label}: a steady pass captured again: {steady}")
+        mutate()
+        c2 = program_counters()
+        after = search(batches[0])
+        with eager_bodies():
+            after_eager = search(batches[0])
+        same_packed(f"{label} after the mutation", [after], [after_eager])
+        re = counter_delta(c2)
+        check(re["Captures"] == 1, f"{label}: the search after a mutation made {re}")
+        g, e = stats["graph"], stats["eager"]
+        check(g["graph_launches"] >= 1, f"{label}: the profiled graph pass launched no graph")
+        for side, st in stats.items():
+            log(f"  {label} {side:>5}: {st['api']:.1f} host launch-API calls / search "
+                f"({st['graph_launches']:.0f} graph launches), {st['kernels']:.1f} kernels / "
+                f"search, device {st['dev_ms']:.4f} ms / search, busy share {st['busy']:.3f} "
+                f"(median pass {st['wall_ms']:.4f} ms / search), QPS median "
+                f"{st['qps']:.1f} of {PROGRAM_ROUNDS} one-pass rounds  [{card}]")
+        log(f"  {label}: ids, tags and scores bit-equal in all {nb} batches and after the "
+            f"mutation; first pass {first}, steady passes {steady}, after the mutation {re}; "
+            f"graph / eager QPS {g['qps'] / e['qps']:.3f}")
+        out[label] = stats
+    return out
+
+
+def program_path(ms, dev, sift, sift_batches, gist, gist_batches, ivf_op, card, out_dir):
+    """18a-d: phase 3's SIFT table (exact: tile_max on the 1M segment,
+    score on the 50k one), phase 4's GIST table (exact, score), HNSWFLAT
+    on phase 4's table at ef_s 100 (gathermv; a fresh build, dropped
+    after) and IVFFLAT on phase 3's at phase 8's nprobe (dropped after).
+    The mutation of each cell is an ADD COLUMN and DROP COLUMN pair: the
+    segment-set version moves, the rows do not."""
+    from myscaledb_tpu_torch.index.base import IndexStatus
+
+    def alter(t):
+        def run():
+            t.add_column("p18", ms.Int32())
+            t.drop_column("p18")
+        return run
+
+    graph = ms.Settings()
+    graph.query.cost_based_index_routing = False
+    hb = gist_batches[:HNSW_BATCHES]
+    cells = [
+        ("sift_exact", lambda qb: sift.search("vec", qb, k=K, metric="L2"), sift_batches,
+         alter(sift)),
+        ("gist_exact", lambda qb: gist.search("vec", qb, k=K), gist_batches, alter(gist)),
+    ]
+    out = program_cells(cells, card, out_dir)
+    gist.add_vector_index("h18", "vec", type="HNSWFLAT", metric_type="Cosine", **HNSW_PARAMS)
+    sift.add_vector_index("ivf18", "vec", type="IVFFLAT", ncentroids=IVF_NCENT, metric_type="L2")
+    check(gist.wait_index_built() and sift.wait_index_built(),
+          "phase 18's index builds did not end")
+    check(gist.index_status("h18") == {0: IndexStatus.LOADED} and
+          sift.index_status("ivf18") == {0: IndexStatus.LOADED, 1: IndexStatus.SMALL_PART},
+          "phase 18's indexes did not load")
+    out.update(program_cells([
+        ("hnsw_ef100", lambda qb: gist.search("vec", qb, k=K, params={"ef_s": 100},
+                                              settings=graph), hb, alter(gist)),
+        (f"ivfflat_nprobe{ivf_op}", lambda qb: sift.search("vec", qb, k=K, metric="L2",
+                                                          params={"nprobe": ivf_op}),
+         sift_batches, alter(sift)),
+    ], card, out_dir))
+    gist.drop_vector_index("h18")
+    sift.drop_vector_index("ivf18")
+    return out
+
+
+def program_binary_path(ms, t, batches, card, out_dir):
+    """18e-f, on phase 10's table before it is dropped: the binary rows
+    layout (the Jaccard exact scan: the index is Hamming's) and
+    BinaryMSTG (Hamming). The mutation deletes one row no query found."""
+    from myscaledb_tpu_torch import F
+
+    gone = iter(range(BIN_N - 1, 0, -1))
+
+    def delete():
+        while True:
+            i = next(gone)
+            if t.delete(F("id") == i) == 1:
+                return
+
+    return program_cells([
+        ("binary_rows", lambda qb: t.search("bv", qb, k=K, metric="Jaccard"), batches, delete),
+        ("binary_mstg", lambda qb: t.search("bv", qb, k=K), batches, delete),
+    ], card, out_dir)
+
+
+def program_serving(srv, clock, t, queries, oracle, card):
+    """18g, inside 14d: the coalescing server's grid at PROGRAM_SERVER_POINTS
+    with each window cut to PROGRAM_SERVER_SECONDS, PROGRAM_ROUNDS rounds
+    of each path in turns: median QPS, groups, and every response against
+    the exact oracle."""
+    import statistics
+
+    idmap = id_map(t)
+    rates = {}
+    for mode, conns in PROGRAM_SERVER_POINTS:
+        for r in range(PROGRAM_ROUNDS):
+            for side in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+                ctx = eager_bodies() if side == "eager" else contextlib.nullcontext()
+                with ctx:
+                    c0 = program_counters()
+                    rate, got, groups, reqs, _ = serving_grid(srv, clock, t.name, queries, conns,
+                                                              mode, PROGRAM_SERVER_SECONDS)
+                    d = counter_delta(c0)
+                qi = np.array([q for q, _ in got])
+                check_oracle(f"18g {side} {mode} {conns}",
+                             hit_ids(idmap, np.stack([o["segments"] for _, o in got]),
+                                     np.stack([o["rows"] for _, o in got])),
+                             l2_scores(queries[qi], np.stack([o["distances"] for _, o in got])),
+                             oracle[0][qi], oracle[1][qi])
+                rates.setdefault((mode, conns, side), []).append((rate, groups, reqs, d))
+        for side in ("graph", "eager"):
+            runs = rates[(mode, conns, side)]
+            log(f"  18g server {mode} {conns:>2} connections {side:>5}: QPS median "
+                f"{statistics.median(x[0] for x in runs):.1f} of {PROGRAM_ROUNDS} windows of "
+                f"{PROGRAM_SERVER_SECONDS:g} s (min {min(x[0] for x in runs):.1f}, max "
+                f"{max(x[0] for x in runs):.1f}); mean group "
+                f"{sum(x[2] for x in runs) / max(1, sum(x[1] for x in runs)):.2f} requests; "
+                f"program counters over the windows "
+                f"{ {k: sum(x[3][k] for x in runs) for k in runs[0][3]} }  [{card}]")
+    return rates
+
+
+def program_binary_table(ms, dev):
+    """--programs-only: phase 10's table (the same rows and queries) with
+    its BinaryMSTG, without phase 10's checks. Returns (db, table,
+    batches)."""
+    packed = binary_corpus(dev, BIN_N, BIN_DIM, seed=5).cpu().numpy()
+    rng = np.random.default_rng(6)
+    flips = np.packbits(rng.random((BIN_NQ, BIN_DIM)) < 0.05, axis=1)
+    queries = packed[rng.choice(BIN_N, BIN_NQ, replace=False)] ^ flips
+    db = ms.connect(device=dev)
+    t = db.create_table("bin", ms.Schema({"id": ms.UInt64(), "bv": ms.BinaryVector(BIN_DIM)}))
+    t.insert({"id": np.arange(BIN_N, dtype=np.uint64), "bv": packed})
+    t.add_vector_index("bm", "bv", type="BinaryMSTG")
+    check(t.wait_index_built(), "the BinaryMSTG build did not end")
+    return db, t, [queries[i : i + BIN_BATCH] for i in range(0, BIN_NQ, BIN_BATCH)]
+
+
+def program_serving_alone(ms, db, t, queries, card):
+    """--programs-only: 18g on a server of its own over phase 3's table."""
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.service.server import SearchServer
+
+    gv, gs, gr = exact_topk(t, "vec", queries, K, Metric.L2)
+    oracle = (hit_ids(id_map(t), gs, gr), gv.astype(np.float64))
+    srv = SearchServer(db, max_batch=256, max_delay_ms=2.0)
+    clock = GroupClock(srv)
+    try:
+        for b in (1, 8, 32, 64, 128, 256):
+            for f in [srv.submit_search(t.name, "vec", queries[i % len(queries)], K)
+                      for i in range(b)]:
+                f.result()
+        program_serving(srv, clock, t, queries, oracle, card)
+    finally:
+        srv.close()
+
+
 def main(argv=None):
     import argparse
     import gc
@@ -5234,6 +5550,10 @@ def main(argv=None):
     ap.add_argument("--approx-only", action="store_true",
                     help="run the set-up, phases 3-4 and phase 17 (the approximate top-k, "
                          "without its text part) only, and print no record")
+    ap.add_argument("--programs-only", action="store_true",
+                    help="run the set-up, phases 3-4 and phase 18 (the search programs against "
+                         "their eager bodies, on its own IVFFLAT at nprobe 2 and its own binary "
+                         "table) only, and print no record")
     ap.add_argument("--root", default=None,
                     help="import myscaledb_tpu_torch from this checkout (another commit's, "
                          "for a same-machine comparison) instead of this file's")
@@ -5250,7 +5570,7 @@ def main(argv=None):
         return 1
     sys.path.insert(0, here)
     import myscaledb_tpu_torch as ms
-    from myscaledb_tpu_torch.ops import _cuda, distance, gathermv, tilescan, topk
+    from myscaledb_tpu_torch.ops import _cuda, binary, distance, gathermv, tilescan, topk
 
     # ---- 1. set-up
     t_start = time.perf_counter()
@@ -5306,6 +5626,18 @@ def main(argv=None):
     for name in ("score", "tile_max"):
         check(launches[name] > 0, f"kernel {name} was not launched on the exact paths")
     check(topk.approx_bin_max.launches == 0, "the exact paths launched approx_bin_max")
+
+    if args.programs_only:
+        log("[18] search programs: graph replays against eager bodies")
+        program_path(ms, dev, sift, sift_batches, gist, gist_batches, 2, card, args.out)
+        bin_db, bin_t, bin_batches = program_binary_table(ms, dev)
+        program_binary_path(ms, bin_t, bin_batches, card, args.out)
+        bin_db.drop_table("bin")
+        log("[18g] the coalescing server on phase 3's table, graph replays against eager bodies")
+        program_serving_alone(ms, sift_db, sift, sift_queries, card)
+        log(f"chip_smoke: phases 3, 4 and 18 passed in {time.perf_counter() - t_start:.1f} s  "
+            f"[{card}]")
+        return 0
 
     # ---- 5. the exact paths' QPS (before phase 6 indexes the GIST table)
     if args.approx_only:
@@ -5396,12 +5728,34 @@ def main(argv=None):
     # ---- 10. binary vectors (the binary counters zeroed inside)
     log(f"[10] binary path ({BIN_N:,} x BinaryVector({BIN_DIM}), Hamming and Jaccard, exact scan "
         f"then BinaryMSTG; batch {BIN_BATCH}, k={K})")
-    p10, t10, e10 = binary_path(ms, dev, card, args)
+    p10, t10, e10, (bin_db, bin_t, bin_batches) = binary_path(ms, dev, card, args)
     launches.update(p10)
     timing.update(t10)
     errs["binary_blocks"] = max(errs["binary"], e10["binary_blocks"])
     errs["binary"] = max(errs["binary"], e10["binary"])
     errs["binary_group"] = e10["binary_group"]
+
+    # ---- 18. the search programs (a CUDA graph a search) against their
+    # bodies run eagerly, with the launch counters zeroed
+    t18 = time.perf_counter()
+    wrappers18 = {"score": distance.scores, "tile_max": tilescan.tile_maxes,
+                  "gathermv": gathermv.gather_block_scores, "binary": binary.binary_scores,
+                  "binary_blocks": binary.binary_block_scores, "binary_group": binary.group_probes}
+    for w in wrappers18.values():
+        w.launches = 0
+    log(f"[18] search programs: each table's program replayed (a CUDA graph) against its body "
+        f"run eagerly, on phase 3's and phase 4's tables, HNSWFLAT ef_s 100, IVFFLAT nprobe "
+        f"{ivf_op} and phase 10's binary table")
+    program_path(ms, dev, sift, sift_batches, gist, gist_batches, ivf_op, card, args.out)
+    program_binary_path(ms, bin_t, bin_batches, card, args.out)
+    bin_db.drop_table("bin")
+    del bin_t
+    p18 = {name: w.launches for name, w in wrappers18.items()}
+    log(f"  kernel launches on phase 18's paths: {p18}; phase 18 took "
+        f"{time.perf_counter() - t18:.2f} s")
+    for name, n in p18.items():
+        check(n > 0, f"kernel {name} was not launched on phase 18's paths")
+        launches[name] += n
 
     # ---- 11. the rest of Table and Database, with the launch counters zeroed
     t11 = time.perf_counter()

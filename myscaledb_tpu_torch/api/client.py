@@ -265,6 +265,7 @@ class Database:
             t = self._tables.pop(name, None)
         if t is not None:
             self.index_cache.expire_prefix((name,))
+            t._segments_changed()  # its search programs let go of its tensors
 
     def detach_table(self, name: str) -> None:
         """DETACH TABLE: remove from the registry without dropping data. A
@@ -285,6 +286,7 @@ class Database:
                 if self._detached.get(name) is t:
                     self._detached[name] = None  # ATTACH reloads it from disk
         self.index_cache.expire_prefix((name,))
+        t._segments_changed()  # its search programs let go of its tensors
 
     def attach_table(self, name: str) -> Table:
         """ATTACH TABLE: re-register a detached table, reloading it from its

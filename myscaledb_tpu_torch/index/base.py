@@ -2,7 +2,9 @@
 
 Counterpart of myscaledb_tpu/index/base.py. Indexes are plain classes
 holding tensors on their segment's device; there is no pytree
-registration and no jit. Search results use max-is-better scores
+registration and no jit: `search`, the standalone entry point, runs
+`search_t` as one program (search/program.py: a captured CUDA graph on
+the card). Search results use max-is-better scores
 (metrics.py); `mask` is the pre-filter ∩ delete bitmap (bool[capacity],
 True = searchable) applied INSIDE the search, never after.
 """
@@ -153,6 +155,26 @@ class VectorIndex(abc.ABC):
         mask: bool[capacity] True = searchable (pre-filter ∩ deletes),
         applied inside selection.
         """
+
+    def search(
+        self,
+        queries,
+        k: int,
+        *,
+        params: Optional[Dict[str, Any]] = None,
+        mask=None,
+        programs=None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Standalone entry point (the JAX package's jitted `search`):
+        `search_t` as one program, keyed by k, the params, the queries'
+        shape and type, the mask's kind and the index's tensors. queries:
+        [Q, D] on the index's device (or host data, uploaded); mask: None,
+        a bool[capacity] bitmap, a DeviceMask or a WindowMask. `programs`
+        is the cache to keep the program in (a table's; by default one on
+        the index). Returns copies (scores f32[Q, k], rows int32[Q, k])."""
+        from ..search.program import index_search
+
+        return index_search(self, queries, k, params=params, mask=mask, programs=programs)
 
     @classmethod
     def estimate_build_bytes(cls, payload, n_rows: int, params=None) -> int:

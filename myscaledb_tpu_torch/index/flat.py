@@ -82,6 +82,15 @@ class FlatIndex(VectorIndex):
             recall_target=self.recall_target,
         )
 
+    def search(self, queries, k, *, params=None, mask=None, programs=None):
+        """Over a host-tier payload the streamed scan runs eagerly, outside
+        any graph (its copy stream moves the rows); otherwise one program."""
+        if not self.host:
+            return super().search(queries, k, params=params, mask=mask, programs=programs)
+        from ..search.filters import as_mask_array
+
+        return self.search_t(queries, k, mask=as_mask_array(mask))
+
     @property
     def memory_bytes(self) -> int:
         # FLAT references the segment payload; only device auxiliaries count

@@ -603,7 +603,11 @@ class IVFIndex(VectorIndex):
         probe = torch.topk(cs, nprobe, dim=1).indices  # [Q, P]
 
         w_budget = int(min(self.n_windows + nprobe, nprobe * self.wpp + 4))
-        limit = None if dyn_nprobe is None else min(int(dyn_nprobe), nprobe)
+        limit = None
+        if isinstance(dyn_nprobe, torch.Tensor):  # a program's device scalar
+            limit = torch.clamp(dyn_nprobe, max=nprobe)
+        elif dyn_nprobe is not None:
+            limit = min(int(dyn_nprobe), nprobe)
         widx, valid_w = windows_for_probes(
             self.cluster_start, probe, self.n_windows, w_budget, limit=limit
         )
@@ -733,6 +737,21 @@ class IVFIndex(VectorIndex):
 
     def compute_scores_subset(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
         return self._exact_scores(queries, row_ids)
+
+    def search(self, queries, k, *, params=None, mask=None, programs=None):
+        """A disk-mode index searches eagerly in two stages: the SQ8 scan on
+        the device, then the exact re-rank against host rows, which no
+        graph can read (the JAX package's override of `search`). Otherwise
+        one program."""
+        if self.raw_host is None:
+            return super().search(queries, k, params=params, mask=mask, programs=programs)
+        ncand = min(max(k * self.rerank_multiple, k), self.n_rows)
+        _, r = self.search_first_stage(queries, ncand, params=params, mask=mask)
+        ev = self._exact_scores_host(queries, r)
+        v2, p2 = torch.topk(ev, min(k, ev.shape[-1]), dim=-1)
+        r2 = torch.gather(r, 1, p2)
+        r2 = torch.where(torch.isfinite(v2), r2, torch.full_like(r2, -1))
+        return _pad_cols(v2, r2, k)
 
     # -------------------------------------------------------------- misc
     @property

@@ -14,6 +14,7 @@ machine with no nvcc and no card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -196,17 +197,50 @@ def check_launch(name: str, err: int) -> None:
 
 
 _LAUNCH_COUNT_LOCK = threading.Lock()
+# the launches a thread records instead of counting (`recording_launches`)
+_RECORDING = threading.local()
 
 
 def count_launch(wrapper, f32: bool = False) -> None:
     """Add one to a kernel wrapper's `launches` counter, and to its
     `launches_f32` counter when the launch took the f32 engine (the scan
     kernels over an f32 payload). Builds launch kernels on the
-    scheduler's threads too, so the add takes a lock."""
+    scheduler's threads too, so the add takes a lock. While the calling
+    thread records (`recording_launches`: a CUDA graph's capture, or the
+    warm-up run before it), the launch is appended to the record instead:
+    a captured kernel runs only when the graph replays, and the replay
+    adds the record (`add_launches`)."""
+    record = getattr(_RECORDING, "launches", None)
+    if record is not None:
+        record.append((wrapper, f32))
+        return
     with _LAUNCH_COUNT_LOCK:
         wrapper.launches += 1
         if f32:
             wrapper.launches_f32 += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's `count_launch` calls append
+    (wrapper, f32) to the yielded list instead of counting."""
+    prev = getattr(_RECORDING, "launches", None)
+    record: list = []
+    _RECORDING.launches = record
+    try:
+        yield record
+    finally:
+        _RECORDING.launches = prev
+
+
+def add_launches(record) -> None:
+    """Count the launches of a `recording_launches` record once each (a
+    graph replay runs every kernel its capture recorded)."""
+    with _LAUNCH_COUNT_LOCK:
+        for wrapper, f32 in record:
+            wrapper.launches += 1
+            if f32:
+                wrapper.launches_f32 += 1
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -12,11 +12,17 @@ reference's search-manager stack:
   disk-mode parts (Search::DiskIOManager)   -> host-tier segments: a streamed
                                                exact scan (stream_scan_topk)
 
-Where the JAX package runs one jitted program per query, the port issues
-one stream of eager launches on the segments' device: the query upload,
-the cast + pad + |q|^2, every segment's index search or scan, and the
-global merge.
-Results are lazy: tensors stay on the device until the caller reads them.
+As in the JAX package, the WHOLE query -- the cast and pad of the
+queries, every segment's index search or scan and the global merge -- is
+one program (`_fused_multi_search`): on a CUDA device one captured graph,
+replayed from search/program.py's cache per (k, params bucket, padded
+batch, the masks' kinds, the searchers and their tensors, the table's
+segment-set version). Outside it stay the query upload (through a pinned
+staging buffer), one copy per mask and one copy of the packed outputs.
+Results are lazy: that copy stays on the device until the caller reads
+it. The two-stage path (first passes, a global cut, the exact re-rank)
+and host-tier scans stay eager, as in the JAX package; their plain
+segments call `VectorIndex.search`, a program of its own.
 
 Labels stay segment-local; a global hit is (segment_id, row_id, score).
 """
@@ -40,17 +46,20 @@ from ..service.event_log import GLOBAL_COUNTERS
 from ..service.tracing import span
 from ..storage.schema import BinaryVector
 from .filters import DeviceMask, Expr, Lambda, WindowMask, as_mask_array
+from .program import Program, label_of, mask_argument, mask_spec, materialize_mask, signature
 
 
 class SearchResult:
     """Global top-k for a batch of queries. Device-lazy: the (scores,
-    segment tag, row) tensors stay on the device until first host access."""
+    segment tag, row) tensors stay on the device until first host access.
+    `device` is that tuple, or one int32[3, Q, k] tensor (`pack_result`):
+    the scores' bits, the tags and the rows, read back in one copy."""
 
     def __init__(
         self,
         metric: Metric,
         *,
-        device: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+        device=None,
         seg_ids: Optional[np.ndarray] = None,
         host: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
         nq: int,
@@ -58,6 +67,9 @@ class SearchResult:
         query_sqnorm: Optional[np.ndarray] = None,
     ):
         self.metric = metric
+        self._packed = device if isinstance(device, torch.Tensor) else None
+        if self._packed is not None:
+            device = (self._packed[0].view(torch.float32), self._packed[1], self._packed[2])
         self._device = device
         self._seg_ids = seg_ids
         self._host = host
@@ -81,7 +93,11 @@ class SearchResult:
 
     def _materialize(self):
         if self._host is None:
-            vals, tags, rows = (t[: self.nq].cpu().numpy() for t in self._device)
+            if self._packed is not None:
+                packed = self._packed.cpu().numpy()[:, : self.nq]
+                vals, tags, rows = packed[0].view(np.float32), packed[1], packed[2]
+            else:
+                vals, tags, rows = (t[: self.nq].cpu().numpy() for t in self._device)
             rows = rows.astype(np.int32)
             segs = np.where(tags >= 0, self._seg_ids[np.maximum(tags, 0)], -1)
             self._host = (vals, segs.astype(np.int64), rows)
@@ -144,6 +160,37 @@ def _merge_tagged_body(vals_t, rows_t, k, *, stable: bool = False):
     return mv, mt, mr
 
 
+def pack_result(mv: torch.Tensor, mt: torch.Tensor, mr: torch.Tensor) -> torch.Tensor:
+    """int32[3, Q, k]: a global top-k's scores (their bits), tags and rows
+    in one buffer, copied and read back in one launch each."""
+    return torch.stack([mv.contiguous().view(torch.int32), mt.to(torch.int32), mr.to(torch.int32)])
+
+
+def _fused_multi_search(queries, searchers, masks, k, pkey, nq_pad, dpad, binary,
+                        dyn_nprobe=None):
+    """One program: the cast + pad of the raw queries, every segment's
+    top-k and the global merge (the JAX package's `_fused_multi_search`).
+
+    queries: the raw batch [nq_pad, dim] (f32, or packed u8 bits with dpad
+    its byte count), padded here to [nq_pad, dpad]. searchers: an index, or
+    an exact scan, per segment; masks: what each one's `search_t` takes
+    (None, a bool[capacity] bitmap or a prebuilt WindowMask). dyn_nprobe:
+    the actual nprobe (a device scalar) beside the params' pow2 bucket.
+    Returns `pack_result` of (vals f32[Q,k], tag int32[Q,k] -- position in
+    `searchers`, rows int32[Q,k])."""
+    q = queries if binary else queries.to(torch.float32)
+    q = tnf.pad(q, (0, dpad - q.shape[1], 0, nq_pad - q.shape[0])).contiguous()
+    vs, rs = [], []
+    for s, m in zip(searchers, masks):
+        kw = {}
+        if dyn_nprobe is not None and getattr(s, "supports_dyn_nprobe", False):
+            kw["dyn_nprobe"] = dyn_nprobe
+        v, r = s.search_t(q, k, mask=_resolve_mask(m), params=pkey, **kw)
+        vs.append(v)
+        rs.append(r)
+    return pack_result(*_merge_tagged_body(tuple(vs), tuple(rs), k))
+
+
 def merge_tagged_topk(vals_t, rows_t, k):
     """The global tagged merge for host callers (the text path), with
     exact ties ordered as the JAX package's `merge_tagged_topk` orders
@@ -166,9 +213,9 @@ def _as_query_batch(query, dim: int):
 
 
 def _prep_queries(q: np.ndarray, nq_pad: int, dpad: int, device) -> torch.Tensor:
-    """Upload the raw batch once and pad it to [nq_pad, dpad] (f32, or
-    packed u8 bits with dpad = the row's byte count) on the device (the
-    JAX package folds the same cast + pad into its program)."""
+    """The two-stage path's queries: the raw batch uploaded once and
+    padded to [nq_pad, dpad] (f32, or packed u8 bits with dpad = the row's
+    byte count) on the device, as the JAX package's `_prep_query`."""
     qd = torch.from_numpy(q).to(device)
     return tnf.pad(qd, (0, dpad - q.shape[1], 0, nq_pad - q.shape[0])).contiguous()
 
@@ -330,6 +377,7 @@ class VectorSearchExecutor:
             qh, nq, qsq = _as_query_batch(query, vtype.dim)
         GLOBAL_COUNTERS.bump("VectorSearchQueries", nq)
 
+        version = t.segment_version  # read before the segments: see ProgramCache.get
         segments = t.live_segments()
         if not segments:
             return SearchResult.empty(metric, nq, k, qsq)
@@ -342,6 +390,7 @@ class VectorSearchExecutor:
         masks: List[Any] = []
         seg_ids: List[int] = []
         first_stage: List[Tuple[int, VectorIndex, Any]] = []
+        host_scans: List[Tuple[int, VectorIndex, Any]] = []
         for seg in segments:
             fexpr = filter
             if filter is not None and st.query.optimize_prefilter_in_search:
@@ -415,33 +464,61 @@ class VectorSearchExecutor:
                 GLOBAL_COUNTERS.bump("VectorBruteForceSearches")
             else:
                 GLOBAL_COUNTERS.bump("VectorIndexSearches")
+            if isinstance(idx, FlatIndex) and idx.host:
+                # beyond-HBM tier: the streamed exact scan, eager
+                host_scans.append((seg.segment_id, idx, mask))
+                continue
             searchers.append(idx)
             masks.append(mask)
             seg_ids.append(seg.segment_id)
 
-        if not searchers and not first_stage:  # every segment const-folded away or skipped
+        if not searchers and not first_stage and not host_scans:
+            # every segment const-folded away or skipped
             return SearchResult.empty(metric, nq, k, qsq)
 
-        queries = _prep_queries(qh, nq_pad, dpad, segments[0].device)
-        if first_stage:
+        dev = segments[0].device
+        if first_stage or host_scans:
             return self._two_stage_run(
-                first_stage, searchers, masks, seg_ids, queries, nq, qsq, k, metric, st, params
+                first_stage, host_scans, searchers, masks, seg_ids,
+                _prep_queries(qh, nq_pad, dpad, dev), nq, qsq, k, metric, st, params,
             )
         # the IVF probe list is sized from nprobe's pow2 bucket, the actual
-        # nprobe masks the probes past it (base.split_dyn_nprobe)
+        # nprobe masks the probes past it (base.split_dyn_nprobe): a device
+        # scalar of the program, not a key
         bucketed, dyn_np = split_dyn_nprobe(pkey)
-        vs, rs = [], []
-        for s, m in zip(searchers, masks):
-            kw = {}
-            if dyn_np is not None and getattr(s, "supports_dyn_nprobe", False):
-                kw["dyn_nprobe"] = dyn_np
-            v, r = s.search_t(queries, k, mask=_resolve_mask(m), params=bucketed, **kw)
-            vs.append(v)
-            rs.append(r)
-        mv, mt, mr = _merge_tagged_body(tuple(vs), tuple(rs), k)
+        if not any(getattr(s, "supports_dyn_nprobe", False) for s in searchers):
+            dyn_np = None
+        mats = [materialize_mask(m) for m in masks]
+        specs = tuple(mask_spec(m) for m in mats)
+        refs: List[torch.Tensor] = []
+        key = (
+            "fused", k, bucketed, nq_pad, dpad, tuple(qh.shape[1:]), is_binary, specs,
+            tuple(signature(s, refs) for s in searchers), dyn_np is not None, version,
+        )
+        kinds = [None if sp is None else sp[0] for sp in specs]
+        found = tuple(searchers)
+
+        def body(q, mbufs, dyn):
+            return _fused_multi_search(
+                q, found, [mask_argument(kd, b) for kd, b in zip(kinds, mbufs)], k, bucketed,
+                nq_pad, dpad, is_binary, dyn,
+            )
+
+        def make():
+            return Program(
+                body, device=dev, query=((nq_pad,) + tuple(qh.shape[1:]),
+                                         torch.from_numpy(qh[:0]).dtype),
+                masks=[None if sp is None else (sp[1], sp[2]) for sp in specs],
+                dyn=dyn_np is not None, out_shape=(3, nq_pad, k),
+                label=label_of(found), refs=refs,
+            )
+
+        packed = t._programs.get(key, make, version).run(
+            qh, [None if m is None else m[1] for m in mats], dyn_np
+        )
         return SearchResult(
             metric,
-            device=(mv, mt, mr),
+            device=packed,
             seg_ids=np.asarray(seg_ids, dtype=np.int64),
             nq=nq,
             k=k,
@@ -450,32 +527,38 @@ class VectorSearchExecutor:
 
     # ------------------------------------------------------------ two-stage
     def _two_stage_run(
-        self, first_stage, searchers, masks, seg_ids, queries, nq, qsq, k, metric, st, params
+        self, first_stage, host_scans, searchers, masks, seg_ids, queries, nq, qsq, k, metric,
+        st, params,
     ) -> SearchResult:
-        """Two-stage search: the first pass of every two-stage index
+        """Two-stage search, eager as in the JAX package: the host-tier
+        segments' streamed scans, the first pass of every two-stage index
         (`search_first_stage`, k * two_stage_num_reorder_multiple
         candidates each), one global candidate cut over all of them, the
         exact re-rank of the survivors (`compute_scores_subset`); the other
-        segments are searched as usual (at the actual nprobe) and merged
-        in."""
-        pkey = params_key(params)
+        segments are searched as usual (`VectorIndex.search`, at the actual
+        nprobe: a program each) and merged in."""
         mult = st.query.two_stage_num_reorder_multiple
         per: List[Tuple[int, torch.Tensor, torch.Tensor]] = []
+        for seg_id, idx, mask in host_scans:
+            v, r = idx.search(queries, k, params=params, mask=mask)
+            per.append((seg_id, v, r))
         cand = []
         for seg_id, idx, mask in first_stage:
             ncand = min(max(k * mult, k), idx.n_rows)
             v, r = idx.search_first_stage(queries, ncand, params=params, mask=mask)
             cand.append((seg_id, idx, v, r))
-        all_vals = torch.cat([v for _, _, v, _ in cand], dim=-1)
-        ncut = min(all_vals.shape[-1], max(k * mult, k))
-        cut = torch.topk(all_vals, ncut, dim=-1).values[:, -1:]
+        if cand:
+            all_vals = torch.cat([v for _, _, v, _ in cand], dim=-1)
+            ncut = min(all_vals.shape[-1], max(k * mult, k))
+            cut = torch.topk(all_vals, ncut, dim=-1).values[:, -1:]
         for seg_id, idx, v, r in cand:
             rows_kept = torch.where(v >= cut, r, torch.full_like(r, -1))
             exact = idx.compute_scores_subset(queries, rows_kept)
             v2, p2 = torch.topk(exact, min(k, exact.shape[-1]), dim=-1)
             per.append((seg_id, v2, torch.gather(rows_kept, -1, p2)))
         for idx, mask, sid in zip(searchers, masks, seg_ids):
-            v, r = idx.search_t(queries, k, mask=_resolve_mask(mask), params=pkey)
+            v, r = idx.search(queries, k, params=params, mask=mask,
+                              programs=self.table._programs)
             per.append((sid, v, r))
         kk = min(k, sum(v.shape[-1] for _, v, _ in per))
         mv, mt, mr = _merge_tagged_body(
@@ -483,7 +566,7 @@ class VectorSearchExecutor:
         )
         return SearchResult(
             metric,
-            device=(mv, mt, mr),
+            device=pack_result(mv, mt, mr),
             seg_ids=np.asarray([s for s, _, _ in per], dtype=np.int64),
             nq=nq,
             k=kk,

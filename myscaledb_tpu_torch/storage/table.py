@@ -62,6 +62,7 @@ from ..index.base import IndexDescription, IndexStatus, VectorIndex
 from ..index.decoupled import DecoupledIndex
 from ..metrics import Metric
 from ..search.executor import SearchResult, VectorSearchExecutor
+from ..search.program import ProgramCache
 from ..search.filters import Expr
 from ..service.event_log import GLOBAL_COUNTERS, GLOBAL_QUERY_LOG, EventLog, EventType
 from ..service.tracing import span
@@ -166,6 +167,9 @@ class Table:
         self._slots: Dict[tuple, IndexSlot] = {}  # (segment_id, index_name)
         self._text_indexes: Dict[str, Any] = {}  # name -> TextIndexDefinition
         self._executor = VectorSearchExecutor(self)
+        # the search programs over this table's segments (one CUDA graph
+        # each on the card); dropped whenever the segment set changes
+        self._programs = ProgramCache()
         # Commit listeners, called after a local commit (insert / deletes /
         # mutate / merge / truncate) outside the table's locks: the hook
         # data replication publishes through (the ReplicatedMergeTree
@@ -179,6 +183,21 @@ class Table:
         # unless force=True: the leader-assigned merge (the reference's ZK
         # merge assignment)
         self.merge_gate: Optional[Any] = None
+
+    @property
+    def segment_version(self) -> int:
+        """Moves on with every change of the segment set, its deletes, its
+        filterable columns or its indexes (`_segments_changed`)."""
+        return self._programs.version
+
+    def _segments_changed(self) -> None:
+        """Drop the cached search programs: a graph bakes in the tensors it
+        reads and keeps them alive, so a dropped segment's or index's bytes
+        would otherwise stay on the device, unseen by the memory governor.
+        Called after every insert (and its spill), delete, UPDATE, ALTER,
+        merge, truncate, index build, load, drop or cache eviction; the
+        database calls it on DROP and DETACH."""
+        self._programs.invalidate()
 
     def add_commit_listener(self, fn) -> None:
         self._commit_listeners.append(fn)
@@ -224,6 +243,7 @@ class Table:
             self._segments[seg.segment_id] = seg
             descs = list(self._index_descs.values())
             tdefs = list(self._text_indexes.values())
+        self._segments_changed()
         for desc in descs:
             self._schedule_build(seg, desc)
         for tdef in tdefs:
@@ -269,6 +289,8 @@ class Table:
                         tdef.on_new_segment(seg)
                 n += len(rows)
                 touched.append(seg)
+        if touched:
+            self._segments_changed()
         GLOBAL_COUNTERS.bump("MutatedRows", n)
         for seg in touched:
             self._notify_commit("mutate", segment=seg)
@@ -286,6 +308,8 @@ class Table:
                     touched.append(seg)
                     for tdef in list(self._text_indexes.values()):
                         tdef.on_deletes(seg)
+        if touched:
+            self._segments_changed()
         GLOBAL_COUNTERS.bump("DeletedRows", n)
         for seg in touched:
             self._notify_commit("deletes", segment=seg)
@@ -314,6 +338,7 @@ class Table:
                 seg.mutation_generation += 1
             self.schema.columns[name] = coltype
             self._winners_cache = None
+        self._segments_changed()
 
     def drop_column(self, name: str) -> None:
         """ALTER TABLE DROP COLUMN (scalar, not an engine column, not under
@@ -335,6 +360,7 @@ class Table:
                 seg.scalars.pop(name, None)
                 seg.mutation_generation += 1
             self._winners_cache = None
+        self._segments_changed()
 
     # -------------------------------------------------------------- index
     def add_vector_index(
@@ -389,6 +415,7 @@ class Table:
                 del self._slots[key]
         if self._index_cache is not None:
             self._index_cache.expire_prefix((self.name, name))
+        self._segments_changed()
         self.event_log.record(self.name, name, desc.column, EventType.DEFINITION_DROPPED)
 
     def _is_small(self, n_rows: int, desc: IndexDescription) -> bool:
@@ -496,6 +523,7 @@ class Table:
                 slot.status = IndexStatus.LOADED
                 slot.elapsed_s = elapsed
                 slot.error = ""
+            self._segments_changed()
             if self._index_cache is not None:
                 self._index_cache.put(
                     (self.name, desc.name, seg.segment_id), instance, instance.memory_bytes
@@ -605,6 +633,7 @@ class Table:
                 slot.instance = inst
                 slot.status = IndexStatus.LOADED
                 slot.path = path
+            self._segments_changed()
             if self._index_cache is not None:
                 self._index_cache.put(
                     (self.name, desc.name, seg.segment_id), inst, inst.memory_bytes
@@ -652,6 +681,7 @@ class Table:
         self._reattach(instance, seg, desc)
         with self._lock:
             self._slots[(segment_id, name)] = IndexSlot(IndexStatus.LOADED, instance)
+        self._segments_changed()
         if self._index_cache is not None:
             self._index_cache.put((self.name, name, segment_id), instance, instance.memory_bytes)
         self.event_log.record(
@@ -794,6 +824,7 @@ class Table:
             slot.instance = None
             slot.status = IndexStatus.BUILT
             desc = self._index_descs.get(index_name)
+        self._segments_changed()
         if desc is not None:
             self.event_log.record(
                 self.name, index_name, desc.column, EventType.CACHE_EXPIRE,
@@ -1466,6 +1497,7 @@ class Table:
         for desc in plain_descs:
             self._schedule_build(new_seg, desc)
         self._forget_segments(ids)
+        self._segments_changed()
         GLOBAL_COUNTERS.bump("SegmentMerges")
         # row maps (source row -> merged row, -1 dropped) let replication
         # compose per-origin row provenance through the merge
@@ -1497,6 +1529,7 @@ class Table:
                 for key in [k for k in self._slots if k[0] == i]:
                     del self._slots[key]
         self._forget_segments(segment_ids)
+        self._segments_changed()
 
     def _forget_segments(self, segment_ids: List[int]) -> None:
         """Drop what the fts stores and the index cache hold of removed

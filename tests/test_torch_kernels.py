@@ -746,3 +746,171 @@ def test_approx_bin_max_wrapper_rejects_what_the_kernel_does_not_take(cuda_devic
         topk.approx_bin_max(s, 1_001)
     with pytest.raises(ValueError):
         topk.approx_bin_max(s.T.contiguous().T, 128)  # columns not of unit stride
+
+
+# ------------------------------------------------ search programs (graphs)
+def _program_index(device, kind, metric, n, d=128, seed=0):
+    """A port index of `kind` built on `device` over n clustered rows, its
+    padded queries and a mask over its segment's capacity."""
+    from myscaledb_tpu_torch.index import registry
+    from myscaledb_tpu_torch.index.base import IndexKind
+    from myscaledb_tpu_torch.index.flat import FlatIndex
+
+    rng = np.random.default_rng(seed)
+    centers = 6.0 * rng.standard_normal((40, d)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 40, n)] + rng.standard_normal((n, d))).astype(np.float32)
+    seg = Segment.from_columns(0, Schema({"id": UInt64(), "vec": FloatVector(d)}),
+                               {"id": np.arange(n, dtype=np.uint64), "vec": vecs}, device=device)
+    p = seg.vector("vec")
+    if kind.startswith("FLAT"):
+        idx = FlatIndex(p.data, p.aux_for(metric), metric=metric, dim=d, n_rows=n,
+                        approx=kind == "FLAT_APPROX", recall_target=0.95)
+    else:
+        extra = {"m": 16, "ef_c": 64} if kind.startswith("HNSW") else {"ncentroids": 64}
+        if kind in ("IVFPQ", "HNSWPQ"):
+            extra["M"] = 16
+        idx = registry.implementation(IndexKind(kind)).build(p, n, metric=metric, dim=d,
+                                                             params=extra)
+    q = torch.from_numpy(vecs[rng.choice(n, 16, replace=False)] + 0.1).to(device)
+    q = torch.nn.functional.pad(q, (0, p.data.shape[1] - d))
+    mask = torch.from_numpy(np.arange(seg.capacity) % 5 != 2).to(device)
+    return idx, q, mask
+
+
+PROGRAM_CASES = [
+    ("FLAT", Metric.L2, 20_000, {}),  # the score kernel
+    ("FLAT", Metric.COSINE, 20_000, {}),
+    ("FLAT_TILE", Metric.L2, 70_000, {}),  # capacity 81,920: tile_max
+    ("FLAT_APPROX", Metric.IP, 70_000, {}),  # approx_bin_max
+    ("IVFFLAT", Metric.L2, 20_000, {"nprobe": 4}),
+    ("IVFSQ", Metric.L2, 20_000, {"nprobe": 4}),
+    ("IVFPQ", Metric.L2, 20_000, {"nprobe": 4}),
+    ("MSTG", Metric.COSINE, 20_000, {"nprobe": 4}),
+    ("HNSWFLAT", Metric.L2, 20_000, {"ef_s": 64}),  # gathermv
+    ("HNSWSQ", Metric.L2, 20_000, {"ef_s": 64}),
+    ("HNSWPQ", Metric.L2, 20_000, {"ef_s": 64}),
+]
+
+
+def _replays_bit_for_bit(idx, q, mask, params):
+    from myscaledb_tpu_torch.index.base import params_key
+    from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
+
+    wrappers = (distance.scores, tilescan.tile_maxes, gathermv.gather_block_scores,
+                topk.approx_bin_max, binary.binary_scores, binary.binary_block_scores,
+                binary.group_probes)
+    caps = GLOBAL_COUNTERS.get("SearchProgramCaptures")
+    first = idx.search(q, 10, params=params, mask=mask)  # warm-up, capture, replay
+    before = [w.launches for w in wrappers]
+    again = idx.search(q, 10, params=params, mask=mask)  # a replay
+    replay = [w.launches - b for w, b in zip(wrappers, before)]
+    before = [w.launches for w in wrappers]
+    eager = idx.search_t(q, 10, mask=mask, params=params_key(params))
+    torch.cuda.synchronize()
+    assert replay == [w.launches - b for w, b in zip(wrappers, before)]  # the same launches
+    assert GLOBAL_COUNTERS.get("SearchProgramCaptures") - caps == 1
+    prog, = idx._programs.programs()
+    assert prog.graph is not None and prog.runs == 2
+    for got in (first, again):
+        assert torch.equal(got[1], eager[1].to(torch.int32))
+        assert torch.equal(got[0].view(torch.int32), eager[0].contiguous().view(torch.int32))
+    assert first[0].data_ptr() != again[0].data_ptr()  # each search its own copy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,metric,n,params", PROGRAM_CASES,
+                         ids=[f"{c[0]}-{c[1].value}" for c in PROGRAM_CASES])
+def test_program_replay_equals_the_eager_body(cuda_device, kind, metric, n, params):
+    idx, q, mask = _program_index(cuda_device, kind, metric, n)
+    _replays_bit_for_bit(idx, q, mask, params)
+
+
+@pytest.mark.cuda
+def test_decoupled_program_replay_equals_the_eager_body(cuda_device):
+    """A DecoupledIndex over two IVFFLAT sources (a merge's serving
+    window): the row maps put the second source's rows after the first's."""
+    from myscaledb_tpu_torch.index.decoupled import DecoupledIndex
+
+    a, q, cap_mask = _program_index(cuda_device, "IVFFLAT", Metric.L2, 20_000, seed=1)
+    b, _, _ = _program_index(cuda_device, "IVFFLAT", Metric.L2, 20_000, seed=2)
+    rows = torch.arange(cap_mask.shape[0], dtype=torch.int32, device=cuda_device)
+    maps = [torch.where(rows < 20_000, rows + off, torch.full_like(rows, -1))
+            for off in (0, 20_000)]
+    idx = DecoupledIndex([a, b], maps, metric=Metric.L2, dim=128, n_rows=40_000)
+    mask = torch.from_numpy(np.arange(40_960) % 7 != 3).to(cuda_device)
+    _replays_bit_for_bit(idx, q, mask, {"nprobe": 4})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["BinaryFLAT", "BinaryMSTG"])
+@pytest.mark.parametrize("metric", BIN_METRICS)
+def test_binary_program_replay_equals_the_eager_body(cuda_device, kind, metric):
+    from myscaledb_tpu_torch.index.binary import BinaryFlatIndex, BinaryMSTGIndex
+    from myscaledb_tpu_torch.storage.schema import BinaryVector
+
+    rng = np.random.default_rng(5)
+    n, dim = 70_000, 512
+    bits = np.packbits(rng.random((n, dim)) < 0.5, axis=1)
+    seg = Segment.from_columns(0, Schema({"id": UInt64(), "bv": BinaryVector(dim)}),
+                               {"id": np.arange(n, dtype=np.uint64), "bv": bits},
+                               device=cuda_device)
+    p = seg.vector("bv")
+    cls = BinaryFlatIndex if kind == "BinaryFLAT" else BinaryMSTGIndex
+    idx = cls.build(p, n, metric=metric, dim=dim, params={"ncentroids": 64})
+    q = torch.from_numpy(bits[:16]).to(cuda_device)
+    mask = torch.from_numpy(np.arange(seg.capacity) % 3 != 0).to(cuda_device)
+    _replays_bit_for_bit(idx, q, mask, {} if kind == "BinaryFLAT" else {"nprobe": 4})
+
+
+@pytest.mark.cuda
+def test_table_search_replays_the_fused_body(cuda_device):
+    """Table.search (two segments, one with IVFFLAT, a filter) against
+    `_fused_multi_search` run eagerly on the same searchers and masks."""
+    import myscaledb_tpu_torch as tms
+
+    st = tms.Settings()
+    st.table.min_rows_to_build_vector_index = 30_000
+    db = tms.connect(st, device=cuda_device)
+    t = db.create_table("t", tms.Schema({"id": tms.UInt64(), "vec": tms.FloatVector(128)}))
+    rng = np.random.default_rng(3)
+    vecs = rng.standard_normal((90_000, 128)).astype(np.float32)
+    t.insert({"id": np.arange(70_000, dtype=np.uint64), "vec": vecs[:70_000]})
+    t.insert({"id": np.arange(70_000, 90_000, dtype=np.uint64), "vec": vecs[70_000:]})
+    t.add_vector_index("i", "vec", type="IVFFLAT", ncentroids=64)
+    assert t.wait_index_built()
+    q = vecs[:20] + 0.1
+    for _ in range(2):
+        res = t.search("vec", q, k=10, params={"nprobe": 3},
+                       filter=(tms.F("id") < 60_000) | (tms.F("id") >= 75_000))
+    prog, = t._programs.programs()
+    assert prog.graph is not None and prog.dyn is not None
+    # the eager body over the program's own static inputs
+    packed = prog.body(prog.q, prog.masks, prog.dyn)
+    torch.cuda.synchronize()
+    assert torch.equal(packed[:, :20], res._packed[:, :20])
+    # every program dropped (the pool's other graphs gone): the next
+    # search captures into the same pool again
+    t._segments_changed()
+    del prog
+    again = t.search("vec", q, k=10, params={"nprobe": 3},
+                     filter=(tms.F("id") < 60_000) | (tms.F("id") >= 75_000))
+    assert torch.equal(again._packed, res._packed)
+    db.close()
+
+
+@pytest.mark.cuda
+def test_a_body_that_syncs_raises_at_capture(cuda_device):
+    from myscaledb_tpu_torch.index.flat import FlatIndex
+
+    class Syncing(FlatIndex):
+        def search_t(self, queries, k, *, mask=None, params=()):
+            if float(queries.abs().sum().item()) < 0:  # a host sync: capture refuses it
+                raise AssertionError
+            return super().search_t(queries, k, mask=mask, params=params)
+
+    idx, q, _ = _program_index(cuda_device, "FLAT", Metric.L2, 20_000)
+    bad = Syncing(idx.data, idx.aux, metric=idx.metric, dim=idx.dim, n_rows=idx.n_rows)
+    with pytest.raises(RuntimeError, match="FLAT failed to capture"):
+        bad.search(q, 10)
+    torch.cuda.synchronize()
+    assert idx.search(q, 10)[1].shape == (16, 10)  # the card still serves
