@@ -228,10 +228,15 @@ of the JAX package. Phases, each of which raises on failure:
      calls, kernels, device ms and busy share a search (torch.profiler)
      and the median QPS of 5 one-pass rounds run in turns; captures,
      replays and the recapture after a mutation (an ADD / DROP COLUMN
-     pair, or a delete). 18g, inside 14d: the server's sync 8 and async
+     pair, or a delete). 18h-k, on phase 9's table: text BM25 over the
+     3-word and the 8-word batches, hybrid RRF and RSF (a hybrid search
+     replays three programs: vector, text, fuse), at most 8 / 16 host
+     launch-API calls a search, no host sync inside one, and the graph
+     pool's reserved bytes. 18g, inside 14d: the server's sync 8 and async
      64 points, 5 one-second windows a path in turns, every response
      against the exact oracle. `--programs-only` runs phases 1, 3, 4 and
-     18 (IVFFLAT at nprobe 2, its own binary table, 18g on its own server).
+     18 (IVFFLAT at nprobe 2, its own binary table, phase 9's table
+     without phase 9's checks, 18g on its own server).
 
 Each path's launch counters are zeroed just before it is driven and read
 just after: score and tile_max over phases 3-4, gathermv over phase 6, all
@@ -1887,19 +1892,12 @@ def numpy_fuse(vres, tres, k, fusion_type, fusion_k=HYBRID_FUSION_K, weight=HYBR
     return out_v, out_s, out_r
 
 
-def text_path(ms, dev, card, args, db):
-    """Phase 9: full-text and hybrid search on a 1,000,000 + 50,000-row
-    table "hybrid" in `db` with `body String` (bench.py's 12-word
-    documents) and `vec FloatVector(128)` (phase 3's corpus), through
-    add_fts_index, insert, text_search and hybrid_search. Returns the
-    launch counts, the table (phase 14 searches it, then drops it), the
-    vector and text query batches and the f64 BM25 oracle."""
-    import torch
-
-    from myscaledb_tpu_torch import F
-    from myscaledb_tpu_torch.ops import distance, tilescan
-    from myscaledb_tpu_torch.text import inverted
-
+def text_table(ms, dev, card, db):
+    """Phase 9's table: "hybrid" in `db`, 1,000,000 + 50,000 rows with
+    `body String` (bench.py's 12-word documents) and `vec
+    FloatVector(128)` (phase 3's corpus), its fts index "ft", and the
+    query batches (3-word `tb`, 8-word `lb`, 2-word `pb`, vectors `vb`).
+    Returns (table, docs, the rng after the queries, tb, lb, pb, vb)."""
     n_all = SIFT_N + SIFT_SMALL_N
     t0 = time.perf_counter()
     docs, rng = text_corpus(n_all)
@@ -1917,20 +1915,13 @@ def text_path(ms, dev, card, args, db):
     sync(dev)
     t3 = time.perf_counter()
     tdef = t._text_indexes["ft"]
-    segs = t.live_segments()
-    stores = [tdef.store(s.segment_id) for s in segs]
+    stores = [tdef.store(s.segment_id) for s in t.live_segments()]
     log(f"  documents and vectors made in {t1 - t0:.2f} s, insert {t2 - t1:.2f} s; fts build "
         f"{t3 - t2:.2f} s by the {stores[0].builder} builder ({[s.builder for s in stores]}; "
         f"postings {[int(s.postings_rows.numel()) for s in stores]}, vocabulary "
         f"{[len(s.vocab) for s in stores]})  [{card}]")
     check(all(s.builder == "native" for s in stores) or all(s.builder == "python" for s in stores),
           "the stores were built by different builders")
-    t0 = time.perf_counter()
-    oracle = Bm25Oracle(docs)
-    log(f"  f64 BM25 oracle from the {n_all:,} documents' whitespace tokens: "
-        f"{len(oracle.index):,} terms, {oracle.rows.size:,} postings, average length "
-        f"{oracle.avg_len:.4f} ({time.perf_counter() - t0:.2f} s)")
-
     words = [f"term{i}" for i in range(TEXT_VOCAB)]
     picks = rng.integers(0, TEXT_VOCAB, (TEXT_NQ, TEXT_LONG_WORDS))
     texts = [" ".join(words[j] for j in r[:3]) for r in picks]
@@ -1942,12 +1933,38 @@ def text_path(ms, dev, card, args, db):
     lb = [longs[i : i + TEXT_BATCH] for i in range(0, TEXT_NQ, TEXT_BATCH)]
     pb = [pairs[i : i + TEXT_BATCH] for i in range(0, TEXT_NQ, TEXT_BATCH)]
     vb = [vq[i : i + TEXT_BATCH] for i in range(0, TEXT_NQ, TEXT_BATCH)]
-    stats = tdef.merged_stats([s.segment_id for s in segs])
+    stats = tdef.merged_stats([s.segment_id for s in t.live_segments()])
     routes = [(s.plan_batch(tb[0], stats=stats)[3], s.plan_batch(lb[0], stats=stats)[3])
               for s in stores]
     log(f"  BM25 routes (3-word, 8-word queries) per segment: {routes}")
     check(routes[0] == ("sparse", "dense") and routes[1] == ("dense", "dense"),
           f"the 1M store must take the sparse path for 3-word queries only: {routes}")
+    return t, docs, rng, tb, lb, pb, vb
+
+
+def text_path(ms, dev, card, args, db):
+    """Phase 9: full-text and hybrid search on phase 9's table
+    (`text_table`) through add_fts_index, insert, text_search and
+    hybrid_search. Returns the launch counts, the table (phase 14 searches
+    it, then drops it), the vector and text query batches (3-word and
+    8-word) and the f64 BM25 oracle."""
+    import torch
+
+    from myscaledb_tpu_torch import F
+    from myscaledb_tpu_torch.ops import distance, tilescan
+    from myscaledb_tpu_torch.text import inverted
+
+    n_all = SIFT_N + SIFT_SMALL_N
+    t, docs, rng, tb, lb, pb, vb = text_table(ms, dev, card, db)
+    tdef = t._text_indexes["ft"]
+    segs = t.live_segments()
+    stores = [tdef.store(s.segment_id) for s in segs]
+    t0 = time.perf_counter()
+    oracle = Bm25Oracle(docs)
+    log(f"  f64 BM25 oracle from the {n_all:,} documents' whitespace tokens: "
+        f"{len(oracle.index):,} terms, {oracle.rows.size:,} postings, average length "
+        f"{oracle.avg_len:.4f} ({time.perf_counter() - t0:.2f} s)")
+    stats = tdef.merged_stats([s.segment_id for s in segs])
 
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
@@ -2061,7 +2078,7 @@ def text_path(ms, dev, card, args, db):
         profile_cells([("text_bm25", text, tb), ("hybrid_rrf", hybrid, pairs_h, TEXT_BATCH)],
                       PROFILE_RUNS, args.out, card)
     launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
-    return launches, t, vb, tb, oracle
+    return launches, t, vb, tb, lb, oracle
 
 
 # ---------------------------------------------------------------- phase 10
@@ -5247,10 +5264,11 @@ def approx_text_path(t, oracle, tb, card):
 @contextlib.contextmanager
 def eager_bodies():
     """While open, every search program (search/program.py) runs its body
-    -- the module-level `_fused_multi_search` -- eagerly on the card
-    through the same static buffers and output copy instead of replaying
-    its graph: the eager side of phase 18's comparison, made here and
-    nowhere in the package (the package has no such setting)."""
+    -- `_fused_multi_search`, a text search's stores and merge, the
+    hybrid fuse, the phrase counts -- eagerly on the card through the same
+    static buffers and output copy instead of replaying its graph: the
+    eager side of phase 18's comparison, made here and nowhere in the
+    package (the package has no such setting)."""
     import torch
 
     from myscaledb_tpu_torch.search import program
@@ -5326,28 +5344,34 @@ def one_pass_seconds(search, batches):
 
 
 def program_cells(cells, card, out_dir):
-    """Phase 18 over `cells` of (label, search, batches, mutate): each
-    batch through the table's program (a graph replay) and through the
-    same program's body run eagerly (`eager_bodies`), bit for bit; per
+    """Phase 18 over `cells` of (label, search, batches, mutate[, opts]):
+    each batch through the table's program (a graph replay) and through
+    the same program's body run eagerly (`eager_bodies`), bit for bit; per
     search for both paths the host launch-API calls, the kernels, device
     ms and busy share (device ms over the median unprofiled pass), and the
     median one-pass QPS of PROGRAM_ROUNDS passes, run in turns (graph,
     eager, eager, graph, ...); the captures and replays of the first pass,
     then `mutate()` (which moves the table's segment-set version without
-    changing its rows) and the recapture it costs. Returns {label: the
-    numbers}."""
+    changing its rows) and the recapture it costs. `opts`: "programs" a
+    search replays (1), the "recaptures" after the mutation (1), and the
+    most host launch-API calls a replayed search may make ("max_api",
+    None: no limit). Returns {label: the numbers}."""
     import statistics
 
     out = {}
-    for label, search, batches, mutate in cells:
-        nb, nq = len(batches), sum(len(qb) for qb in batches)
+    for label, search, batches, mutate, *rest in cells:
+        opts = {"programs": 1, "recaptures": 1, "max_api": None, **(rest[0] if rest else {})}
+        # a hybrid cell's batch is a (vectors, texts) pair
+        nb = len(batches)
+        nq = sum(len(qb[0]) if isinstance(qb, tuple) else len(qb) for qb in batches)
         c0 = program_counters()
         graph = [search(qb) for qb in batches]
         first = counter_delta(c0)
         with eager_bodies():
             eager = [search(qb) for qb in batches]
         same_packed(label, graph, eager)
-        check(first["Replays"] == nb, f"{label}: the first pass made {first}, not {nb} replays")
+        check(first["Replays"] == opts["programs"] * nb,
+              f"{label}: the first pass made {first}, not {opts['programs'] * nb} replays")
         walls = {"graph": [], "eager": []}
         for r in range(PROGRAM_ROUNDS):
             for side in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
@@ -5379,9 +5403,13 @@ def program_cells(cells, card, out_dir):
             after_eager = search(batches[0])
         same_packed(f"{label} after the mutation", [after], [after_eager])
         re = counter_delta(c2)
-        check(re["Captures"] == 1, f"{label}: the search after a mutation made {re}")
+        check(re["Captures"] == opts["recaptures"],
+              f"{label}: the search after a mutation made {re}, not {opts['recaptures']} captures")
         g, e = stats["graph"], stats["eager"]
-        check(g["graph_launches"] >= 1, f"{label}: the profiled graph pass launched no graph")
+        check(g["graph_launches"] >= opts["programs"],
+              f"{label}: the profiled graph pass launched {g['graph_launches']} graphs a search")
+        check(opts["max_api"] is None or g["api"] <= opts["max_api"],
+              f"{label}: {g['api']:.1f} host launch-API calls a search, more than {opts['max_api']}")
         for side, st in stats.items():
             log(f"  {label} {side:>5}: {st['api']:.1f} host launch-API calls / search "
                 f"({st['graph_launches']:.0f} graph launches), {st['kernels']:.1f} kernels / "
@@ -5456,6 +5484,91 @@ def program_binary_path(ms, t, batches, card, out_dir):
         ("binary_rows", lambda qb: t.search("bv", qb, k=K, metric="Jaccard"), batches, delete),
         ("binary_mstg", lambda qb: t.search("bv", qb, k=K), batches, delete),
     ], card, out_dir)
+
+
+def graph_pool_bytes(device):
+    """(reserved, allocated) bytes of the device's graph pool
+    (search/program.py: every program of a device captures into it), from
+    a memory snapshot: its segments, and the blocks the live graphs hold;
+    None off the card."""
+    import torch
+
+    from myscaledb_tpu_torch.search import program
+
+    if device.type != "cuda":
+        return None
+    pool = tuple(program._device_state(program.normalize_device(device)).pool)
+    segs = [s for s in torch.cuda.memory._snapshot()["segments"]
+            if tuple(s.get("segment_pool_id", ())) == pool]
+    return sum(s["total_size"] for s in segs), sum(s["allocated_size"] for s in segs)
+
+
+TEXT_MAX_API = 8  # host launch-API calls a replayed text search may make
+HYBRID_MAX_API = 16  # and a hybrid one (the vector, text and fuse programs)
+
+
+def program_text_path(ms, t, vb, tb, lb, here, card, out_dir):
+    """18h-k, on phase 9's table before it is dropped: text BM25 over the
+    3-word batches (the sparse route on the 1M store, dense on the 50k),
+    over the 8-word ones (dense on both), hybrid RRF and hybrid RSF, each
+    a program (a hybrid search three: the vector, text and fuse programs).
+    The mutation is an ADD COLUMN and DROP COLUMN pair: the text program
+    recaptures, and a hybrid search's vector program too (the fuse reads
+    no table). Also logs the host syncs inside one text and one hybrid
+    search and the graph pool's reserved bytes before and after."""
+    import torch
+
+    from myscaledb_tpu_torch.search import text_executor
+
+    def alter():
+        t.add_column("p18", ms.Int32())
+        t.drop_column("p18")
+
+    pairs = list(zip(vb, tb))
+    text = {"max_api": TEXT_MAX_API}
+    hyb = {"programs": 3, "recaptures": 2, "max_api": HYBRID_MAX_API}
+    device = t.live_segments()[0].device
+    # the graphs' own bytes: the pool's allocated blocks across one capture
+    # of each text program, made afresh
+    t._text_programs.invalidate()
+    pools = [graph_pool_bytes(device)]
+    for qb in (lb[0], tb[0]):
+        t.text_search("body", qb, k=K)
+        pools.append(graph_pool_bytes(device))
+    if pools[0] is not None:
+        log(f"  the graph pool (reserved, allocated bytes): {pools[0]} with no text program, "
+            f"{pools[1]} after capturing the 8-word one (dense on both stores: "
+            f"{pools[1][1] - pools[0][1]:+,} allocated), {pools[2]} after the 3-word one "
+            f"(sparse on the 1M store: {pools[2][1] - pools[1][1]:+,})  [{card}]")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    out = {}
+    for cell in [
+        ("text_3word", lambda qb: t.text_search("body", qb, k=K), tb, alter, text),
+        ("text_8word", lambda qb: t.text_search("body", qb, k=K), lb, alter, text),
+        ("hybrid_rrf", lambda p: t.hybrid_search("vec", "body", p[0], p[1], k=K,
+                                                 fusion_type="rrf"), pairs, alter, hyb),
+        ("hybrid_rsf", lambda p: t.hybrid_search("vec", "body", p[0], p[1], k=K,
+                                                 fusion_type="rsf"), pairs, alter, hyb),
+    ]:
+        pool0 = graph_pool_bytes(device)
+        out.update(program_cells([cell], card, out_dir))
+        log(f"  {cell[0]}: the graph pool (reserved, allocated bytes) {pool0} before the cell, "
+            f"{graph_pool_bytes(device)} after  [{card}]")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_reserved()
+    log(f"  18h-k: the caching allocator's reserved bytes {before:,} before the text cells, "
+        f"{after:,} after ({after - before:+,}: the graphs' shared pool and the eager bodies' "
+        f"cached blocks); {len(t._text_programs)} text programs cached, "
+        f"{len(text_executor._FUSE_PROGRAMS)} fuse programs  [{card}]")
+    res, s_text = host_syncs(lambda: t.text_search("body", tb[0], k=K), here)
+    _, s_hyb = host_syncs(lambda: t.hybrid_search("vec", "body", vb[0], tb[0], k=K,
+                                                  fusion_type="rrf"), here)
+    log(f"  host syncs inside one text search: {s_text or 0}; inside one hybrid search: "
+        f"{s_hyb or 0}")
+    check(not s_text and not s_hyb, f"a text or hybrid search synced the host: {s_text} {s_hyb}")
+    check(res.valid.any(), "18h's text search found nothing")
+    return out
 
 
 def program_serving(srv, clock, t, queries, oracle, card):
@@ -5552,8 +5665,8 @@ def main(argv=None):
                          "without its text part) only, and print no record")
     ap.add_argument("--programs-only", action="store_true",
                     help="run the set-up, phases 3-4 and phase 18 (the search programs against "
-                         "their eager bodies, on its own IVFFLAT at nprobe 2 and its own binary "
-                         "table) only, and print no record")
+                         "their eager bodies, on its own IVFFLAT at nprobe 2, its own binary "
+                         "table and phase 9's text table) only, and print no record")
     ap.add_argument("--root", default=None,
                     help="import myscaledb_tpu_torch from this checkout (another commit's, "
                          "for a same-machine comparison) instead of this file's")
@@ -5633,6 +5746,13 @@ def main(argv=None):
         bin_db, bin_t, bin_batches = program_binary_table(ms, dev)
         program_binary_path(ms, bin_t, bin_batches, card, args.out)
         bin_db.drop_table("bin")
+        del bin_t
+        log(f"[18h-k] text and hybrid programs on phase 9's table ({SIFT_N:,} + "
+            f"{SIFT_SMALL_N:,} rows)")
+        hyb, _, _, text_tb, text_lb, _, text_vb = text_table(ms, dev, card, sift_db)
+        program_text_path(ms, hyb, text_vb, text_tb, text_lb, here, card, args.out)
+        sift_db.drop_table("hybrid")
+        del hyb
         log("[18g] the coalescing server on phase 3's table, graph replays against eager bodies")
         program_serving_alone(ms, sift_db, sift, sift_queries, card)
         log(f"chip_smoke: phases 3, 4 and 18 passed in {time.perf_counter() - t_start:.1f} s  "
@@ -5709,7 +5829,7 @@ def main(argv=None):
     # ---- 9. text and hybrid search (score and tile_max zeroed inside)
     log(f"[9] text and hybrid path ({SIFT_N:,} + {SIFT_SMALL_N:,} rows: body String of "
         f"{TEXT_WORDS} words from {TEXT_VOCAB:,}, vec FloatVector({SIFT_D}); batch {TEXT_BATCH}, k={K})")
-    p9, hyb, text_vb, text_tb, text_oracle = text_path(ms, dev, card, args, sift_db)
+    p9, hyb, text_vb, text_tb, text_lb, text_oracle = text_path(ms, dev, card, args, sift_db)
     log(f"  kernel launches on the text and hybrid path: {p9}")
     for name, n in p9.items():
         launches[name] += n
@@ -5745,11 +5865,13 @@ def main(argv=None):
         w.launches = 0
     log(f"[18] search programs: each table's program replayed (a CUDA graph) against its body "
         f"run eagerly, on phase 3's and phase 4's tables, HNSWFLAT ef_s 100, IVFFLAT nprobe "
-        f"{ivf_op} and phase 10's binary table")
+        f"{ivf_op}, phase 10's binary table and phase 9's text table")
     program_path(ms, dev, sift, sift_batches, gist, gist_batches, ivf_op, card, args.out)
     program_binary_path(ms, bin_t, bin_batches, card, args.out)
     bin_db.drop_table("bin")
     del bin_t
+    log(f"[18h-k] text and hybrid programs on phase 9's table")
+    program_text_path(ms, hyb, text_vb, text_tb, text_lb, here, card, args.out)
     p18 = {name: w.launches for name, w in wrappers18.items()}
     log(f"  kernel launches on phase 18's paths: {p18}; phase 18 took "
         f"{time.perf_counter() - t18:.2f} s")

@@ -154,9 +154,11 @@ def rrf_fuse_t(
 
 def _minmax_norm_t(scores: torch.Tensor, valid: torch.Tensor, ascending_better: bool):
     """Min-max over valid entries per row; 1 = best, invalid -> 0."""
-    big = torch.tensor(3.4e38, dtype=torch.float32, device=scores.device)
-    lo = torch.amin(torch.where(valid, scores, big), dim=-1, keepdim=True)
-    hi = torch.amax(torch.where(valid, scores, -big), dim=-1, keepdim=True)
+    # no host scalar: the fuse runs inside a captured graph
+    lo = torch.amin(torch.where(valid, scores, torch.full_like(scores, 3.4e38)), dim=-1,
+                    keepdim=True)
+    hi = torch.amax(torch.where(valid, scores, torch.full_like(scores, -3.4e38)), dim=-1,
+                    keepdim=True)
     span = hi - lo
     norm = (scores - lo) / torch.where(span > 0, span, torch.ones_like(span))
     if ascending_better:

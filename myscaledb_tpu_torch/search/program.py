@@ -8,14 +8,17 @@ the query upload, one copy per mask, one graph launch and one copy of the
 outputs, however many kernels the body holds.
 
 A `Program` is one cache entry. It owns static buffers: the query input
-(filled through a pinned staging buffer), one buffer per mask, the actual
-nprobe as a device scalar, and the packed int32 output. The body reads
+(filled through a pinned staging buffer; a text search's packed int32
+plan, the fuse's tag maps), one buffer per mask (a device input copied
+in: a mask, or a hybrid leg's packed result), the actual nprobe as a
+device scalar, and the packed int32 output. The body reads
 only those and the searchers' own tensors, which the entry keeps alive
 (`refs`): a graph over a freed tensor would read whatever the allocator
 put there next. A `ProgramCache` maps keys to entries, least recently
 used first out past `MAX_PROGRAMS`; each table owns one and drops it when
-its segment set changes (storage/table.py), and a standalone index search
-(`VectorIndex.search`) uses one on the index.
+its segment set changes (storage/table.py), and one for its text searches
+that its fts stores' changes drop too; a standalone index search
+(`VectorIndex.search`) uses one on the index, an fts store one of its own.
 
 On a CUDA device the first run warms the body up on a side stream (the
 kernels' build, their shared-memory opt-in and tensor-map entry point,
@@ -344,6 +347,12 @@ def _sig_value(v, refs: List[torch.Tensor]):
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
     raise TypeError(f"a search program cannot key a {type(v).__name__} attribute")
+
+
+def tensors_key(tensors: Sequence[torch.Tensor], refs: List[torch.Tensor]) -> tuple:
+    """The key part of tensors a body reads (pointer, shape, strides, type,
+    device); they are appended to `refs`."""
+    return tuple(_sig_value(t, refs) for t in tensors)
 
 
 def signature(searcher, refs: List[torch.Tensor]) -> tuple:

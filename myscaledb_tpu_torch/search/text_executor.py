@@ -32,10 +32,25 @@ from ..errors import QueryShapeError, SchemaError
 from ..metrics import Metric, score_ascending_better
 from ..service.event_log import GLOBAL_COUNTERS
 from ..text.analyzer import Analyzer
-from ..text.inverted import BM25Stats, InvertedIndex
-from .executor import SearchResult, merge_tagged_topk, segment_mask
-from .filters import Expr, as_mask_array
+from ..text.inverted import (
+    BM25Stats,
+    InvertedIndex,
+    pack_plans,
+    pad_queries,
+    query_terms,
+    store_topk,
+)
+from .executor import SearchResult, merge_tagged_topk, pack_result, segment_mask
+from .filters import Expr
 from .fusion import rrf_fuse_t, rsf_fuse_t
+from .program import (
+    Program,
+    ProgramCache,
+    mask_spec,
+    materialize_mask,
+    normalize_device,
+    tensors_key,
+)
 
 
 class TextIndexDefinition:
@@ -58,6 +73,10 @@ class TextIndexDefinition:
         # bumped on every invalidation: a stats computation that straddles
         # one must not install its (stale) result
         self._stats_gen = 0
+        # the table's text programs (set by Table.add_fts_index): dropped
+        # with every change of a store, so that no graph keeps a replaced
+        # store's postings alive on the device
+        self.programs: Optional[ProgramCache] = None
 
     def _build_store(self, segment) -> InvertedIndex:
         texts = [segment.scalar(c)[: segment.n_rows] for c in self.columns]
@@ -70,6 +89,8 @@ class TextIndexDefinition:
     def _invalidate_locked(self) -> None:
         self._stats_cache = None
         self._stats_gen += 1
+        if self.programs is not None:
+            self.programs.invalidate()
 
     def on_new_segment(self, segment, scheduler=None) -> None:
         """Register (and build) the fts store for a segment: now, or with a
@@ -479,8 +500,14 @@ class TextSearchExecutor:
     ) -> SearchResult:
         """textsearch() analogue: BM25 top-k, scores descending.
 
-        `query` may be one string or a list of strings (batched: one
-        program per segment scores all queries). stats_override: corpus
+        `query` may be one string or a list of strings (a batch). The
+        batch is tokenized once, each live store planned from its terms,
+        and every store's BM25 body and the merge run as one program (on
+        the card one CUDA graph) of the table's `_text_programs`, keyed on
+        k, the batch padded to 8 rows, each store's route, budget, nt,
+        need_counts, capacity and tensors, the masks' shapes, the
+        segment-set version and the index's store generation; the plans
+        and statistics are its one packed input. stats_override: corpus
         statistics injected by a distributed initiator, in place of the
         table's own. The result is device-lazy like vector search."""
         t = self.table
@@ -499,6 +526,8 @@ class TextSearchExecutor:
             )
         tdef = self._resolve(column_or_index)
         GLOBAL_COUNTERS.bump("TextSearchQueries", nq)
+        # read before the segments and stores: see ProgramCache.get
+        version, seg_version, gen = t._text_programs.version, t.segment_version, tdef._stats_gen
         segments = t.live_segments()
         seg_ids = [s.segment_id for s in segments]
         stats = stats_override if stats_override is not None else tdef.merged_stats(seg_ids)
@@ -506,43 +535,78 @@ class TextSearchExecutor:
         parsed = [parse_nlq(q) for q in queries] if enable_nlq else None
         need_nlq = parsed is not None and any(p or n for _, p, n in parsed)
         bm25_queries = [p[0] for p in parsed] if parsed is not None else queries
+        terms = query_terms(tdef.analyzer, bm25_queries)
+        nq_pad = pad_queries(nq)
 
-        vals_t: List[torch.Tensor] = []
-        rows_t: List[torch.Tensor] = []
-        tags_t: List[torch.Tensor] = []
-        tags: List[int] = []
+        parts = []  # (segment id, store, plan, [base mask, NLQ mask])
         for seg in segments:
             store = tdef.store(seg.segment_id)
             if store is None:
                 continue
-            mask = segment_mask(seg, filter)
+            nlq = None
             if need_nlq:
-                base = as_mask_array(mask)
-                extra = np.zeros((nq, seg.capacity), bool)
+                extra = np.zeros((nq_pad, seg.capacity), bool)
                 for qi, (_, phrases, negs) in enumerate(parsed):
                     extra[qi, : seg.n_rows] = tdef.nlq_mask(seg, store, phrases, negs)
-                mask = torch.from_numpy(extra).to(seg.device)
-                if base is not None:
-                    mask = torch.logical_and(mask, base[None, :])
-            vals, rows, seg_tags, _terms, _bound = store.bm25_topk_batch(
-                bm25_queries, k, stats=stats, operator=operator, mask=mask
-            )
-            vals_t.append(vals)
-            rows_t.append(rows)
-            tags_t.append(seg_tags)
-            tags.append(seg.segment_id)
-        if not vals_t:
+                nlq = ("rows", torch.from_numpy(extra))
+            base = materialize_mask(segment_mask(seg, filter))
+            plan = store.plan_terms(terms, stats=stats, operator=operator)
+            parts.append((seg.segment_id, store, plan, [base, nlq]))
+        if not parts:
             return SearchResult.empty(Metric.IP, nq, k)
-        if len(vals_t) == 1:
-            # the tag column already came from the scoring program
-            mv, mr, mt = vals_t[0], rows_t[0], tags_t[0]
-        else:
-            mv, mt, mr = merge_tagged_topk(vals_t, rows_t, k)
+        packed, offs = pack_plans([p for _, _, p, _ in parts], stats.avg_doc_len, nq_pad)
+        refs: List[torch.Tensor] = []
+        stores = tuple(
+            (p.route, p.budget, p.idfs.shape[1], p.need_counts, store.capacity,
+             tensors_key(store.tensors, refs))
+            for _, store, p, _ in parts
+        )
+        mats = [m for _, _, _, ms in parts for m in ms]
+        specs = tuple(mask_spec(m) for m in mats)
+        key = ("text", k, nq_pad, stores, specs, seg_version, gen)
+        found = [(part[1].tensors, off, desc) for part, off, desc in zip(parts, offs, stores)]
+
+        def body(plan, mbufs, dyn):
+            del dyn
+            vs, rs, ts = [], [], []
+            for i, (tensors, off, desc) in enumerate(found):
+                route, budget, nt, need_counts, capacity, _ = desc
+                base, nlq = mbufs[2 * i], mbufs[2 * i + 1]
+                if nlq is not None:
+                    base = nlq if base is None else torch.logical_and(nlq, base[None, :])
+                v, r, tg, _ = store_topk(
+                    tensors, plan, off, nt, base, route=route, budget=budget, capacity=capacity,
+                    k=k, need_counts=need_counts, approx=False,
+                )
+                vs.append(v)
+                rs.append(r)
+                ts.append(tg)
+            if len(vs) == 1:
+                # the tag column already came from the scoring body
+                return pack_result(vs[0], ts[0], rs[0])
+            return pack_result(*merge_tagged_topk(vs, rs, k))
+
+        def make():
+            label = ", ".join(f"segment {sid}: BM25 {p.route}" for sid, _, p, _ in parts)
+            return Program(
+                body, device=parts[0][1].device, query=(tuple(packed.shape), torch.int32),
+                masks=[None if sp is None else (sp[1], sp[2]) for sp in specs],
+                out_shape=(3, nq_pad, k), label=f"the text search ({label})", refs=refs,
+            )
+
+        out = t._text_programs.get(key, make, version).run(
+            packed, [None if m is None else m[1] for m in mats]
+        )
         # BM25 score is bigger-better: exposed under the IP (similarity)
         # convention
         return SearchResult(
-            Metric.IP, device=(mv, mt, mr), seg_ids=np.asarray(tags, dtype=np.int64), nq=nq, k=k
+            Metric.IP, device=out, seg_ids=np.asarray([p[0] for p in parts], dtype=np.int64),
+            nq=nq, k=k,
         )
+
+
+# the fuse programs (their bodies read nothing but their buffers)
+_FUSE_PROGRAMS = ProgramCache()
 
 
 def _fuse_device(
@@ -568,6 +632,69 @@ def _fuse_device(
     return rsf_fuse_t(
         vt, vr, vvals, tt, tr, tvals, k, fusion_weight=fusion_weight, vec_ascending_better=vec_asc
     )
+
+
+def _leg_input(res: SearchResult):
+    """(packed int32[3, Q', k'] device result | None, its key part) of a
+    hybrid leg: both legs' programs return packed results; a host result
+    here is SearchResult.empty (every slot invalid; the fuse body makes
+    it)."""
+    if res._packed is None:
+        return None, ("empty", res.k)
+    return res._packed, ("packed", tuple(res._packed.shape))
+
+
+def fuse_legs(vres: SearchResult, tres: SearchResult, k: int, *, fusion_type: str, fusion_k: int,
+              fusion_weight: float, vec_asc: bool, device) -> SearchResult:
+    """The hybrid fuse as one program (JAX's jitted `_fuse_device`), keyed
+    on its static arguments (k, fusion_type, fusion_k, fusion_weight,
+    vec_asc, nq) and the legs' shapes. The legs' packed results are
+    copied into its buffers on the device; the two tag maps ride in one
+    host upload."""
+    nq = vres.nq
+    v_ids = vres._seg_ids if vres._seg_ids is not None else np.zeros(0, np.int64)
+    t_ids = tres._seg_ids if tres._seg_ids is not None else np.zeros(0, np.int64)
+    uni = np.unique(np.concatenate([v_ids, t_ids]))
+    if len(uni) == 0:
+        uni = np.asarray([-1], np.int64)  # both legs empty: sentinel
+
+    def tag_map(ids):
+        if not len(ids):
+            return np.asarray([-1], np.int32)
+        return np.searchsorted(uni, ids).astype(np.int32)
+
+    vmap, tmap = tag_map(v_ids), tag_map(t_ids)
+    maps = np.concatenate([vmap, tmap])
+    (vbuf, vspec), (tbuf, tspec) = _leg_input(vres), _leg_input(tres)
+    device = normalize_device(device)
+    key = ("fuse", str(device), k, fusion_type, fusion_k, fusion_weight, vec_asc, nq, vspec,
+           tspec, len(vmap), len(tmap))
+    lv = len(vmap)
+
+    def leg(buf, spec):
+        if buf is None:
+            return (torch.full((nq, spec[1]), float("-inf"), dtype=torch.float32, device=device),
+                    torch.full((nq, spec[1]), -1, dtype=torch.int32, device=device),
+                    torch.full((nq, spec[1]), -1, dtype=torch.int32, device=device))
+        return buf[0].view(torch.float32), buf[1], buf[2]
+
+    def body(q, legs, dyn):
+        del dyn
+        return pack_result(*_fuse_device(
+            leg(legs[0], vspec), q[:lv], leg(legs[1], tspec), q[lv:], k=k,
+            fusion_type=fusion_type, fusion_k=fusion_k, fusion_weight=fusion_weight,
+            vec_asc=vec_asc, nq=nq,
+        ))
+
+    def make():
+        return Program(
+            body, device=device, query=(maps.shape, torch.int32),
+            masks=[None if b is None else (tuple(b.shape), b.dtype) for b in (vbuf, tbuf)],
+            out_shape=(3, nq, k), label=f"the {fusion_type.upper()} fuse",
+        )
+
+    out = _FUSE_PROGRAMS.get(key, make).run(maps, [vbuf, tbuf])
+    return SearchResult(Metric.IP, device=out, seg_ids=uni, nq=nq, k=k)
 
 
 class HybridSearchExecutor:
@@ -619,37 +746,11 @@ class HybridSearchExecutor:
             text_column_or_index, tq, n_cand, filter=filter, operator=operator, settings=st
         )
 
-        # one segment-id table for both legs' tag spaces
-        v_ids = vres._seg_ids if vres._seg_ids is not None else np.zeros(0, np.int64)
-        t_ids = tres._seg_ids if tres._seg_ids is not None else np.zeros(0, np.int64)
-        uni = np.unique(np.concatenate([v_ids, t_ids]))
-        if len(uni) == 0:
-            uni = np.asarray([-1], np.int64)  # both legs empty: sentinel
-        dev = t.device
-
-        def tag_map(ids):
-            m = np.searchsorted(uni, ids).astype(np.int32) if len(ids) else np.asarray([-1], np.int32)
-            return torch.from_numpy(m).to(dev)
-
-        def leg(res):
-            if res._device is not None:
-                return res._device  # possibly query-padded ([nq_pad, k])
-            # a host result here is SearchResult.empty: every slot invalid
-            return (
-                torch.full((nq, res.k), float("-inf"), dtype=torch.float32, device=dev),
-                torch.full((nq, res.k), -1, dtype=torch.int32, device=dev),
-                torch.full((nq, res.k), -1, dtype=torch.int32, device=dev),
-            )
-
-        fv, ftag, frow = _fuse_device(
-            leg(vres), tag_map(v_ids), leg(tres), tag_map(t_ids),
-            k=k,
-            fusion_type=ftype,
+        return fuse_legs(
+            vres, tres, k, fusion_type=ftype,
             fusion_k=int(fusion_k if fusion_k is not None else st.query.hybrid_search_fusion_k),
             fusion_weight=float(
                 st.query.hybrid_search_fusion_weight if fusion_weight is None else fusion_weight
             ),
-            vec_asc=score_ascending_better(vres.metric),
-            nq=nq,
+            vec_asc=score_ascending_better(vres.metric), device=t.device,
         )
-        return SearchResult(Metric.IP, device=(fv, ftag, frow), seg_ids=uni, nq=nq, k=k)

@@ -41,6 +41,9 @@ class _Pool:
             except Exception:  # jobs report their own errors; never kill the pool
                 traceback.print_exc()
             finally:
+                # let go of the job while waiting for the next one: its
+                # closure may hold a dropped store or index
+                job = None
                 with self._cv:
                     self._inflight -= 1
                     self._cv.notify_all()

@@ -170,6 +170,9 @@ class Table:
         # the search programs over this table's segments (one CUDA graph
         # each on the card); dropped whenever the segment set changes
         self._programs = ProgramCache()
+        # the text searches' programs: dropped with the segment set too,
+        # and by the fts definitions whenever a store changes
+        self._text_programs = ProgramCache()
         # Commit listeners, called after a local commit (insert / deletes /
         # mutate / merge / truncate) outside the table's locks: the hook
         # data replication publishes through (the ReplicatedMergeTree
@@ -198,6 +201,7 @@ class Table:
         merge, truncate, index build, load, drop or cache eviction; the
         database calls it on DROP and DETACH."""
         self._programs.invalidate()
+        self._text_programs.invalidate()
 
     def add_commit_listener(self, fn) -> None:
         self._commit_listeners.append(fn)
@@ -939,6 +943,7 @@ class Table:
             if name in self._text_indexes:
                 raise IndexParameterError(f"fts index {name!r} already exists")
             tdef = TextIndexDefinition(name, columns, params)
+            tdef.programs = self._text_programs
             self._text_indexes[name] = tdef
         for seg in self.live_segments():
             tdef.on_new_segment(seg)
@@ -950,6 +955,7 @@ class Table:
             tdef = self._text_indexes.pop(name, None)
         if tdef is None:
             raise IndexParameterError(f"no fts index named {name!r}")
+        self._text_programs.invalidate()
         self.event_log.record(self.name, name, ",".join(tdef.columns), EventType.DEFINITION_DROPPED)
 
     def has_token(self, column: str, token: str) -> Expr:

@@ -9,7 +9,10 @@ Counterpart of myscaledb_tpu/text/inverted.py. Layout:
           doc_len       f32[capacity]
 
 on the segment's device. Scoring is Okapi BM25 with externally supplied
-corpus statistics (summed over segments), in two programs of torch ops:
+corpus statistics (summed over segments), in two bodies of torch ops,
+each run inside a program (search/program.py: on the card one captured
+CUDA graph), the store's own (`bm25_topk_batch`) or a text search's
+(search/text_executor.py), over one packed int32 plan (`pack_plans`):
 
   * dense (`_bm25_score_topk_batch`): one term chunk per step, each
     step's contributions added into a [Q, capacity + 1] score buffer
@@ -36,12 +39,13 @@ row); the sparse path stays exact, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.topk import NEG_INF, topk_stable
+from ..search.program import Program, ProgramCache, tensors_key
 from .analyzer import Analyzer
 
 BM25_K1 = 1.2
@@ -303,6 +307,70 @@ def _phrase_doc_counts(
     return m0[hi.to(torch.int64)] - m0[lo.to(torch.int64)]
 
 
+class Plan(NamedTuple):
+    """One store's plan of a batch (`InvertedIndex.plan_terms`)."""
+
+    qints: np.ndarray  # int32[Q, 2T+1]: starts | lengths | n_required
+    idfs: np.ndarray  # f32[Q, T]
+    budget: int
+    route: str  # "sparse" | "dense"
+    need_counts: bool
+
+
+def query_terms(analyzer: Analyzer, queries: Sequence[str]) -> List[List[str]]:
+    """Each query's analyzed terms, each term once (first occurrence)."""
+    out: List[List[str]] = []
+    for query in queries:
+        seen: set = set()
+        out.append([t for t in analyzer.tokenize_query(query) if not (t in seen or seen.add(t))])
+    return out
+
+
+def pad_queries(nq: int) -> int:
+    """A text batch's rows in a program: a multiple of 8, as the vector
+    path pads (the JAX package keys on the exact count)."""
+    return max(8, -(-nq // 8) * 8)
+
+
+def pack_plans(plans: Sequence[Plan], avg_len: float, nq_pad: int):
+    """The plans of a search's stores in one int32[nq_pad, W] array, the
+    program's one host input: column 0 holds avg_len's f32 bits, then
+    each store's qints (2T+1 columns) and the f32 bits of its idfs (T).
+    Rows past the batch are empty queries (n_required = T + 1, no
+    postings), so their slots come out empty in every route. Returns
+    (packed, each store's column offset)."""
+    width = 1 + sum(3 * p.idfs.shape[1] + 1 for p in plans)
+    packed = np.zeros((nq_pad, width), np.int32)
+    packed[:, 0] = np.float32(avg_len).view(np.int32)
+    offs = []
+    col = 1
+    for p in plans:
+        nq, nt = p.idfs.shape
+        packed[:nq, col : col + 2 * nt + 1] = p.qints
+        packed[nq:, col + 2 * nt] = nt + 1
+        packed[:nq, col + 2 * nt + 1 : col + 3 * nt + 1] = p.idfs.view(np.int32)
+        offs.append(col)
+        col += 3 * nt + 1
+    return packed, offs
+
+
+def store_topk(tensors, plan: torch.Tensor, off: int, nt: int, mask, *, route: str, budget: int,
+               capacity: int, k: int, need_counts: bool, approx: bool):
+    """One store's BM25 top-k over its columns of a packed plan (a program
+    body): the sparse or the dense path. `tensors` = (postings_rows,
+    postings_tf, doc_len). Returns (vals, rows, tags, prefix_max | None)."""
+    qints = plan[:, off : off + 2 * nt + 1]
+    idfs = plan[:, off + 2 * nt + 1 : off + 3 * nt + 1].view(torch.float32)
+    avg_len = plan[0, 0].view(torch.float32)
+    args = (*tensors, qints, idfs, avg_len, mask)
+    if route == "sparse":
+        return _bm25_sparse_topk_batch(*args, budget=budget, capacity=capacity, k=k)
+    vals, rows, tags = _bm25_score_topk_batch(
+        *args, budget=budget, capacity=capacity, k=k, need_counts=need_counts, approx=approx
+    )
+    return vals, rows, tags, None
+
+
 class InvertedIndex:
     """Built per (segment, text columns): the TantivyIndexStore analogue.
     Multi-column: tokens of all indexed columns are concatenated per row.
@@ -338,10 +406,19 @@ class InvertedIndex:
         # it (phrase verification then falls back to the host path).
         self._stream_host = token_stream  # int32[total_tokens] or None
         self._stream_dev = None  # (padded stream, doc_bounds), uploaded once
+        # the store's own programs (bm25_topk_batch, the phrase counts);
+        # they read only its immutable tensors and go with it
+        self._programs = ProgramCache()
 
     @property
     def device(self) -> torch.device:
         return self.postings_rows.device
+
+    @property
+    def tensors(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """What a BM25 body reads of the store: (postings_rows,
+        postings_tf, doc_len)."""
+        return self.postings_rows, self.postings_tf, self.doc_len
 
     # ------------------------------------------------------------- build
     @classmethod
@@ -490,15 +567,30 @@ class InvertedIndex:
     def phrase_counts_device(self, tokens: Sequence[str]) -> Optional[torch.Tensor]:
         """int32[capacity] per-row occurrence counts of the analyzed
         phrase `tokens` (adjacent in the filtered stream), or None when
-        the store has no token stream. Runs on the store's device."""
-        got = self._stream_arrays()
+        the store has no token stream. Runs on the store's device, as a
+        program keyed as JAX keys `_phrase_doc_counts` (on m) plus the
+        stream's tensors; the term ids are its input."""
+        got = self._stream_arrays()  # uploaded here, before any capture
         if got is None or not tokens:
             return None
         stream, bounds = got
         tids = np.asarray([self.vocab.get(t, -1) for t in tokens], np.int32)
         if (tids < 0).any():  # absent term: the phrase matches nothing
             return torch.zeros(self.capacity, dtype=torch.int32, device=self.device)
-        return _phrase_doc_counts(stream, torch.from_numpy(tids).to(self.device), bounds)
+        m = len(tids)
+        refs: List[torch.Tensor] = []
+        key = ("phrase", m, tensors_key((stream, bounds), refs))
+
+        def body(q, masks, dyn):
+            del masks, dyn
+            return _phrase_doc_counts(stream, q, bounds)
+
+        def make():
+            return Program(body, device=self.device, query=((m,), torch.int32),
+                           out_shape=(self.capacity,), label=f"the {m}-term phrase counts",
+                           refs=refs)
+
+        return self._programs.get(key, make).run(tids)
 
     def phrase_bitmap(self, tokens: Sequence[str]) -> Optional[np.ndarray]:
         """bool[n_rows] rows containing the phrase (host view), or None
@@ -524,15 +616,19 @@ class InvertedIndex:
         budget, route "sparse" | "dense", need_counts, per-query terms).
         The route rule is the JAX package's, so both packages take the
         same path on the same store."""
+        all_terms = query_terms(self.analyzer, queries)
+        return tuple(self.plan_terms(all_terms, stats=stats, operator=operator)) + (all_terms,)
+
+    def plan_terms(
+        self, all_terms: Sequence[Sequence[str]], *, stats: BM25Stats, operator: str = "OR"
+    ) -> "Plan":
+        """`plan_batch` from each query's analyzed terms (`query_terms`): a
+        search over several stores tokenizes its batch once and plans
+        every store from the same terms."""
         require_all = operator.upper() == "AND"
-        all_terms: List[List[str]] = []
         ranges: List[List[Tuple[int, int, float]]] = []
         maxlen = 1
-        for query in queries:
-            terms = self.analyzer.tokenize_query(query)
-            seen: set = set()
-            terms = [t for t in terms if not (t in seen or seen.add(t))]
-            all_terms.append(terms)
+        for terms in all_terms:
             rs: List[Tuple[int, int, float]] = []
             for t in terms:
                 s, ln = self.term_range(t)
@@ -551,7 +647,7 @@ class InvertedIndex:
             ]
             for rs in ranges
         ]
-        nq = len(queries)
+        nq = len(all_terms)
         nt = _pad_pow2(max((len(c) for c in chunk_lists), default=1))
         qints = np.zeros((nq, 2 * nt + 1), np.int32)
         idfs = np.zeros((nq, nt), np.float32)
@@ -567,7 +663,7 @@ class InvertedIndex:
                 qints[i, 2 * nt] = nt + 1  # empty query matches nothing
         sparse = nt * budget <= SPARSE_CAP and self.capacity >= SPARSE_MIN_CAPACITY
         need_counts = require_all and any(len(t) > 1 for t in all_terms)
-        return qints, idfs, budget, ("sparse" if sparse else "dense"), need_counts, all_terms
+        return Plan(qints, idfs, budget, "sparse" if sparse else "dense", need_counts)
 
     def bm25_topk_batch(
         self,
@@ -587,34 +683,62 @@ class InvertedIndex:
         the approximate branch (the sparse path's run totals are few and
         stay exact, as in the JAX package). `route` forces "sparse" or
         "dense" (a measurement hook; None takes the JAX package's rule).
-        Returns
+
+        One program of the store's (search/program.py; on the card one
+        CUDA graph), keyed as the JAX package's jitted bodies are (the
+        route, budget, nt, k, need_counts, approx) plus the batch padded
+        to 8 rows and the mask's shape; the plan and the statistics are
+        inputs. Returns
         (vals, rows, tags, per-query terms, bound): tags is the
         single-segment tag column (0 valid / -1 empty), bound the error
         bound of each query's scores on the sparse path (f32[Q],
         `sparse_error_bound`) and None on the dense one. (The JAX
         package's method returns the first four.)"""
-        stats = stats or self.stats
         from ..search.filters import as_mask_array
+        from ..search.program import mask_spec
 
+        stats = stats or self.stats
         mask = as_mask_array(mask)
-        qints, idfs, budget, rule, need_counts, all_terms = self.plan_batch(
-            queries, stats=stats, operator=operator
-        )
-        dev = self.device
-        qi = torch.from_numpy(qints).to(dev)
-        idf = torch.from_numpy(idfs).to(dev)
-        avg_len = torch.tensor(stats.avg_doc_len, dtype=torch.float32, device=dev)
-        args = (self.postings_rows, self.postings_tf, self.doc_len, qi, idf, avg_len, mask)
-        if (route or rule) == "sparse":
-            vals, rows, tags, prefix_max = _bm25_sparse_topk_batch(
-                *args, budget=budget, capacity=self.capacity, k=k
+        all_terms = query_terms(self.analyzer, queries)
+        plan = self.plan_terms(all_terms, stats=stats, operator=operator)
+        route = route or plan.route
+        nq = len(all_terms)
+        nq_pad = pad_queries(nq)
+        packed, (off,) = pack_plans([plan], stats.avg_doc_len, nq_pad)
+        if mask is not None and mask.dim() == 2:
+            mask = torch.nn.functional.pad(mask, (0, 0, 0, nq_pad - mask.shape[0]))
+        spec = mask_spec(None if mask is None else ("rows", mask))
+        nt = plan.idfs.shape[1]
+        need_counts = plan.need_counts and route == "dense"
+        approx = approx and route == "dense"
+        refs: List[torch.Tensor] = []
+        key = ("bm25", route, plan.budget, nt, need_counts, approx, int(k), nq_pad, spec,
+               tensors_key(self.tensors, refs))
+        tensors = self.tensors
+        capacity = self.capacity
+
+        def body(q, masks, dyn):
+            del dyn
+            vals, rows, tags, prefix_max = store_topk(
+                tensors, q, off, nt, masks[0], route=route, budget=plan.budget,
+                capacity=capacity, k=int(k), need_counts=need_counts, approx=approx,
             )
-            return vals, rows, tags, all_terms, sparse_error_bound(prefix_max)
-        vals, rows, tags = _bm25_score_topk_batch(
-            *args, budget=budget, capacity=self.capacity, k=k, need_counts=need_counts,
-            approx=approx,
-        )
-        return vals, rows, tags, all_terms, None
+            bound = (torch.zeros_like(vals) if prefix_max is None
+                     else sparse_error_bound(prefix_max)[:, None].expand_as(vals))
+            return torch.stack([vals.view(torch.int32), rows, tags,
+                                bound.contiguous().view(torch.int32)])
+
+        def make():
+            return Program(
+                body, device=self.device, query=(tuple(packed.shape), torch.int32),
+                masks=[None if spec is None else (spec[1], spec[2])],
+                out_shape=(4, nq_pad, int(k)), label=f"BM25 ({route} route)", refs=refs,
+            )
+
+        out = self._programs.get(key, make).run(packed, [mask])
+        vals, rows, tags = out[0, :nq].view(torch.float32), out[1, :nq], out[2, :nq]
+        bound = out[3, :nq, 0].view(torch.float32) if route == "sparse" else None
+        return vals, rows, tags, all_terms, bound
 
     def bm25_topk(
         self,
