@@ -232,7 +232,15 @@ of the JAX package. Phases, each of which raises on failure:
      3-word and the 8-word batches, hybrid RRF and RSF (a hybrid search
      replays three programs: vector, text, fuse), at most 8 / 16 host
      launch-API calls a search, no host sync inside one, and the graph
-     pool's reserved bytes. 18g, inside 14d: the server's sync 8 and async
+     pool's reserved bytes. 18l-o: MeshTable's programs (one CUDA graph a
+     search on `Mesh([[cuda:0] * 4])`) on 16a's table: exact and price <
+     10 (1%), IVF at phase 8's nprobe, then 10,000 appended rows (the
+     delta route), the two-stage route, and on phase 9's documents 3-word
+     BM25 and hybrid RRF / RSF (one graph each): bit-equal, no host sync
+     in one search, at most 8 launch calls a vector or text search (16 a
+     hybrid one; a filtered one 2 a shard more for its filter's kernel and
+     mask copy), in-place deletes and appends read by the next replay
+     with no recapture. 18g, inside 14d: the server's sync 8 and async
      64 points, 5 one-second windows a path in turns, every response
      against the exact oracle. `--programs-only` runs phases 1, 3, 4 and
      18 (IVFFLAT at nprobe 2, its own binary table, phase 9's table
@@ -5310,27 +5318,37 @@ def counter_delta(before):
 
 def same_packed(label, got, want):
     """Two lists of SearchResults hold the same ids, tags and scores, bit
-    for bit (the packed int32 outputs and the segment tables)."""
+    for bit (the packed int32 outputs and the segment tables); or of a
+    MeshTable's packed outputs (tensors)."""
     import torch
 
     for i, (g, w) in enumerate(zip(got, want)):
-        check(g._packed is not None and w._packed is not None, f"{label}: not a program's result")
-        check(torch.equal(g._packed, w._packed) and np.array_equal(g._seg_ids, w._seg_ids),
-              f"{label}: batch {i}: the graph replay and the eager body disagree")
+        if isinstance(g, torch.Tensor):
+            same = torch.equal(g, w)
+        else:
+            check(g._packed is not None and w._packed is not None,
+                  f"{label}: not a program's result")
+            same = torch.equal(g._packed, w._packed) and np.array_equal(g._seg_ids, w._seg_ids)
+        check(same, f"{label}: batch {i}: the graph replay and the eager body disagree")
 
 
 def api_trace(search, batches, trace_path):
     """One profiled pass (`trace_events`): (device ms, kernels, host
-    launch-API calls, graph launches) of the pass. The launch calls are
-    the CUDA runtime and driver events that launch, copy or set
-    (cudaLaunchKernel, cudaGraphLaunch, cudaMemcpyAsync, cudaMemsetAsync,
-    their driver forms): what the host pays a search."""
+    launch-API calls, graph launches, the three largest device events by
+    name as (share, name)) of the pass. The launch calls are the CUDA
+    runtime and driver events that launch, copy or set (cudaLaunchKernel,
+    cudaGraphLaunch, cudaMemcpyAsync, cudaMemsetAsync, their driver
+    forms): what the host pays a search."""
     events, dev = trace_events(search, batches, trace_path)
     api = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
            and any(w in e.get("name", "") for w in ("Launch", "Memcpy", "Memset"))]
     graphs = sum("GraphLaunch" in e["name"] for e in api)
-    return (sum(e["dur"] for e in dev) / 1e3, sum(e["cat"] == "kernel" for e in dev), len(api),
-            graphs)
+    total = sum(e["dur"] for e in dev)
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(((d / total, n[:60]) for n, d in by_name.items()), reverse=True)[:3]
+    return total / 1e3, sum(e["cat"] == "kernel" for e in dev), len(api), graphs, top
 
 
 def one_pass_seconds(search, batches):
@@ -5386,14 +5404,14 @@ def program_cells(cells, card, out_dir):
             path = os.path.join(out_dir, f"trace_program_{label}_{side}.json")
             if side == "eager":
                 with eager_bodies():
-                    dev_ms, kernels, api, graph_launches = api_trace(search, batches, path)
+                    dev_ms, kernels, api, graph_launches, top = api_trace(search, batches, path)
             else:
-                dev_ms, kernels, api, graph_launches = api_trace(search, batches, path)
+                dev_ms, kernels, api, graph_launches, top = api_trace(search, batches, path)
             wall = statistics.median(walls[side])
             stats[side] = dict(
                 qps=statistics.median(nq / w for w in walls[side]), api=api / nb,
                 graph_launches=graph_launches / nb, kernels=kernels / nb, dev_ms=dev_ms / nb,
-                busy=dev_ms / (1e3 * wall), wall_ms=1e3 * wall / nb)
+                busy=dev_ms / (1e3 * wall), wall_ms=1e3 * wall / nb, top=top)
         steady = counter_delta(c1)
         check(steady["Captures"] == 0, f"{label}: a steady pass captured again: {steady}")
         mutate()
@@ -5415,7 +5433,8 @@ def program_cells(cells, card, out_dir):
                 f"({st['graph_launches']:.0f} graph launches), {st['kernels']:.1f} kernels / "
                 f"search, device {st['dev_ms']:.4f} ms / search, busy share {st['busy']:.3f} "
                 f"(median pass {st['wall_ms']:.4f} ms / search), QPS median "
-                f"{st['qps']:.1f} of {PROGRAM_ROUNDS} one-pass rounds  [{card}]")
+                f"{st['qps']:.1f} of {PROGRAM_ROUNDS} one-pass rounds; largest device shares "
+                f"{', '.join(f'{s:.3f} {n}' for s, n in st['top'])}  [{card}]")
         log(f"  {label}: ids, tags and scores bit-equal in all {nb} batches and after the "
             f"mutation; first pass {first}, steady passes {steady}, after the mutation {re}; "
             f"graph / eager QPS {g['qps'] / e['qps']:.3f}")
@@ -5571,6 +5590,160 @@ def program_text_path(ms, t, vb, tb, lb, here, card, out_dir):
     return out
 
 
+MESH_FILTER_API = 2  # a filtered mesh search's launch calls a shard outside its program
+
+
+def program_mesh_table(ms, dev, sift):
+    """18l-n's table: 16a's (phase 3's corpus with its price column and 100
+    deletes) in a MeshTable over MESH_SHARDS entries of this card."""
+    from myscaledb_tpu_torch.parallel.distributed import Mesh
+
+    parts = stored_corpus(sift)
+    ids = np.concatenate([p[0] for p in parts]).astype(np.int64)
+    rows = np.zeros((len(ids), SIFT_D), np.float32)
+    rows[ids] = np.concatenate([p[1] for p in parts])
+    del parts
+    price = np.random.default_rng(16).integers(0, 1000, len(ids)).astype(np.int32)
+    t = ms.MeshTable("mesh18", SIFT_D, mesh=Mesh([[dev] * MESH_SHARDS]), filter_columns=("price",))
+    t.insert({"id": np.arange(len(ids)), "vec": rows, "price": price})
+    t.delete(np.arange(100))
+    t._seal()
+    return t
+
+
+def program_mesh_text_table(ms, dev, hyb):
+    """18o's table: 16d's (phase 9's documents and vectors, its deletes) in
+    a text MeshTable over MESH_SHARDS entries of this card."""
+    from myscaledb_tpu_torch.parallel.distributed import Mesh
+
+    segs = hyb.live_segments()
+    hids = np.concatenate([sg.scalar("id")[: sg.n_rows] for sg in segs]).astype(np.int64)
+    docs = np.concatenate([sg.scalar("body")[: sg.n_rows] for sg in segs]).astype(object)
+    dead = hids[np.concatenate([sg.deleted_host()[: sg.n_rows] for sg in segs])]
+    hv = np.concatenate([v for _, v in stored_corpus(hyb)])
+    t = ms.MeshTable("mesh18_text", SIFT_D, mesh=Mesh([[dev] * MESH_SHARDS]), text_column="body")
+    t.insert({"id": hids, "vec": hv, "body": docs})
+    if len(dead):
+        t.delete(dead)
+    t._text_index()
+    return t
+
+
+def program_mesh_path(ms, dev, sift, queries, hyb, vb, tb, op, here, card, out_dir):
+    """18l-o: MeshTable's programs (parallel/distributed.py::MeshProgram; on
+    this one-card grid one CUDA graph a search) against their bodies run
+    eagerly, on 16a's table: 18l exact and price < MESH_PRICE_CUT (1%);
+    18m IVF at nprobe `op`, then MESH_NEW rows appended (the delta route);
+    18n the two-stage route at `op`; 18o phase 9's documents: 3-word BM25,
+    hybrid RRF and RSF. Each cell's mutation is in place (a delete, or in
+    the delta cell one more appended row): the replay reads it with no
+    recapture. Each cell: bit-equal batches, 0 host syncs in one search,
+    launch calls within the bound (MESH_FILTER_API a shard on top for the
+    filter's own kernels and its mask's copy), the graph pool's bytes."""
+    import torch
+
+    t0 = time.perf_counter()
+    t = program_mesh_table(ms, dev, sift)
+    log(f"  18l-n's table: {t.n_rows:,} rows over {t.mesh} ({t._s.cap:,} slots a shard) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batches = [queries[i : i + SIFT_BATCH] for i in range(0, len(queries), SIFT_BATCH)]
+    n_ids = t.n_rows + 100  # ids 0 .. n_ids - 1, the first 100 deleted
+    gone = iter(range(n_ids - 1, 100, -1))
+
+    def delete(table):
+        def run():
+            check(table.delete(next(gone)) == 1, "the mesh delete removed another count")
+        return run
+
+    def vector(**kw):
+        return lambda qb: t._vector_run(qb, K, **kw)[0]
+
+    def cheap(price):
+        return price < MESH_PRICE_CUT
+
+    plain = {"max_api": TEXT_MAX_API, "recaptures": 0}
+    filtered = {"max_api": TEXT_MAX_API + MESH_FILTER_API * MESH_SHARDS, "recaptures": 0}
+    out = {}
+
+    def cells(cs, syncs_of):
+        for cell in cs:
+            pool0 = graph_pool_bytes(dev)
+            out.update(program_cells([cell], card, out_dir))
+            _, s = host_syncs(lambda: syncs_of[cell[0]](cell[2][0]), here)
+            check(not s, f"{cell[0]}: one search synced the host: {s}")
+            log(f"  {cell[0]}: 0 host syncs in one search; the graph pool (reserved, allocated "
+                f"bytes) {pool0} before the cell, {graph_pool_bytes(dev)} after  [{card}]")
+
+    ivf = {"nprobe": op}
+    vcells = [("mesh_exact", vector(), batches, delete(t), plain),
+              ("mesh_filtered", vector(filter=cheap), batches, delete(t), filtered)]
+    cells(vcells, {c[0]: c[1] for c in vcells})
+    t0 = time.perf_counter()
+    t.build_ivf(IVF_NCENT)
+    sync(dev)
+    log(f"  build_ivf({IVF_NCENT}) {time.perf_counter() - t0:.2f} s (bucket_pad {t._ivf[-1]})")
+    icell = [(f"mesh_ivf_nprobe{op}", vector(params=ivf), batches, delete(t), plain)]
+    cells(icell, {icell[0][0]: icell[0][1]})
+    n0 = n_ids
+    new = make_corpus(MESH_NEW, SIFT_D, seed=18, centers=corpus_centers(SIFT_D))
+    sealed = t._s
+    t.insert({"id": np.arange(n0, n0 + MESH_NEW), "vec": new,
+              "price": np.zeros(MESH_NEW, np.int32)})
+    check(t._s is sealed and t._ivf is not None, "the append resealed the table or dropped its IVF")
+    extra = iter(range(n0 + MESH_NEW, n0 + 2 * MESH_NEW))
+    inserted = []
+
+    def append_one():
+        i = next(extra)
+        t.insert({"id": np.array([i]), "vec": batches[0][:1] + np.float32(1e-3),
+                  "price": np.zeros(1, np.int32)})
+        inserted.append(i)
+
+    dcell = [(f"mesh_ivf_delta", vector(params=ivf), batches, append_one, plain)]
+    cells(dcell, {dcell[0][0]: dcell[0][1]})
+    c0 = program_counters()
+    got = t.search(batches[0], K, params=ivf)
+    check(counter_delta(c0)["Captures"] == 0 and got[0][0, 0] == inserted[-1],
+          f"the row appended in place after the capture is not the replay's top hit: {got[0][0]}")
+    log(f"  18m: {MESH_NEW:,} rows appended after the build (the delta route), then one more in "
+        f"place after its capture: the next replay returns it first, with no recapture")
+    t0 = time.perf_counter()
+    t.build_mstg(IVF_NCENT)
+    sync(dev)
+    log(f"  build_mstg({IVF_NCENT}) {time.perf_counter() - t0:.2f} s")
+    ncell = [(f"mesh_twostage_nprobe{op}", vector(params=ivf), batches, delete(t), plain)]
+    cells(ncell, {ncell[0][0]: ncell[0][1]})
+    del t
+
+    t0 = time.perf_counter()
+    tt = program_mesh_text_table(ms, dev, hyb)
+    log(f"  18o's table: {tt.n_rows:,} documents over {tt.mesh} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gone = iter(range(tt.n_rows - 1, 0, -1))
+
+    def text(qb):
+        return tt._text_run(qb, K)[0]
+
+    def hybrid(ftype):
+        return lambda p: tt._hybrid_run(p[0], p[1], K, filter=None, params=None,
+                                        fusion_k=HYBRID_FUSION_K, fusion_type=ftype,
+                                        fusion_weight=HYBRID_WEIGHT)[0]
+
+    def tdelete():
+        while tt.delete(next(gone)) != 1:
+            pass
+
+    pairs = list(zip(vb, tb))
+    hyb_opts = {"max_api": HYBRID_MAX_API, "recaptures": 0}
+    tcells = [("mesh_text_3word", text, tb, tdelete, plain),
+              ("mesh_hybrid_rrf", hybrid("rrf"), pairs, tdelete, hyb_opts),
+              ("mesh_hybrid_rsf", hybrid("rsf"), pairs, tdelete, hyb_opts)]
+    cells(tcells, {c[0]: c[1] for c in tcells})
+    del tt
+    torch.cuda.synchronize()
+    return out
+
+
 def program_serving(srv, clock, t, queries, oracle, card):
     """18g, inside 14d: the coalescing server's grid at PROGRAM_SERVER_POINTS
     with each window cut to PROGRAM_SERVER_SECONDS, PROGRAM_ROUNDS rounds
@@ -5666,7 +5839,8 @@ def main(argv=None):
     ap.add_argument("--programs-only", action="store_true",
                     help="run the set-up, phases 3-4 and phase 18 (the search programs against "
                          "their eager bodies, on its own IVFFLAT at nprobe 2, its own binary "
-                         "table and phase 9's text table) only, and print no record")
+                         "table, phase 9's text table and the mesh tables of 18l-o) only, and "
+                         "print no record")
     ap.add_argument("--root", default=None,
                     help="import myscaledb_tpu_torch from this checkout (another commit's, "
                          "for a same-machine comparison) instead of this file's")
@@ -5751,6 +5925,9 @@ def main(argv=None):
             f"{SIFT_SMALL_N:,} rows)")
         hyb, _, _, text_tb, text_lb, _, text_vb = text_table(ms, dev, card, sift_db)
         program_text_path(ms, hyb, text_vb, text_tb, text_lb, here, card, args.out)
+        log(f"[18l-o] MeshTable programs over {MESH_SHARDS} shards of the card")
+        program_mesh_path(ms, dev, sift, sift_queries, hyb, text_vb, text_tb, 2, here, card,
+                          args.out)
         sift_db.drop_table("hybrid")
         del hyb
         log("[18g] the coalescing server on phase 3's table, graph replays against eager bodies")
@@ -5872,6 +6049,9 @@ def main(argv=None):
     del bin_t
     log(f"[18h-k] text and hybrid programs on phase 9's table")
     program_text_path(ms, hyb, text_vb, text_tb, text_lb, here, card, args.out)
+    log(f"[18l-o] MeshTable programs over {MESH_SHARDS} shards of the card")
+    program_mesh_path(ms, dev, sift, sift_queries, hyb, text_vb, text_tb, ivf_op, here, card,
+                      args.out)
     p18 = {name: w.launches for name, w in wrappers18.items()}
     log(f"  kernel launches on phase 18's paths: {p18}; phase 18 took "
         f"{time.perf_counter() - t18:.2f} s")

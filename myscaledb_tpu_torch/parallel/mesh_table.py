@@ -31,7 +31,17 @@ JAX package's layout. Rows are identified by the caller's `id` column.
 
 The filter is called eagerly on each shard's columns: the JAX package's
 `_PredicateCache` exists only to keep `jax.jit` from retracing a fresh
-lambda, and eager PyTorch has nothing to retrace.
+lambda, and eager PyTorch has nothing to retrace; its mask is copied into
+the search's program.
+
+Every search is one program (parallel/distributed.py::MeshProgram: on a
+one-card grid one CUDA graph; across cards a graph a card) of the table's
+caches: `_programs` for vector searches, `_text_programs` for BM25,
+`_hybrid_programs` for hybrid searches, keyed on their static arguments,
+the padded batch, the mask's kind and the cache's generation. A graph
+reads the table's tensors in place, so in-place inserts and deletes need
+no recapture; a reseal, an index build and a text-index rebuild make new
+tensors and drop the programs that read the old ones.
 """
 
 from __future__ import annotations
@@ -48,18 +58,21 @@ from ..errors import QueryShapeError, SchemaError
 from ..metrics import Metric
 from ..ops import kmeans, quantize
 from ..ops.topk import topk_stable
+from ..search.program import ProgramCache, pack_topk
 from .distributed import (
+    Fresh,
     Mesh,
-    _to,
+    MeshProgram,
     all_gather,
-    distributed_bm25_topk_batch,
-    distributed_ivf_topk,
-    distributed_scan_topk,
-    distributed_twostage_topk,
+    ivf_leg,
     make_mesh,
+    pack_bm25_plan,
+    packed_bm25_leg,
     replicate,
+    scan_leg,
     shard_rows,
     sharded_kmeans_fit,
+    twostage_leg,
 )
 
 ALIGN = 8  # row padding multiple per shard
@@ -80,8 +93,13 @@ def _merge_topk(va, ra, vb, rb, k):
     return mv, torch.where(torch.isfinite(mv), mr, torch.full_like(mr, -1))
 
 
-def _and(a: List[torch.Tensor], b: List[torch.Tensor]) -> List[torch.Tensor]:
-    return [torch.logical_and(x, _to(y, x.device)) for x, y in zip(a, b)]
+def _legs_merged(outs, k):
+    """The vector leg's (scores, rows): the route's list, merged with the
+    delta scan's when it ran."""
+    v, r = outs[0]
+    if len(outs) > 1:
+        v, r = _merge_topk(v, r, *outs[1], k)
+    return v, r
 
 
 def _cluster_major(x, a, al, cents, c: int):
@@ -175,10 +193,23 @@ class MeshTable:
         self._delta_mask = None  # per shard bool[cap]: slots not in the index
         self._text: Optional[_TextIndex] = None
         self._text_stale = True
+        # the searches' programs; a hybrid one reads both sides' tensors
+        self._programs = ProgramCache()
+        self._text_programs = ProgramCache()
+        self._hybrid_programs = ProgramCache()
 
     @property
     def _first(self) -> torch.device:
         return self.mesh.devices[0][0]
+
+    def _drop_programs(self, *, vector: bool = True, text: bool = True) -> None:
+        """Drop the programs that read tensors about to be replaced (and
+        with them the graphs), moving each cache's generation on."""
+        if vector:
+            self._programs.invalidate()
+        if text:
+            self._text_programs.invalidate()
+        self._hybrid_programs.invalidate()
 
     # -------------------------------------------------------------- ingest
     def insert(self, columns: Dict[str, Any]) -> int:
@@ -376,6 +407,7 @@ class MeshTable:
             alive &= ~dead
         valid = np.nonzero(ids_pad >= 0)[0]
         id2slot = dict(zip(ids_pad[valid].tolist(), valid.tolist()))
+        self._drop_programs()
         self._s = _Sealed(
             cap,
             fill,
@@ -390,18 +422,23 @@ class MeshTable:
         return self._s
 
     # -------------------------------------------------------------- search
-    def _mask_for(self, filter, s: _Sealed) -> List[torch.Tensor]:
-        """Per shard bool[cap]: alive ∩ filter, the filter called on the
-        shard's columns on its device."""
+    def _mask_inputs(self, filter, s: _Sealed):
+        """(the mask's kind, the row-sharded masks a program ANDs, the
+        run's inputs): the table's own `alive`, read in place by the
+        graph, and a filter's mask (the filter called on each shard's
+        columns), copied into the program on every run."""
         if filter is None:
-            return s.alive
-        out = []
-        for sh, alive in enumerate(s.alive):
-            keep = filter(**{c: s.cols[c][sh] for c in s.cols})
-            out.append(torch.logical_and(alive, torch.as_tensor(keep, device=alive.device)))
-        return out
+            return "alive", [s.alive], {}
+        keep = {}
+        for d, alive in enumerate(s.alive):
+            m = filter(**{c: s.cols[c][d] for c in s.cols})
+            keep[("keep", d)] = torch.as_tensor(m, device=alive.device).to(torch.bool)
+        fresh = [Fresh(("keep", d), (s.cap,), torch.bool) for d in range(self.n_shards)]
+        return "filter", [s.alive, fresh], keep
 
-    def _queries_dev(self, query) -> Tuple[torch.Tensor, int]:
+    def _queries_host(self, query) -> Tuple[np.ndarray, int]:
+        """The queries padded to a multiple of ALIGN a query group, as the
+        program's host input (uploaded through pinned staging)."""
         q = np.asarray(query, np.float32)
         if q.ndim == 1:
             q = q[None]
@@ -412,52 +449,46 @@ class MeshTable:
         nq_pad = -(-nq // (qax * ALIGN)) * (qax * ALIGN)
         qp = np.zeros((nq_pad, self.dim), np.float32)
         qp[:nq] = q
-        return torch.from_numpy(qp).to(self._first), nq
+        return qp, nq
 
-    def _vector_rows(self, qdev, k, *, mask, nprobe, num_reorder=0):
-        """(scores, global slot rows) [Qpad, k] on the grid's first device
-        for the vector leg: exact scan, or IVF/two-stage probe merged with
-        the DELTA exact scan covering slots appended after the build."""
-        s = self._s
-        v = r = None
+    def _vector_route(self, k: int, params: Optional[Dict]):
+        """(route, whether the delta scan runs, nprobe, num_reorder,
+        bucket_pad): exact, or the IVF / two-stage probe merged with the
+        DELTA exact scan over slots appended after the build."""
+        nprobe = int((params or {}).get("nprobe", 0))
+        num_reorder = int((params or {}).get("num_reorder", 0))
         if self._mstg is not None and nprobe > 0:
-            cents, csq, lo, scale, pcodes, psq, prows, cstart, bpad = self._mstg
-            v, r = distributed_twostage_topk(
-                self.mesh, qdev, cents, csq, lo, scale, pcodes, psq,
-                prows, cstart, s.data, s.aux,
-                k=k, nprobe=nprobe,
-                num_reorder=num_reorder or max(4 * k, 64),
-                bucket_pad=bpad, rows_per_shard=s.cap, mask=mask,
-            )
-        elif self._ivf is not None and nprobe > 0:
-            cents, csq, pdata, paux, prows, cstart, bpad = self._ivf
-            v, r = distributed_ivf_topk(
-                self.mesh, qdev, cents, csq, pdata, paux, prows, cstart,
-                k=k, nprobe=nprobe, bucket_pad=bpad, rows_per_shard=s.cap,
-                mask=mask,
-            )
-        if v is not None:
-            if bool((s.fill > self._ivf_fill).any()):
-                dv, dr = distributed_scan_topk(
-                    self.mesh, qdev, s.data, s.aux, k=k, metric=self.metric,
-                    rows_per_shard=s.cap, mask=_and(mask, self._delta_mask_dev()),
-                )
-                v, r = _merge_topk(v, r, dv, dr, k)
-            return v, r
-        return distributed_scan_topk(
-            self.mesh, qdev, s.data, s.aux, k=k, metric=self.metric,
-            rows_per_shard=s.cap, mask=mask,
-        )
+            return "mstg", self._delta_on(), nprobe, num_reorder or max(4 * k, 64), self._mstg[-1]
+        if self._ivf is not None and nprobe > 0:
+            return "ivf", self._delta_on(), nprobe, 0, self._ivf[-1]
+        return "exact", False, 0, 0, 0
 
-    def _delta_mask_dev(self) -> List[torch.Tensor]:
-        """Per shard bool[cap] of slots NOT covered by the built index
-        (appended after the build). Static until the next build/reseal."""
-        if self._delta_mask is None:
-            s = self._s
-            pos = np.arange(s.cap * self.n_shards)
-            dm = (pos % s.cap) >= self._ivf_fill[pos // s.cap]
-            self._delta_mask = shard_rows(self.mesh, dm)
-        return self._delta_mask
+    def _delta_on(self) -> bool:
+        return bool((self._s.fill > self._ivf_fill).any())
+
+    def _vector_legs(self, route, delta, k, nprobe, num_reorder, masks, view=None):
+        """The vector leg's programs' legs: the route's, then the delta
+        scan's (its tail merges the two)."""
+        s = self._s
+        scan = dict(k=k, metric=self.metric, rows_per_shard=s.cap, view=view)
+        if route == "exact":
+            return [scan_leg(s.data, s.aux, masks, **scan)]
+        probe = dict(k=k, nprobe=nprobe, rows_per_shard=s.cap, view=view)
+        if route == "mstg":
+            cents, csq, lo, scale, pcodes, psq, prows, cstart, bpad = self._mstg
+            legs = [twostage_leg(cents, csq, lo, scale, pcodes, psq, prows, cstart, s.data,
+                                 s.aux, masks, num_reorder=num_reorder, bucket_pad=bpad,
+                                 **probe)]
+        else:
+            cents, csq, pdata, paux, prows, cstart, bpad = self._ivf
+            legs = [ivf_leg(cents, csq, pdata, paux, prows, cstart, masks, bucket_pad=bpad,
+                            **probe)]
+        if delta:
+            legs.append(scan_leg(s.data, s.aux, [*masks, self._delta_mask], **scan))
+        return legs
+
+    def _label(self, what: str) -> str:
+        return f"MeshTable {self.name!r}: {what} over {self.n_shards} shards of {self.mesh}"
 
     def _ids_of(self, rows_host, vals_host):
         out = np.where(
@@ -466,6 +497,35 @@ class MeshTable:
             -1,
         )
         return np.where(np.isfinite(vals_host), out, -1)
+
+    def _read(self, packed: torch.Tensor, nq: int):
+        """(ids int64[nq, k], scores f32[nq, k]) of a program's packed
+        [2, Qpad, k] output (scores' bits, global slot rows): one copy to
+        the host."""
+        h = packed.cpu().numpy()[:, :nq]
+        vh = np.ascontiguousarray(h[0]).view(np.float32)
+        return self._ids_of(h[1], vh), vh
+
+    def _vector_run(self, query, k: int, *, filter=None, params=None):
+        """The vector search's program run: (packed int32[2, Qpad, k] on
+        the grid's first device (scores' bits, global slot rows), nq)."""
+        s = self._seal()
+        version = self._programs.version
+        q, nq = self._queries_host(query)
+        kind, masks, fresh = self._mask_inputs(filter, s)
+        route, delta, nprobe, num_reorder, bpad = self._vector_route(k, params)
+        key = ("vector", route, delta, k, nprobe, num_reorder, bpad, q.shape[0], kind,
+               self.metric.value, version)
+
+        def make():
+            legs = self._vector_legs(route, delta, k, nprobe, num_reorder, masks)
+            return MeshProgram(
+                self.mesh, legs, lambda outs: [pack_topk(*_legs_merged(outs, k))],
+                query=(q.shape, torch.float32), out_specs=[((2, q.shape[0], k), torch.int32)],
+                label=self._label(f"{route} search" + (" + delta scan" if delta else "")))
+
+        (out,) = self._programs.get(key, make, version).run(q, fresh)
+        return out, nq
 
     def search(
         self, query, k: int, *, filter=None, params: Optional[Dict] = None
@@ -477,17 +537,7 @@ class MeshTable:
         `params={"nprobe": p}` and a built IVF the probe is
         index-accelerated; filters/deletes apply on the devices, and rows
         inserted after the build are served by the delta scan."""
-        s = self._seal()
-        qdev, nq = self._queries_dev(query)
-        mask = self._mask_for(filter, s)
-        nprobe = int((params or {}).get("nprobe", 0))
-        num_reorder = int((params or {}).get("num_reorder", 0))
-        v, r = self._vector_rows(
-            qdev, k, mask=mask, nprobe=nprobe, num_reorder=num_reorder
-        )
-        vh = v.cpu().numpy()[:nq]
-        rh = r.cpu().numpy()[:nq]
-        return self._ids_of(rh, vh), vh
+        return self._read(*self._vector_run(query, k, filter=filter, params=params))
 
     # ------------------------------------------------------------- indexes
     def _n_centroids(self, s: _Sealed, ncentroids: int) -> int:
@@ -517,13 +567,10 @@ class MeshTable:
             parts["cstart"].append(cstart[None])
             bpad = max(bpad, big)
         bpad = max(ALIGN, -(-bpad // ALIGN) * ALIGN)
-        self._ivf = (
+        self._install_index(ivf=(
             parts["cents"], parts["csq"], parts["pdata"], parts["paux"], parts["prows"],
             parts["cstart"], bpad,
-        )
-        self._ivf_fill = s.fill.copy()
-        self._mstg = None
-        self._delta_mask = None
+        ))
 
     def build_mstg(self, ncentroids: int = 0, *, n_iters: int = 8) -> None:
         """Sharded two-stage (MSTG-kind) index: GLOBAL k-means + a GLOBAL
@@ -565,13 +612,22 @@ class MeshTable:
             parts["cstart"].append(cstart[None])
             bpad = max(bpad, big)
         bpad = max(ALIGN, -(-bpad // ALIGN) * ALIGN)
-        self._mstg = (
+        self._install_index(mstg=(
             parts["cents"], parts["csq"], lo_r, scale_r, parts["codes"], parts["psq"],
             parts["prows"], parts["cstart"], bpad,
-        )
-        self._ivf = None
+        ))
+
+    def _install_index(self, *, ivf=None, mstg=None) -> None:
+        """Serve `ivf` or `mstg` (device parts a shard): the fill it covers
+        and the delta mask of the slots past it (per shard bool[cap],
+        static until the next build or reseal), built here, outside any
+        search; the vector programs that read the old index drop."""
+        s = self._s
+        self._ivf, self._mstg = ivf, mstg
         self._ivf_fill = s.fill.copy()
-        self._delta_mask = None
+        pos = np.arange(s.cap * self.n_shards)
+        self._delta_mask = shard_rows(self.mesh, (pos % s.cap) >= self._ivf_fill[pos // s.cap])
+        self._drop_programs(text=False)
 
     # ---------------------------------------------------------------- text
     def _text_index(self) -> _TextIndex:
@@ -584,6 +640,7 @@ class MeshTable:
         s = self._seal()
         if self._text is not None and not self._text_stale:
             return self._text
+        self._drop_programs(vector=False)
         from ..text.analyzer import Analyzer
         from ..text.inverted import BM25Stats, InvertedIndex
 
@@ -629,10 +686,10 @@ class MeshTable:
         self._text_stale = False
         return self._text
 
-    def _text_rows(self, queries: List[str], k: int, *, mask):
-        """(scores, global slot rows) [Q, k] for the BM25 leg."""
-        ti = self._text_index()
-        s = self._s
+    def _text_plan(self, ti: _TextIndex, queries: List[str]):
+        """The BM25 plan of `queries` (one a row; "" an empty query) as the
+        program's packed int32 input (`distributed.pack_bm25_plan`), with
+        T (the padded term count) and the posting-slice budget."""
         terms_per_q = []
         for qt in queries:
             toks = ti.shards[0].analyzer.tokenize(str(qt))
@@ -653,32 +710,41 @@ class MeshTable:
                     lengths[sh, qi, tj] = ln
                     max_len = max(max_len, ln)
         budget = min(_pow2(max_len), ti.budget_cap)
-        return distributed_bm25_topk_batch(
-            self.mesh,
-            shard_rows(self.mesh, starts),
-            shard_rows(self.mesh, lengths),
-            replicate(self.mesh, idfs),
-            replicate(self.mesh, np.float32(ti.stats.avg_doc_len)),
-            ti.prow,
-            ti.ptf,
-            ti.dlen,
-            mask,
-            k=k,
-            budget=budget,
-            rows_per_shard=s.cap,
-        )
+        return pack_bm25_plan(starts, lengths, idfs, ti.stats.avg_doc_len), T, budget
+
+    def _text_leg(self, ti: _TextIndex, T: int, budget: int, k: int, masks, view=None):
+        return packed_bm25_leg(ti.prow, ti.ptf, ti.dlen, masks, n_terms=T, k=k, budget=budget,
+                               rows_per_shard=self._s.cap, view=view)
 
     def text_search(self, queries, k: int, *, filter=None):
         """BM25 top-k for one query string or a list of them. Returns
         (ids int64[Q, k], scores f32[Q, k])."""
+        return self._read(*self._text_run(queries, k, filter=filter))
+
+    def _text_run(self, queries, k: int, *, filter=None):
+        """The text search's program run over the batch padded to a
+        multiple of ALIGN (pad rows are empty queries): (packed
+        int32[2, Qpad, k] on the grid's first device, nq)."""
         if isinstance(queries, str):
             queries = [queries]
+        queries = list(queries)
         s = self._seal()
-        mask = self._mask_for(filter, s)
-        v, r = self._text_rows(list(queries), k, mask=mask)
-        vh = v.cpu().numpy()
-        rh = r.cpu().numpy()
-        return self._ids_of(rh, vh), vh
+        ti = self._text_index()
+        version = self._text_programs.version
+        nq = len(queries)
+        nq_pad = -(-nq // ALIGN) * ALIGN
+        plan, T, budget = self._text_plan(ti, queries + [""] * (nq_pad - nq))
+        kind, masks, fresh = self._mask_inputs(filter, s)
+        key = ("text", k, T, budget, nq_pad, kind, version)
+
+        def make():
+            return MeshProgram(
+                self.mesh, [self._text_leg(ti, T, budget, k, masks)],
+                lambda outs: [pack_topk(*outs[0])], query=(plan.shape, torch.int32),
+                out_specs=[((2, nq_pad, k), torch.int32)], label=self._label("BM25"))
+
+        (out,) = self._text_programs.get(key, make, version).run(plan, fresh)
+        return out, nq
 
     def hybrid_search(
         self,
@@ -697,43 +763,65 @@ class MeshTable:
         Distributed initiator fusion, StorageDistributed.cpp:1058).
         fusion_type "rrf" (rank fusion) or "rsf" (relative-score fusion,
         HybridSearchUtils.cpp:212 — w·norm_text + (1-w)·norm_vec over
-        min-max-normalized leg scores). Returns
-        (ids int64[Q, k], fused_scores f32[Q, k])."""
+        min-max-normalized leg scores). Both legs and the fuse are one
+        program. Returns (ids int64[Q, k], fused_scores f32[Q, k])."""
+        ids, vh = self._read(*self._hybrid_run(
+            query_vec, query_text, k, filter=filter, params=params, fusion_k=fusion_k,
+            fusion_type=fusion_type, fusion_weight=fusion_weight))
+        return ids, np.where(ids >= 0, vh, -np.inf)
+
+    def _hybrid_run(self, query_vec, query_text, k: int, *, filter, params, fusion_k: int,
+                    fusion_type: str, fusion_weight: float):
+        """The hybrid search's program run: one packed int32 input a row
+        (the query's f32 bits, then its BM25 plan; the text batch padded
+        as the vectors are), both legs and the fuse in one program:
+        (packed int32[2, Qpad, k] (fused scores' bits, global slot rows),
+        nq)."""
         from ..search.fusion import rrf_fuse_t, rsf_fuse_t
 
+        if fusion_type not in ("rrf", "rsf"):
+            raise QueryShapeError(f"unknown fusion_type {fusion_type!r}")
         s = self._seal()
-        qdev, nq = self._queries_dev(query_vec)
-        mask = self._mask_for(filter, s)
-        nprobe = int((params or {}).get("nprobe", 0))
-        num_reorder = int((params or {}).get("num_reorder", 0))
-        vv, vr = self._vector_rows(
-            qdev, k, mask=mask, nprobe=nprobe, num_reorder=num_reorder
-        )
-        tv, tr = self._text_rows(
-            [query_text] * nq if isinstance(query_text, str) else list(query_text),
-            k,
-            mask=mask,
-        )
-        vv, vr = vv[:nq], vr[:nq]
-        tv, tr = _to(tv, vv.device), _to(tr, vv.device)
+        ti = self._text_index()
+        version = self._hybrid_programs.version
+        q, nq = self._queries_host(query_vec)
+        texts = [query_text] * nq if isinstance(query_text, str) else list(query_text)
+        if len(texts) != nq:
+            raise QueryShapeError(f"text batch ({len(texts)}) must match the vectors ({nq})")
+        nq_pad, dim = q.shape
+        plan, T, budget = self._text_plan(ti, texts + [""] * (nq_pad - nq))
+        packed = np.concatenate([q.view(np.int32), plan], axis=1)
+        kind, masks, fresh = self._mask_inputs(filter, s)
+        route, delta, nprobe, num_reorder, bpad = self._vector_route(k, params)
+        key = ("hybrid", route, delta, k, nprobe, num_reorder, bpad, T, budget, nq_pad, kind,
+               self.metric.value, fusion_type, fusion_k, fusion_weight, version)
 
         def tags(r):
             return torch.where(r >= 0, 0, -1).to(torch.int32)
 
-        if fusion_type == "rsf":
-            fv, _ftag, fr = rsf_fuse_t(
-                tags(vr), vr, vv, tags(tr), tr, tv, k,
-                fusion_weight=fusion_weight,
-                vec_ascending_better=False,  # internal scores: max = best
-            )
-        elif fusion_type == "rrf":
-            fv, _ftag, fr = rrf_fuse_t(tags(vr), vr, tags(tr), tr, k, fusion_k=fusion_k)
-        else:
-            raise QueryShapeError(f"unknown fusion_type {fusion_type!r}")
-        vh = fv.cpu().numpy()
-        rh = fr.cpu().numpy()
-        vh = np.where(rh >= 0, vh, -np.inf)
-        return self._ids_of(rh, vh), vh
+        def tail(outs):
+            vv, vr = _legs_merged(outs[:-1], k)
+            tv, tr = outs[-1]
+            if fusion_type == "rsf":
+                fv, _ftag, fr = rsf_fuse_t(
+                    tags(vr), vr, vv, tags(tr), tr, tv, k, fusion_weight=fusion_weight,
+                    vec_ascending_better=False,  # internal scores: max = best
+                )
+            else:
+                fv, _ftag, fr = rrf_fuse_t(tags(vr), vr, tags(tr), tr, k, fusion_k=fusion_k)
+            return [pack_topk(fv, fr)]
+
+        def make():
+            legs = self._vector_legs(route, delta, k, nprobe, num_reorder, masks,
+                                     view=lambda x: x[:, :dim].view(torch.float32))
+            legs.append(self._text_leg(ti, T, budget, k, masks, view=lambda x: x[:, dim:]))
+            return MeshProgram(
+                self.mesh, legs, tail, query=(packed.shape, torch.int32),
+                out_specs=[((2, nq_pad, k), torch.int32)],
+                label=self._label(f"hybrid {fusion_type.upper()} ({route} + BM25)"))
+
+        (out,) = self._hybrid_programs.get(key, make, version).run(packed, fresh)
+        return out, nq
 
     def batch_distance(
         self, queries, k: int, *, filter=None, params: Optional[Dict] = None

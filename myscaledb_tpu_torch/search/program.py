@@ -33,6 +33,13 @@ Every entry of one device captures into that device's one memory pool,
 so no two of its replays may overlap: a device's entries share one lock,
 held from the input copy until the output copy is enqueued, and a run on
 another stream than the last one waits for it first.
+
+A `GridProgram` is one entry over several devices (the mesh's programs,
+parallel/distributed.py): a `Program` a device, so no graph holds work of
+two devices. Every part but the last runs first; the last, on the merging
+device, takes each part's output as an input copied in after its own: a
+copy between devices that torch orders behind the part's replay with
+events on both streams, with no host wait.
 """
 
 from __future__ import annotations
@@ -283,6 +290,22 @@ class Program:
         self.graph = graph
         self.launches = tuple(record)
         GLOBAL_COUNTERS.bump("SearchProgramCaptures")
+
+
+class GridProgram:
+    """`parts`: one Program a device, the merging device's last. Each part
+    but the last returns its static output's copy; the last part's inputs
+    are its own, then those copies in part order. Returns the last part's
+    output."""
+
+    def __init__(self, parts: Sequence[Program]):
+        self.parts = list(parts)
+
+    def run(self, queries, inputs: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+        """`queries`: every part's query input (each device gets its own
+        copy); `inputs[i]`: part i's own copied-in inputs."""
+        outs = [p.run(queries, ins) for p, ins in zip(self.parts[:-1], inputs)]
+        return self.parts[-1].run(queries, [*inputs[-1], *outs])
 
 
 class ProgramCache:

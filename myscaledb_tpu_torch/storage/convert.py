@@ -283,16 +283,12 @@ def mesh_indexes_from_arrays(table, ivf=None, mstg=None) -> None:
     mesh = table.mesh
     if ivf is not None:
         *arrays, bpad = ivf
-        table._ivf = tuple(_mesh_parts(mesh, a) for a in arrays) + (int(bpad),)
-        table._mstg = None
+        table._install_index(ivf=tuple(_mesh_parts(mesh, a) for a in arrays) + (int(bpad),))
     else:
         cents, csq, lo, scale, *arrays, bpad = mstg
-        table._mstg = (
+        table._install_index(mstg=(
             _mesh_parts(mesh, cents), _mesh_parts(mesh, csq),
             replicate(mesh, np.asarray(lo, np.float32)),
             replicate(mesh, np.asarray(scale, np.float32)),
             *(_mesh_parts(mesh, a) for a in arrays), int(bpad),
-        )
-        table._ivf = None
-    table._ivf_fill = s.fill.copy()
-    table._delta_mask = None
+        ))
