@@ -93,14 +93,15 @@ class SearchResult:
 
     def _materialize(self):
         if self._host is None:
-            if self._packed is not None:
-                packed = self._packed.cpu().numpy()[:, : self.nq]
-                vals, tags, rows = packed[0].view(np.float32), packed[1], packed[2]
-            else:
-                vals, tags, rows = (t[: self.nq].cpu().numpy() for t in self._device)
-            rows = rows.astype(np.int32)
-            segs = np.where(tags >= 0, self._seg_ids[np.maximum(tags, 0)], -1)
-            self._host = (vals, segs.astype(np.int64), rows)
+            with span("result.readback"):
+                if self._packed is not None:
+                    packed = self._packed.cpu().numpy()[:, : self.nq]
+                    vals, tags, rows = packed[0].view(np.float32), packed[1], packed[2]
+                else:
+                    vals, tags, rows = (t[: self.nq].cpu().numpy() for t in self._device)
+                rows = rows.astype(np.int32)
+                segs = np.where(tags >= 0, self._seg_ids[np.maximum(tags, 0)], -1)
+                self._host = (vals, segs.astype(np.int64), rows)
         return self._host
 
     @property
@@ -490,13 +491,9 @@ class VectorSearchExecutor:
             dyn_np = None
         mats = [materialize_mask(m) for m in masks]
         specs = tuple(mask_spec(m) for m in mats)
-        refs: List[torch.Tensor] = []
-        key = (
-            "fused", k, bucketed, nq_pad, dpad, tuple(qh.shape[1:]), is_binary, specs,
-            tuple(signature(s, refs) for s in searchers), dyn_np is not None, version,
-        )
         kinds = [None if sp is None else sp[0] for sp in specs]
         found = tuple(searchers)
+        refs: List[torch.Tensor] = []  # filled with the key: the tensors the program reads
 
         def body(q, mbufs, dyn):
             return _fused_multi_search(
@@ -513,9 +510,13 @@ class VectorSearchExecutor:
                 label=label_of(found), refs=refs,
             )
 
-        packed = t._programs.get(key, make, version).run(
-            qh, [None if m is None else m[1] for m in mats], dyn_np
-        )
+        with span("program.key"):
+            key = (
+                "fused", k, bucketed, nq_pad, dpad, tuple(qh.shape[1:]), is_binary, specs,
+                tuple(signature(s, refs) for s in searchers), dyn_np is not None, version,
+            )
+            prog = t._programs.get(key, make, version)
+        packed = prog.run(qh, [None if m is None else m[1] for m in mats], dyn_np)
         return SearchResult(
             metric,
             device=packed,

@@ -34,6 +34,11 @@ so no two of its replays may overlap: a device's entries share one lock,
 held from the input copy until the output copy is enqueued, and a run on
 another stream than the last one waits for it first.
 
+A run is a `program.run` span (service/tracing.py): the lock, the
+capture on the first run, the launch (on the CPU the eager body) and the
+output's copy, around a `program.load` span (the inputs). No span opens
+inside a body, whose work on the card is the graph's.
+
 A `GridProgram` is one entry over several devices (the mesh's programs,
 parallel/distributed.py): a `Program` a device, so no graph holds work of
 two devices. Every part but the last runs first; the last, on the merging
@@ -54,6 +59,7 @@ import torch
 
 from ..ops._cuda import add_launches, recording_launches
 from ..service.event_log import GLOBAL_COUNTERS
+from ..service.tracing import span
 
 # Entries a cache holds; the least recently used one goes past it.
 MAX_PROGRAMS = 64
@@ -243,9 +249,10 @@ class Program:
         array of at most the query buffer's rows (the rest are zeroed), or
         a tensor of its shape."""
         st = self._state
-        with st.lock:
+        with span("program.run"), st.lock:
             if self.device.type != "cuda":
-                self._load(queries, masks, dyn)
+                with span("program.load"):
+                    self._load(queries, masks, dyn)
                 if self.runs == 0:
                     GLOBAL_COUNTERS.bump("SearchProgramCaptures")
                 self.out.copy_(self._call_body())
@@ -256,7 +263,8 @@ class Program:
                 stream = torch.cuda.current_stream(self.device)
                 if st.last is not None and st.last[0] != stream:
                     stream.wait_event(st.last[1])
-                self._load(queries, masks, dyn)
+                with span("program.load"):
+                    self._load(queries, masks, dyn)
                 if self.graph is None:
                     self._capture(stream)
                 self.graph.replay()

@@ -31,6 +31,7 @@ import torch
 from ..errors import QueryShapeError, SchemaError
 from ..metrics import Metric, score_ascending_better
 from ..service.event_log import GLOBAL_COUNTERS
+from ..service.tracing import span
 from ..text.analyzer import Analyzer
 from ..text.inverted import (
     BM25Stats,
@@ -510,6 +511,16 @@ class TextSearchExecutor:
         and statistics are its one packed input. stats_override: corpus
         statistics injected by a distributed initiator, in place of the
         table's own. The result is device-lazy like vector search."""
+        with span("text_search", table=self.table.name, column=column_or_index):
+            return self._run_traced(
+                column_or_index, query, k, filter=filter, operator=operator,
+                stats_override=stats_override, enable_nlq=enable_nlq, settings=settings,
+            )
+
+    def _run_traced(
+        self, column_or_index, query, k, *, filter, operator, stats_override, enable_nlq,
+        settings,
+    ) -> SearchResult:
         t = self.table
         st = settings or t.settings
         queries = [query] if isinstance(query, str) else list(query)
@@ -725,6 +736,17 @@ class HybridSearchExecutor:
         Batched: vector_query may be [Q, D] with text_query a matching list
         of Q strings (or one string shared by all). Device-lazy: no host
         sync until results are read."""
+        with span("hybrid_search", table=self.table.name, column=vector_column):
+            return self._run_traced(
+                vector_column, text_column_or_index, vector_query, text_query, k,
+                fusion_type=fusion_type, fusion_weight=fusion_weight, fusion_k=fusion_k,
+                filter=filter, operator=operator, params=params, settings=settings,
+            )
+
+    def _run_traced(
+        self, vector_column, text_column_or_index, vector_query, text_query, k, *,
+        fusion_type, fusion_weight, fusion_k, filter, operator, params, settings,
+    ) -> SearchResult:
         t = self.table
         st = settings or t.settings
         k = int(k if k is not None else st.query.default_topk)

@@ -16,7 +16,7 @@ import enum
 import json
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 
 class EventType(enum.Enum):
@@ -131,6 +131,14 @@ class Counters:
     def bump(self, name: str, n: int = 1) -> None:
         with self._lock:
             self._c[name] += n
+
+    def bump_many(self, names: Sequence[str], counts: Sequence[int]) -> None:
+        """bump(name, n) for each name of `names` and n of `counts`, under
+        one hold of the lock."""
+        with self._lock:
+            c = self._c
+            for name, n in zip(names, counts):
+                c[name] += n
 
     def get(self, name: str) -> int:
         with self._lock:

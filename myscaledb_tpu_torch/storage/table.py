@@ -1013,20 +1013,20 @@ class Table:
         '-term' excludes."""
         from ..search.text_executor import TextSearchExecutor
 
-        t0 = time.time()
-        self._require_versioned(final)
-        st = settings or self.settings
-        k_eff = int(k if k is not None else st.query.default_topk)
-        res = TextSearchExecutor(self).run(
-            column_or_index, query, self._final_fetch_k(k_eff, st) if final else k,
-            filter=filter, operator=operator, stats_override=stats_override,
-            enable_nlq=enable_nlq, settings=st,
-        )
-        if final:
-            res = self._apply_final(res, k_eff)
-        self._log_query("text_search", column_or_index, res.nq, k_eff, t0,
-                        query_text=str(query)[:200])
-        return res
+        with span("table.text_search") as sp:
+            self._require_versioned(final)
+            st = settings or self.settings
+            k_eff = int(k if k is not None else st.query.default_topk)
+            res = TextSearchExecutor(self).run(
+                column_or_index, query, self._final_fetch_k(k_eff, st) if final else k,
+                filter=filter, operator=operator, stats_override=stats_override,
+                enable_nlq=enable_nlq, settings=st,
+            )
+            if final:
+                res = self._apply_final(res, k_eff)
+            self._log_query("text_search", column_or_index, res.nq, k_eff, sp,
+                            query_text=str(query)[:200])
+            return res
 
     def hybrid_search(
         self,
@@ -1048,26 +1048,27 @@ class Table:
         """hybridsearch('fusion_type=...')(vec, text, [q], 'text') analogue."""
         from ..search.text_executor import HybridSearchExecutor
 
-        t0 = time.time()
-        self._require_versioned(final)
-        st = settings or self.settings
-        k_eff = int(k if k is not None else st.query.default_topk)
-        res = HybridSearchExecutor(self).run(
-            vector_column, text_column, vector_query, text_query,
-            self._final_fetch_k(k_eff, st) if final else k,
-            fusion_type=fusion_type, fusion_weight=fusion_weight, fusion_k=fusion_k,
-            filter=filter, operator=operator, params=params, settings=st,
-        )
-        if final:
-            res = self._apply_final(res, k_eff)
-        self._log_query("hybrid_search", vector_column, res.nq, k_eff, t0,
-                        query_text=str(text_query)[:200])
-        return res
+        with span("table.hybrid_search") as sp:
+            self._require_versioned(final)
+            st = settings or self.settings
+            k_eff = int(k if k is not None else st.query.default_topk)
+            res = HybridSearchExecutor(self).run(
+                vector_column, text_column, vector_query, text_query,
+                self._final_fetch_k(k_eff, st) if final else k,
+                fusion_type=fusion_type, fusion_weight=fusion_weight, fusion_k=fusion_k,
+                filter=filter, operator=operator, params=params, settings=st,
+            )
+            if final:
+                res = self._apply_final(res, k_eff)
+            self._log_query("hybrid_search", vector_column, res.nq, k_eff, sp,
+                            query_text=str(text_query)[:200])
+            return res
 
-    def _log_query(self, kind, column, nq, k, t0, query_text="", error="") -> None:
+    def _log_query(self, kind, column, nq, k, root: span, query_text="", error="") -> None:
+        """One query-log row; its duration is the root span's so far."""
         GLOBAL_QUERY_LOG.record(
             kind, table=self.name, column=column, query_text=query_text, nq=nq, k=k,
-            rows_read=self.n_rows, duration_ms=(time.time() - t0) * 1e3, error=error,
+            rows_read=self.n_rows, duration_ms=root.elapsed_ms(), error=error,
         )
 
     # ------------------------------------------------ versioned engines
@@ -1273,31 +1274,31 @@ class Table:
         A [D] query is one search; an [Q, D] batch is the batch_distance
         semantics (per-query top-k). final=True keeps only the rows that
         survive the engine's merging algorithm (SELECT ... FINAL)."""
-        t0 = time.time()
-        self._require_versioned(final)
-        m = None
-        if metric is not None:
-            vtype = self.schema.require_vector(column)
-            m = Metric.parse(metric, binary=isinstance(vtype, BinaryVector))
-        desc = self._index_desc(column) if params else None
-        if desc is not None:
-            registry.validate_search_params(desc.kind, params)
-        st = settings or self.settings
-        k_eff = int(k if k is not None else st.query.default_topk)
-        res = self._executor.run(
-            column,
-            query,
-            self._final_fetch_k(k_eff, st) if final else k,
-            filter=filter,
-            params=params,
-            metric=m,
-            settings=st,
-            two_stage=two_stage,
-        )
-        if final:
-            res = self._apply_final(res, k_eff)
-        self._log_query("vector_search", column, res.nq, k_eff, t0)
-        return res
+        with span("table.search") as sp:
+            self._require_versioned(final)
+            m = None
+            if metric is not None:
+                vtype = self.schema.require_vector(column)
+                m = Metric.parse(metric, binary=isinstance(vtype, BinaryVector))
+            desc = self._index_desc(column) if params else None
+            if desc is not None:
+                registry.validate_search_params(desc.kind, params)
+            st = settings or self.settings
+            k_eff = int(k if k is not None else st.query.default_topk)
+            res = self._executor.run(
+                column,
+                query,
+                self._final_fetch_k(k_eff, st) if final else k,
+                filter=filter,
+                params=params,
+                metric=m,
+                settings=st,
+                two_stage=two_stage,
+            )
+            if final:
+                res = self._apply_final(res, k_eff)
+            self._log_query("vector_search", column, res.nq, k_eff, sp)
+            return res
 
     def compute_distances(
         self, column: str, query, result: SearchResult, metric: Optional[Metric] = None
@@ -1338,6 +1339,10 @@ class Table:
         """Fetch output columns for result hits (the 'read only top-k rows'
         stage). Returns [Q, k] object/num arrays; missing slots get type
         defaults."""
+        with span("table.gather"):
+            return self._gather(result, columns)
+
+    def _gather(self, result: SearchResult, columns: List[str]) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}
         segs = {s.segment_id: s for s in self.live_segments()}
         for cname in columns:
