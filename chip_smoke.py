@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--out DIR] [--f32-tables-only] [--root DIR]
                           [--mesh-cards] [--approx-only] [--programs-only]
+                          [--rescore-only]
 
 Run from the root of a checkout on a machine with one CUDA GPU (an H100:
 the kernels are built for sm_90a). It imports nothing of JAX and nothing
@@ -51,7 +52,10 @@ of the JAX package. Phases, each of which raises on failure:
      routing cost model's constants, as medians over COST_RUNS runs of the
      graph search at two batch sizes (host and device time) and of phase
      5's exact scan, with their spread and the HNSW cell's routing at both
-     ends of it;
+     ends of it; the tile prune's rescore kernel at the benchmark's SIFT
+     and GIST exact shapes (`rescore_path`: against its plain version with
+     a bf16-query control, then timed; `--rescore-only` runs phase 1 and
+     this alone);
   8. the IVF family on phase 3's table: IVFFLAT (ncentroids 1024) with its
      build time, an nprobe sweep that stops at the first recall_ids@10 >=
      0.95 (bench.py's rule), QPS at that operating point at batch 100 and
@@ -315,6 +319,11 @@ KERNEL_SHAPES = [("score", 104, 50_176, 128, "L2"), ("score", 256, 114_688, 1024
 # 16-byte aligned, D = 136 ends mid-chunk; tile_max's 16,512 rows end half
 # way through a 256-row tile
 RAGGED_SHAPES = [("score", 300, 4_099, 136, "L2"), ("tile_max", 300, 16_512, 1024, "L2")]
+# (Q, S, D, metric) of the rescore kernel's comparison and times: the
+# benchmark's SIFT (batch 1,000) and GIST (batch 256, D padded to 1,024)
+# exact cells over a 1,048,576-row segment at k 10 (S = k + TILE_SLACK)
+RESCORE_SHAPES = [(1_000, 12, 128, "L2"), (256, 12, 1024, "L2")]
+RESCORE_N = 1_048_576
 # (Q, D) of the split check: a resident and a streamed query
 SPLIT_SHAPES = [(100, 128), (300, 1024)]
 # (Q, N, D) of the f32 engine's bit-level probes: NT 64 / 104 / 256 / two
@@ -463,6 +472,14 @@ def corpus_centers(d, seed=0):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def check_rescores(launches, where):
+    """A pruned exact scan launches tile_max and then the rescore kernel,
+    once each, so over any phase their two counters agree."""
+    check(launches["tile_rescore"] == launches["tile_max"],
+          f"{where}: tile_max launched {launches['tile_max']} times, the rescore "
+          f"{launches['tile_rescore']}")
 
 
 def log(msg):
@@ -1211,6 +1228,79 @@ def time_kernels(dev, idx, card):
     done("gathermv", rec, call)
     out.update(time_f32_engine(dev, gen, card))
     return out
+
+
+def rescore_path(dev, card):
+    """The rescore kernel (`tilescan.tile_rescore`) at the exact cells'
+    shapes over a clustered bf16 payload, on the sub-tiles the tile_max
+    kernel chooses for queries near rows: against its plain version within
+    `rescore_error_bound` (bf16 payload) and on the f32 copy of the
+    payload, with a control that rounds the query to bf16 and must fall
+    outside it, masked rows -inf; then its time (20 launches after 3
+    warm-up), the plain version's and the bound of its work (the chosen
+    rows, their aux and mask bytes, the queries and sub-tile ids read
+    once, the scores written once). Returns the record fields of the
+    last shape."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, tilescan
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rec, err = {}, 0.0
+    for qn, sn, d, mname in RESCORE_SHAPES:
+        metric = Metric(mname)
+        # make_corpus's clusters, drawn on the card
+        centres = 6.0 * torch.randn((1000, d), generator=gen, device=dev)
+        pick = torch.randint(0, 1000, (RESCORE_N,), generator=gen, device=dev)
+        x32 = centres[pick] + torch.randn((RESCORE_N, d), generator=gen, device=dev)
+        rows = torch.randint(0, RESCORE_N, (qn,), generator=gen, device=dev)
+        q = (x32[rows] + 0.3 * torch.randn((qn, d), generator=gen, device=dev)).contiguous()
+        del centres, pick
+        m8 = (torch.arange(RESCORE_N, device=dev) % 97 != 5).to(torch.uint8)
+        shape = f"Q={qn} S={sn} D={d} N={RESCORE_N} {mname}"
+        for x in (x32.to(torch.bfloat16), x32):
+            aux = distance.base_aux(x, metric)
+            sub = torch.topk(tilescan.tile_maxes(q, x, aux, m8, metric=metric), sn, dim=1).indices
+            got = tilescan.tile_rescore(q, x, aux, m8, sub, metric=metric)
+            want = tilescan.tile_rescore_plain(q, x, aux, m8, sub, metric)
+            tol = tilescan.rescore_error_bound(q, x, aux, sub, metric)
+            kept = m8.reshape(-1, tilescan.SUB)[sub].reshape(qn, -1) != 0
+            check(torch.equal(torch.isneginf(got), ~kept),
+                  f"tile_rescore masks other rows than its mask: {shape}")
+            diff = (got - want).abs()[kept]
+            ratio = float((diff / (tol + distance.KERNEL_RTOL * want.abs())[kept]).max())
+            control = tilescan.tile_rescore_plain(
+                q.to(torch.bfloat16).to(torch.float32), x, aux, m8, sub, metric)
+            n_out = int(distance.outside_kernel_bound(control[kept], want[kept], tol[kept]).sum())
+            what = f"{shape} {str(x.dtype)[6:]}"
+            err = max(err, float(diff.max()))
+            log(f"  tile_rescore {what}: max_abs_err={float(diff.max()):.6g} (worst err/bound "
+                f"{ratio:.3g}); bf16-query control {n_out} of {int(kept.sum())} outside")
+            check(ratio <= 1.0, f"tile_rescore disagrees with its plain version: {what}")
+            check(n_out > 0, f"the bound does not catch a bf16-query rescore: {what}")
+            del got, want, tol, control, diff
+            if x.dtype != torch.bfloat16:
+                continue
+            call = lambda: tilescan.tile_rescore(q, x, aux, m8, sub, metric=metric)  # noqa: E731
+            rec = dict(
+                ms=cuda_time_ms(call),
+                plain_ms=cuda_time_ms(
+                    lambda: tilescan.tile_rescore_plain(q, x, aux, m8, sub, metric)),
+                library_ms=None,  # no one PyTorch call gathers sub-tiles and dots them
+                shape=f"{shape} bf16",
+            )
+            rows_read = qn * sn * tilescan.SUB
+            rec["bound_ms"], rec["bound_by"] = bound(
+                rows_read * (2 * d + 4 + 1) + 4 * qn * d + 8 * qn * sn + 4 * rows_read,
+                2 * rows_read * d, "f32")
+            log(f"  tile_rescore {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, library n/a, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it)  [{card}]")
+        del x32, x, aux, sub, q, m8
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = err
+    return rec
 
 
 def time_f32_engine(dev, gen, card):
@@ -1976,6 +2066,7 @@ def text_path(ms, dev, card, args, db):
 
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     res = [t.text_search("body", qb, k=K) for qb in tb]
     sync(dev)
     w = check_text("text OR 3-word", t, oracle, res, tb, full=1)
@@ -2053,9 +2144,11 @@ def text_path(ms, dev, card, args, db):
                       "RSF ids differ from the numpy fuse of its legs")
         log(f"  hybrid {ftype.upper()} ({kw}): 3 batches equal a numpy fuse of their own legs "
             f"(k {K}, {n_cand} candidates a leg)")
-    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
-    check(launches["score"] > 0 and launches["tile_max"] > 0,
-          f"the hybrid vector leg did not launch score and tile_max: {launches}")
+    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+                "tile_rescore": tilescan.tile_rescore.launches}
+    check(launches["score"] > 0 and launches["tile_max"] > 0 and launches["tile_rescore"] > 0,
+          f"the hybrid vector leg did not launch score, tile_max and the rescore: {launches}")
+    check_rescores(launches, "the hybrid vector leg")
 
     # deletes last: 100 of batch 1's hits, then batch 1 again
     first = sorted({int(i) for r in res[:1] for i in t.gather(r, ["id"])["id"][r.valid]})[:100]
@@ -2085,7 +2178,8 @@ def text_path(ms, dev, card, args, db):
         log(f"[9p] where the time goes on {card}")
         profile_cells([("text_bm25", text, tb), ("hybrid_rrf", hybrid, pairs_h, TEXT_BATCH)],
                       PROFILE_RUNS, args.out, card)
-    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+                "tile_rescore": tilescan.tile_rescore.launches}
     return launches, t, vb, tb, lb, oracle
 
 
@@ -3522,6 +3616,7 @@ def f32_table_path(ms, dev, card, out_dir):
     wrappers = (distance.scores, tilescan.tile_maxes)
     for w in wrappers:
         w.launches = w.launches_f32 = 0
+    tilescan.tile_rescore.launches = 0
     cells, dbs = [], []
     for label, n, d, metric, batch in (("sift_f32", SIFT_N, SIFT_D, "L2", SIFT_BATCH),
                                        ("gist_f32", GIST_N, GIST_D, "Cosine", GIST_BATCH)):
@@ -3567,6 +3662,7 @@ def f32_table_path(ms, dev, card, out_dir):
     log(f"  where the time goes on {card}:")
     profile_cells(cells, F32_TABLE_RUNS, out_dir, card)
     counts = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+              "tile_rescore": tilescan.tile_rescore.launches,
               "score_f32": distance.scores.launches_f32,
               "tile_max_f32": tilescan.tile_maxes.launches_f32}
     for db in dbs:
@@ -4730,10 +4826,12 @@ def mesh_path(ms, dev, sift, queries, hyb, oracle, vb, tb, ref_qps, card):
         f"({tied} near-tied)")
     del g22
     mesh_qps = qps(lambda qb: t.search(qb, K), batches, SIFT_BATCH)
-    before = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    before = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+              "tile_rescore": tilescan.tile_rescore.launches}
     one_qps = qps(lambda qb: sift.search("vec", qb, k=K, metric="L2"), batches, SIFT_BATCH)
     ref_launches = {"score": distance.scores.launches - before["score"],
-                    "tile_max": tilescan.tile_maxes.launches - before["tile_max"]}
+                    "tile_max": tilescan.tile_maxes.launches - before["tile_max"],
+                    "tile_rescore": tilescan.tile_rescore.launches - before["tile_rescore"]}
     log(f"  exact L2 QPS (batch {SIFT_BATCH}, k={K}, best of 3 passes): MeshTable {MESH_SHARDS} "
         f"shards {mesh_qps:.1f} (host arrays back each batch); phase 3's table now {one_qps:.1f}, "
         f"in phase 5 {ref_qps['phase 5']:.1f}; 15c's {REP_SHARDS}-shard ShardedTable "
@@ -5214,11 +5312,13 @@ def approx_phase(ms, dev, sift, sift_batches, sift_gt, gist, gist_batches, gist_
     t_paths = time.perf_counter()
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     gathermv.gather_block_scores.launches = 0
     topk.approx_bin_max.launches = 0
     approx_path(ms, dev, sift, sift_batches, sift_gt, gist, gist_batches, gist_gt, card, args.out)
     p17 = {"approx_bin_max": topk.approx_bin_max.launches, "score": distance.scores.launches,
            "tile_max": tilescan.tile_maxes.launches,
+           "tile_rescore": tilescan.tile_rescore.launches,
            "gathermv": gathermv.gather_block_scores.launches}
     log(f"  kernel launches on phase 17's paths: {p17}; phase 17 took "
         f"{time.perf_counter() - t17:.2f} s ({time.perf_counter() - t_paths:.2f} s of paths)")
@@ -5841,6 +5941,9 @@ def main(argv=None):
                          "their eager bodies, on its own IVFFLAT at nprobe 2, its own binary "
                          "table, phase 9's text table and the mesh tables of 18l-o) only, and "
                          "print no record")
+    ap.add_argument("--rescore-only", action="store_true",
+                    help="run the set-up and the rescore kernel's comparison and times only, "
+                         "and print no record")
     ap.add_argument("--root", default=None,
                     help="import myscaledb_tpu_torch from this checkout (another commit's, "
                          "for a same-machine comparison) instead of this file's")
@@ -5893,6 +5996,13 @@ def main(argv=None):
         log(f"chip_smoke: phase 13 alone passed in {time.perf_counter() - t_start:.1f} s  [{card}]")
         return 0
 
+    if args.rescore_only:
+        log("[7r] the rescore kernel at the exact cells' shapes")
+        rescore_path(dev, card)
+        log(f"chip_smoke: the rescore kernel passed in {time.perf_counter() - t_start:.1f} s  "
+            f"[{card}]")
+        return 0
+
     # ---- 2. kernels vs their plain versions
     errs = {}
     if not args.approx_only:
@@ -5904,14 +6014,17 @@ def main(argv=None):
     # ---- 3./4. the exact paths, with their launch counters zeroed
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     log("[3] SIFT1M-shaped exact path (1,000,000 + 50,000 rows x 128, L2, batch 100, k=10)")
     sift, sift_batches, flt, sift_queries, sift_gt, sift_db = sift_path(ms, dev)
     log("[4] GIST-shaped exact path (100,000 x 960, Cosine, batch 256, k=10)")
     gist, gist_batches, gist_gt, gist_db = gist_path(ms, dev)
-    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    launches = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+                "tile_rescore": tilescan.tile_rescore.launches}
     log(f"  kernel launches on the exact paths: {launches}")
-    for name in ("score", "tile_max"):
+    for name in ("score", "tile_max", "tile_rescore"):
         check(launches[name] > 0, f"kernel {name} was not launched on the exact paths")
+    check_rescores(launches, "the exact paths")
     check(topk.approx_bin_max.launches == 0, "the exact paths launched approx_bin_max")
 
     if args.programs_only:
@@ -5979,6 +6092,7 @@ def main(argv=None):
             "vec", qb, k=K, params={"ef_s": 100}, settings=graph), hb)],
             PROFILE_RUNS, args.out, card)
 
+    check_rescores(p17, "phase 17")
     for name, n in p17.items():
         launches[name] = launches.get(name, 0) + n
 
@@ -5986,6 +6100,7 @@ def main(argv=None):
     log(f"[7] times on {card}")
     timing = time_kernels(dev, idx, card)
     timing["approx_bin_max"] = timing17
+    timing["tile_rescore"] = rescore_path(dev, card)
     cost_model(gist, gist_scan, graph, hb, card, args.out)
 
     # ---- 8. the IVF family and HNSWPQ, with the launch counters zeroed
@@ -5993,12 +6108,15 @@ def main(argv=None):
         f"and a default MSTG; L2, k=10) and HNSWPQ on phase 4's")
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     gathermv.gather_block_scores.launches = 0
     ivf_op, mstg_op = ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
     hnswpq_path(ms, dev, gist, gist_batches, np.concatenate(gist_batches), card)
     p8 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+          "tile_rescore": tilescan.tile_rescore.launches,
           "gathermv": gathermv.gather_block_scores.launches}
     log(f"  kernel launches on the IVF and HNSWPQ paths: {p8}")
+    check_rescores(p8, "phase 8")
     for name, n in p8.items():
         check(n > 0, f"kernel {name} was not launched on phase 8's paths")
         launches[name] += n
@@ -6008,6 +6126,7 @@ def main(argv=None):
         f"{TEXT_WORDS} words from {TEXT_VOCAB:,}, vec FloatVector({SIFT_D}); batch {TEXT_BATCH}, k={K})")
     p9, hyb, text_vb, text_tb, text_lb, text_oracle = text_path(ms, dev, card, args, sift_db)
     log(f"  kernel launches on the text and hybrid path: {p9}")
+    check_rescores(p9, "phase 9")
     for name, n in p9.items():
         launches[name] += n
 
@@ -6036,6 +6155,7 @@ def main(argv=None):
     # bodies run eagerly, with the launch counters zeroed
     t18 = time.perf_counter()
     wrappers18 = {"score": distance.scores, "tile_max": tilescan.tile_maxes,
+                  "tile_rescore": tilescan.tile_rescore,
                   "gathermv": gathermv.gather_block_scores, "binary": binary.binary_scores,
                   "binary_blocks": binary.binary_block_scores, "binary_group": binary.group_probes}
     for w in wrappers18.values():
@@ -6055,6 +6175,7 @@ def main(argv=None):
     p18 = {name: w.launches for name, w in wrappers18.items()}
     log(f"  kernel launches on phase 18's paths: {p18}; phase 18 took "
         f"{time.perf_counter() - t18:.2f} s")
+    check_rescores(p18, "phase 18")
     for name, n in p18.items():
         check(n > 0, f"kernel {name} was not launched on phase 18's paths")
         launches[name] += n
@@ -6063,6 +6184,7 @@ def main(argv=None):
     t11 = time.perf_counter()
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     gathermv.gather_block_scores.launches = 0
     log(f"[11a] mutations on phase 3's table (ADD COLUMN, UPDATE, a filter on the new column, "
         f"compute_distances, DROP COLUMN)")
@@ -6076,9 +6198,11 @@ def main(argv=None):
     log(f"[11d] FINAL on a ReplacingMergeTree(ver) table ({SIFT_N:,} + {FINAL_DUP:,} rows)")
     final_path(ms, dev, sift, card)
     p11 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "tile_rescore": tilescan.tile_rescore.launches,
            "gathermv": gathermv.gather_block_scores.launches}
     log(f"  kernel launches on phase 11's paths: {p11}; phase 11 took "
         f"{time.perf_counter() - t11:.2f} s")
+    check_rescores(p11, "phase 11")
     for name, n in p11.items():
         check(n > 0, f"kernel {name} was not launched on phase 11's paths")
         launches[name] += n
@@ -6088,13 +6212,16 @@ def main(argv=None):
     t14 = time.perf_counter()
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     gathermv.gather_block_scores.launches = 0
     frontend_path(ms, here, card, sift_db, sift, sift_queries, gist_db, gist,
                   np.concatenate(gist_batches), hyb, text_vb, text_tb)
     p14 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "tile_rescore": tilescan.tile_rescore.launches,
            "gathermv": gathermv.gather_block_scores.launches}
     log(f"  kernel launches on phase 14's paths: {p14}; phase 14 took "
         f"{time.perf_counter() - t14:.2f} s")
+    check_rescores(p14, "phase 14")
     for name, n in p14.items():
         check(n > 0, f"kernel {name} was not launched on phase 14's paths")
         launches[name] += n
@@ -6104,10 +6231,13 @@ def main(argv=None):
     t15 = time.perf_counter()
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     sh_qps = replication_path(ms, dev, sift, sift_queries, ivf_op, hyb, text_vb, text_tb, card)
-    p15 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    p15 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "tile_rescore": tilescan.tile_rescore.launches}
     s15 = time.perf_counter() - t15
     log(f"  kernel launches on phase 15's paths: {p15}; phase 15 took {s15:.2f} s")
+    check_rescores(p15, "phase 15")
     for name, n in p15.items():
         check(n > 0, f"kernel {name} was not launched on phase 15's paths")
         launches[name] += n
@@ -6119,15 +6249,18 @@ def main(argv=None):
     t16 = time.perf_counter()
     distance.scores.launches = 0
     tilescan.tile_maxes.launches = 0
+    tilescan.tile_rescore.launches = 0
     ref16 = mesh_path(ms, dev, sift, sift_queries, hyb, text_oracle, text_vb, text_tb,
                       {"phase 5": sift_qps, "15c": sh_qps}, card)
-    p16 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches}
+    p16 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "tile_rescore": tilescan.tile_rescore.launches}
     del text_oracle
     gc.collect()
     log(f"  kernel launches on phase 16's paths: {p16} ({ref16} of them phase 3's table's QPS "
         f"passes in 16a); phase 16 took {time.perf_counter() - t16:.2f} s (host MemAvailable "
         f"{mem_available() / 1e9:.1f} GB after)")
     check(p16["score"] - ref16["score"] > 0, "kernel score was not launched by the mesh")
+    check_rescores(p16, "phase 16")
     for name, n in p16.items():
         launches[name] += n
     sift_db.drop_table("hybrid")
@@ -6137,15 +6270,18 @@ def main(argv=None):
     t12 = time.perf_counter()
     for w in (distance.scores, tilescan.tile_maxes):
         w.launches = w.launches_f32 = 0
+    tilescan.tile_rescore.launches = 0
     gathermv.gather_block_scores.launches = 0
     e12 = host_tier_path(ms, dev, sift, sift_batches, hb, gist_gt, ivf_op, mstg_op,
                          curve[100][0], card)
     p12 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
+           "tile_rescore": tilescan.tile_rescore.launches,
            "gathermv": gathermv.gather_block_scores.launches,
            "score_f32": distance.scores.launches_f32,
            "tile_max_f32": tilescan.tile_maxes.launches_f32}
     log(f"  kernel launches on phase 12's paths: {p12}; phase 12 took "
         f"{time.perf_counter() - t12:.2f} s")
+    check_rescores(p12, "phase 12")
     for name, n in p12.items():
         check(n > 0, f"kernel {name} was not launched on phase 12's paths")
         launches[name] = launches.get(name, 0) + n
@@ -6159,6 +6295,7 @@ def main(argv=None):
     p13 = f32_table_path(ms, dev, card, args.out)
     log(f"  kernel launches on the f32 tables: {p13}; phase 13 took "
         f"{time.perf_counter() - t13:.2f} s")
+    check_rescores(p13, "phase 13")
     for name, n in p13.items():
         check(n > 0, f"kernel {name} was not launched on phase 13's paths")
         launches[name] += n
@@ -6200,6 +6337,11 @@ def main(argv=None):
          "replaces": "myscaledb_tpu/ops/tilescan.py:66",
          "launches": launches["tile_max_f32"], "max_abs_err": errs["tile_max_f32"],
          **{k: timing["tile_max_f32"][k] for k in keys}},
+        {"name": "tile_rescore", "route": "cuda",
+         "source": "myscaledb_tpu_torch/csrc/tile_rescore.cu", "replaces": None,
+         "launches": launches["tile_rescore"],
+         "max_abs_err": timing["tile_rescore"]["max_abs_err"],
+         **{k: timing["tile_rescore"][k] for k in keys}},
         {"name": "approx_bin_max", "route": "cuda",
          "source": "myscaledb_tpu_torch/csrc/approx_topk.cu",
          "replaces": "myscaledb_tpu/ops/topk.py:39",

@@ -49,9 +49,11 @@ def set_exact_precision() -> None:
     run in TF32, which keeps ~10 mantissa bits and reorders near-tied
     neighbours at SIFT score scale. The matmuls this covers are the
     reference `scores_ref` and the kernels' plain versions; the search
-    path's own exact rescore (`tile_topk_scan`) uses no matmul, so it stays
-    exact whatever a caller sets later. PyTorch's defaults already say so;
-    `connect(device="cuda")` applies the policy once, explicitly."""
+    path's own exact rescore (`tilescan.tile_rescore`: f32 FMAs in
+    csrc/tile_rescore.cu, an f32 multiply and sum in its plain version)
+    uses no matmul, so it stays exact whatever a caller sets later.
+    PyTorch's defaults already say so; `connect(device="cuda")` applies
+    the policy once, explicitly."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
@@ -183,6 +185,8 @@ class _Library:
         lib.msd_binary_blocks.restype = ci
         lib.msd_approx_bin_max.argtypes = [vp] * 3 + [ci] * 4 + [vp]
         lib.msd_approx_bin_max.restype = ci
+        lib.msd_tile_rescore.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        lib.msd_tile_rescore.restype = ci
         return lib
 
 

@@ -1,4 +1,4 @@
-"""Tile-max pruned exact scan: CUDA tile-max pass + exact torch rescore.
+"""Tile-max pruned exact scan: CUDA tile-max pass + CUDA exact rescore.
 
 Counterpart of myscaledb_tpu/ops/tilescan.py, a two-phase prune:
 
@@ -17,8 +17,9 @@ the top-(k+slack) sub-tiles by max therefore covers the exact top-k (the
 slack absorbs boundary ties). The rescore applies the same mask, so the
 result equals the exhaustive masked top-k.
 
-`tile_maxes` sends a CUDA tensor to the kernel and a CPU tensor to
-`tile_maxes_plain`; there is no fallback from one to the other.
+`tile_maxes` and `tile_rescore` send a CUDA tensor to their kernel and a
+CPU tensor to their plain version (`tile_maxes_plain`,
+`tile_rescore_plain`); there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ from typing import Tuple
 import torch
 
 from ..metrics import Metric
-from ._cuda import count_launch
+from ._cuda import LIBRARY, METRIC_CODES, check_launch, count_launch, stream_ptr
 from .distance import (
+    F32_SUM_TOL,
     _apply_metric,
     _check_kernel_operands,
     _check_scan_args,
@@ -118,6 +120,104 @@ tile_maxes.launches = 0
 tile_maxes.launches_f32 = 0  # of them, over an f32 payload (the f32 engine)
 
 
+def tile_rescore_plain(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    aux: torch.Tensor,
+    mask_u8: torch.Tensor,
+    sub: torch.Tensor,
+    metric: Metric,
+) -> torch.Tensor:
+    """The rescore kernel's math in torch ops (materializes the gathered
+    sub-tiles and their products)."""
+    q, d = queries.shape
+    n_sub = base.shape[0] // SUB
+    # the gather stays in the storage dtype; only the gathered rows widen
+    g = base.reshape(n_sub, SUB, d)[sub]  # [Q, S, SUB, D]
+    # exact f32 products and sums, widened in the multiply; no matmul, so
+    # no global TF32 setting reaches the rescore
+    qf = queries.to(torch.float32)
+    s = (g * qf[:, None, None, :]).sum(dim=-1).reshape(q, -1)
+    asub = aux.reshape(n_sub, SUB)[sub].reshape(q, -1)
+    s = _apply_metric(s, asub, metric)
+    ok = mask_u8.reshape(n_sub, SUB)[sub].reshape(q, -1) != 0
+    return torch.where(ok, s, torch.full_like(s, float("-inf")))
+
+
+# How far the rescore kernel may lie from its plain version: both compute
+# f32 products of the widened row and the f32 query and f32 sums over D
+# (the kernel fuses each product into its sum with an FMA), in two orders,
+# so they differ by a few f32 ulps of sum_i |q_i x_i| (on an H100 at the
+# benchmark's SIFT and GIST shapes, at most 0.03 of the bound below). The
+# bound is F32_SUM_TOL = 2^-18 of that sum (carried through the metric: x2
+# for L2, x 1/|x| for Cosine) plus KERNEL_RTOL of the score, for the
+# metric's own rounding. A rescore that rounds the query to bf16 before
+# its products errs by up to 2^-9 of each product (about 2^-9 / sqrt(3 D)
+# of the sum), outside the bound at every D the gate admits.
+def rescore_error_bound(
+    queries: torch.Tensor, base: torch.Tensor, aux: torch.Tensor, sub: torch.Tensor,
+    metric: Metric,
+) -> torch.Tensor:
+    """f32[Q, S*SUB]: the |kernel - plain| each rescored row may show,
+    without its KERNEL_RTOL part: F32_SUM_TOL times sum_i |q_i x_i|,
+    carried through the metric's scaling."""
+    q, d = queries.shape
+    g = base.reshape(-1, SUB, d)[sub].to(torch.float32).abs()  # [Q, S, SUB, D]
+    t = (g * queries.to(torch.float32).abs()[:, None, None, :]).sum(dim=-1).reshape(q, -1)
+    if metric == Metric.L2:
+        t = 2.0 * t
+    elif metric == Metric.COSINE:
+        t = t * aux.reshape(-1, SUB)[sub].reshape(q, -1)
+    return F32_SUM_TOL * t
+
+
+def tile_rescore(
+    queries: torch.Tensor,  # f32[Qpad, D]
+    base: torch.Tensor,  # f32|bf16[N, D]
+    aux: torch.Tensor,  # f32[N]
+    mask_u8: torch.Tensor,  # uint8[N]
+    sub: torch.Tensor,  # int64[Qpad, S] sub-tile ids in [0, N/SUB)
+    *,
+    metric: Metric,
+) -> torch.Tensor:
+    """f32[Qpad, S*SUB]: the masked scores of every row of each query's
+    chosen sub-tiles (-inf where the mask is 0), row s*SUB + r of query q
+    being row sub[q, s]*SUB + r of the payload."""
+    _check_scan_args(queries, base, aux, metric, need_aux=True)
+    n, d = base.shape
+    if n % SUB or d % 128:
+        raise ValueError(f"tile_rescore needs N % {SUB} == 0 and D % 128 == 0, got N={n} D={d}")
+    if mask_u8.dtype != torch.uint8 or mask_u8.shape != (n,):
+        raise ValueError(f"mask must be uint8[{n}], got {mask_u8.dtype}{list(mask_u8.shape)}")
+    q = queries.shape[0]
+    if sub.dtype != torch.int64 or sub.dim() != 2 or sub.shape[0] != q:
+        raise ValueError(f"sub must be int64[{q}, S], got {sub.dtype}{list(sub.shape)}")
+    if not 1 <= sub.shape[1] <= n // SUB:
+        raise ValueError(f"sub must choose 1 to {n // SUB} sub-tiles, got {sub.shape[1]}")
+    if mask_u8.device != base.device or sub.device != base.device:
+        raise ValueError("mask and sub must be on the payload's device")
+    if base.device.type == "cpu":
+        return tile_rescore_plain(queries, base, aux, mask_u8, sub, metric)
+    if base.device.type != "cuda":
+        raise ValueError(f"unsupported device {base.device}")
+    _check_kernel_operands(queries, base, aux, mask_u8, sub, d=d)
+    s_n = sub.shape[1]
+    out = torch.empty((q, s_n * SUB), dtype=torch.float32, device=base.device)
+    if q == 0:
+        return out
+    err = LIBRARY.get().msd_tile_rescore(
+        queries.data_ptr(), base.data_ptr(), aux.data_ptr(), mask_u8.data_ptr(), sub.data_ptr(),
+        out.data_ptr(), q, s_n, d, base.element_size(), METRIC_CODES[metric.value],
+        stream_ptr(base.device),
+    )
+    check_launch("msd_tile_rescore", err)
+    count_launch(tile_rescore)
+    return out
+
+
+tile_rescore.launches = 0
+
+
 def tile_topk_scan(
     queries: torch.Tensor,  # f32[Qpad, D] (normalized for Cosine)
     base: torch.Tensor,  # [N, D]
@@ -129,22 +229,12 @@ def tile_topk_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact masked top-k via tile-max prune. Returns (f32[Q, k],
     int32[Q, k]); missing slots are (-inf, -1)."""
-    q, d = queries.shape
-    n = base.shape[0]
-    n_sub = n // SUB
+    q = queries.shape[0]
+    n_sub = base.shape[0] // SUB
     maxes = tile_maxes(queries, base, aux, mask_u8, metric=metric)
     ksel = min(k + TILE_SLACK, n_sub)
     sub = torch.topk(maxes, ksel, dim=1).indices  # [Q, S] sub-tile ids
-    # the gather stays in the storage dtype; only the gathered rows widen
-    g = base.reshape(n_sub, SUB, d)[sub]  # [Q, S, SUB, D]
-    # exact f32 products and sums, widened in the multiply; no matmul, so
-    # no global TF32 setting reaches the rescore
-    qf = queries.to(torch.float32)
-    s = (g * qf[:, None, None, :]).sum(dim=-1).reshape(q, -1)
-    asub = aux.reshape(n_sub, SUB)[sub].reshape(q, -1)
-    s = _apply_metric(s, asub, metric)
-    ok = mask_u8.reshape(n_sub, SUB)[sub].reshape(q, -1) != 0
-    s = torch.where(ok, s, torch.full_like(s, float("-inf")))
+    s = tile_rescore(queries, base, aux, mask_u8, sub, metric=metric)
     rows = (
         sub[:, :, None] * SUB
         + torch.arange(SUB, device=sub.device)[None, None, :]

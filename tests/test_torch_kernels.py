@@ -48,6 +48,8 @@ BOUND_SHAPES = SCORE_SHAPES + [(1, 1, 8), (63, 4099, 24), (65, 4099, 136), (129,
                                (300, 4099, 8)]
 TILE_Q, TILE_D, TILE_KEEP = [1, 65, 129, 300], [128, 256, 1024], [0.01, 1.0, 0.0]
 TILE_N = 16_512  # 129 sub-tiles: the last 256-row tile is half past N
+RESCORE_Q, RESCORE_D, RESCORE_S = [1, 65, 300], [128, 256, 1024], [1, 12, 130]
+RESCORE_N = 131 * tilescan.SUB  # more sub-tiles than the most a query chooses (k 128 + 2)
 
 
 @pytest.fixture()
@@ -84,6 +86,29 @@ def _hi_only(qs):
     """The queries rounded to bf16: split, they have no lo half, so the
     plain version on them computes what a kernel without the lo pass would."""
     return qs.to(torch.bfloat16).to(torch.float32)
+
+
+def _rescore_operands(device, dtype, metric, q, d, s, n=RESCORE_N, seed=0):
+    """Queries, payload, aux (zeros for IP) and s distinct sub-tiles a
+    query, in no order, as `torch.topk` over the tile maxes hands them."""
+    g, qs, x, aux = _operands(device, dtype, metric, q, n, d, seed)
+    aux = aux if aux is not None else torch.zeros(n, device=device)
+    sub = torch.rand((q, n // tilescan.SUB), generator=g, device=device).argsort(dim=1)[:, :s]
+    return g, qs, x, aux, sub.contiguous()
+
+
+def _rescore_plain_and_bound(qs, x, aux, m8, sub, metric, rows=16):
+    """`tile_rescore_plain` and `rescore_error_bound`, a few queries at a
+    time: at Q 300, S 130, D 1,024 the gathered sub-tiles alone are 10 GB."""
+    parts = [(tilescan.tile_rescore_plain(qs[i:i + rows], x, aux, m8, sub[i:i + rows], metric),
+              tilescan.rescore_error_bound(qs[i:i + rows], x, aux, sub[i:i + rows], metric))
+             for i in range(0, qs.shape[0], rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _kept_rows(m8, sub):
+    """bool[Q, S*SUB]: the chosen rows whose mask byte is not 0."""
+    return m8.reshape(-1, tilescan.SUB)[sub].reshape(sub.shape[0], -1) != 0
 
 
 @pytest.mark.cuda
@@ -146,6 +171,50 @@ def test_tile_max_kernel_ragged_shapes(cuda_device, q, d, metric, keep):
     assert got.shape == (q, TILE_N // tilescan.SUB)
     assert not distance.outside_kernel_bound(got, want, bound).any()
     assert torch.equal(got == tilescan.NEG, want == tilescan.NEG)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", RESCORE_S)
+@pytest.mark.parametrize("d", RESCORE_D)
+@pytest.mark.parametrize("q", RESCORE_Q)
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tile_rescore_kernel_vs_plain(cuda_device, dtype, metric, q, d, s):
+    """The rescore kernel against its plain version under masks that keep
+    1%, all and none of the rows. Both sum the same exact f32 products of
+    the widened row and the f32 query, in other orders, so the kernel lies
+    inside `rescore_error_bound` (2^-18 of sum_i |q_i x_i| through the
+    metric, plus 1e-5 of the score); a masked row is -inf exactly, and no
+    other row is."""
+    g, qs, x, aux, sub = _rescore_operands(cuda_device, dtype, metric, q, d, s, seed=q * d + s)
+    for keep in TILE_KEEP:
+        m8 = (torch.rand(x.shape[0], generator=g, device=cuda_device) < keep).to(torch.uint8)
+        before = tilescan.tile_rescore.launches
+        got = tilescan.tile_rescore(qs, x, aux, m8, sub, metric=metric)
+        assert tilescan.tile_rescore.launches == before + 1
+        want, bound = _rescore_plain_and_bound(qs, x, aux, m8, sub, metric)
+        kept = _kept_rows(m8, sub)
+        assert got.shape == (q, s * tilescan.SUB)
+        assert torch.equal(torch.isneginf(got), ~kept)
+        assert not distance.outside_kernel_bound(got[kept], want[kept], bound[kept]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("q,d", [(104, 1024), (300, 128)])
+def test_tile_rescore_on_clustered_data(cuda_device, dtype, metric, q, d):
+    """On clustered rows, where the sums grow with the depth, over the
+    sub-tiles the tile prune chooses (the top 12 by the plain tile maxes)."""
+    qs, x, aux = _clustered_operands(cuda_device, metric, q, RESCORE_N, d, q + d, dtype)
+    aux = aux if aux is not None else torch.zeros(RESCORE_N, device=cuda_device)
+    m8 = (torch.arange(RESCORE_N, device=cuda_device) % 7 != 3).to(torch.uint8)
+    sub = torch.topk(tilescan.tile_maxes_plain(qs, x, aux, m8, metric), 12, dim=1).indices
+    got = tilescan.tile_rescore(qs, x, aux, m8, sub, metric=metric)
+    want, bound = _rescore_plain_and_bound(qs, x, aux, m8, sub, metric)
+    kept = _kept_rows(m8, sub)
+    assert torch.equal(torch.isneginf(got), ~kept)
+    assert not distance.outside_kernel_bound(got[kept], want[kept], bound[kept]).any()
 
 
 @pytest.mark.cuda
@@ -371,6 +440,79 @@ def test_tile_bound_admits_exact_math_and_rejects_hi_only(metric, q, keep, n, d)
     assert distance.outside_kernel_bound(control, want, bound).any()
 
 
+def _exact_rescore(qs, x, aux, sub, metric):
+    """The rescore's products and sums in f64, rounded to f32 once."""
+    q, d = qs.shape
+    g = x.reshape(-1, tilescan.SUB, d)[sub].to(torch.float64)
+    s = torch.einsum("qd,qsrd->qsr", qs.to(torch.float64), g).reshape(q, -1)
+    a = aux.reshape(-1, tilescan.SUB)[sub].reshape(q, -1).to(torch.float64)
+    return distance._apply_metric(s, a, metric).to(torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("q,d,s", [(13, 128, 12), (8, 1024, 12), (65, 256, 3)])
+def test_rescore_bound_admits_exact_math_and_rejects_bf16_query(dtype, metric, q, d, s):
+    """The plain version (f32 products and sums) lies inside
+    `rescore_error_bound` around the same products summed in f64; a control
+    that rounds the query to bf16 before its products lies outside it. On
+    the CPU the wrapper is the plain version, bit for bit, and a row whose
+    mask byte is 0 scores -inf."""
+    cpu = torch.device("cpu")
+    g, qs, x, aux, sub = _rescore_operands(cpu, dtype, metric, q, d, s, n=32 * tilescan.SUB,
+                                           seed=q + d + s)
+    m8 = torch.ones(x.shape[0], dtype=torch.uint8)
+    want = tilescan.tile_rescore_plain(qs, x, aux, m8, sub, metric)
+    bound = tilescan.rescore_error_bound(qs, x, aux, sub, metric)
+    exact = _exact_rescore(qs, x, aux, sub, metric)
+    assert not distance.outside_kernel_bound(exact, want, bound).any()
+    control = tilescan.tile_rescore_plain(_hi_only(qs), x, aux, m8, sub, metric)
+    assert distance.outside_kernel_bound(control, want, bound).any()
+    half = (torch.rand(x.shape[0], generator=g) < 0.5).to(torch.uint8)
+    masked = tilescan.tile_rescore(qs, x, aux, half, sub, metric=metric)
+    assert torch.equal(masked, tilescan.tile_rescore_plain(qs, x, aux, half, sub, metric))
+    kept = _kept_rows(half, sub)
+    assert torch.equal(torch.isneginf(masked), ~kept) and kept.any()
+    assert torch.equal(masked[kept], want[kept])
+
+
+def _rescore_rejections(device):
+    """What every device's wrapper refuses: shapes, types, devices."""
+    x = torch.randn((1024, 128), device=device).to(torch.bfloat16)
+    ok = dict(queries=torch.randn((8, 128), device=device), base=x,
+              aux=torch.zeros(1024, device=device),
+              mask_u8=torch.ones(1024, dtype=torch.uint8, device=device),
+              sub=torch.zeros((8, 2), dtype=torch.int64, device=device), metric=Metric.L2)
+
+    def call(**kw):
+        return tilescan.tile_rescore(**{**ok, **kw})
+
+    assert call().shape == (8, 2 * tilescan.SUB)
+    with pytest.raises(ValueError, match="N % 128"):
+        call(base=x[:1000], aux=ok["aux"][:1000], mask_u8=ok["mask_u8"][:1000])
+    with pytest.raises(ValueError, match="D % 128"):
+        call(queries=ok["queries"][:, :64].contiguous(), base=x[:, :64].contiguous())
+    with pytest.raises(TypeError):
+        call(base=x.half())
+    with pytest.raises(TypeError):
+        call(queries=ok["queries"].double())
+    with pytest.raises(ValueError, match="mask must be uint8"):
+        call(mask_u8=ok["mask_u8"].bool())
+    with pytest.raises(ValueError, match="sub must be int64"):
+        call(sub=ok["sub"].int())
+    with pytest.raises(ValueError, match="sub must be int64"):
+        call(sub=ok["sub"][:4])
+    with pytest.raises(ValueError, match="sub must choose"):
+        call(sub=ok["sub"][:, :0])
+    with pytest.raises(ValueError, match="sub must choose"):
+        call(sub=torch.zeros((8, 9), dtype=torch.int64, device=device))  # 8 sub-tiles
+    return call, ok
+
+
+def test_rescore_wrapper_rejects_bad_operands_on_the_cpu():
+    _rescore_rejections(torch.device("cpu"))
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     x = torch.randn((256, 128), device=cuda_device)
@@ -385,6 +527,19 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="N % 128"):
         tilescan.tile_maxes(q, x[:200], aux[:200], torch.ones(200, dtype=torch.uint8,
                             device=cuda_device), metric=Metric.L2)
+
+
+@pytest.mark.cuda
+def test_tile_rescore_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    call, ok = _rescore_rejections(cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(sub=torch.zeros((2, 8), dtype=torch.int64, device=cuda_device).t())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(queries=torch.randn(8 * 128 + 1, device=cuda_device)[1:].view(8, 128))
+    with pytest.raises(ValueError, match="payload's device"):
+        call(sub=ok["sub"].cpu())
+    with pytest.raises(ValueError, match="one device"):
+        call(aux=ok["aux"].cpu())
 
 
 def _gathermv_operands(device, q, beam, m, dt, n=500, seed=0):
@@ -796,9 +951,9 @@ def _replays_bit_for_bit(idx, q, mask, params):
     from myscaledb_tpu_torch.index.base import params_key
     from myscaledb_tpu_torch.service.event_log import GLOBAL_COUNTERS
 
-    wrappers = (distance.scores, tilescan.tile_maxes, gathermv.gather_block_scores,
-                topk.approx_bin_max, binary.binary_scores, binary.binary_block_scores,
-                binary.group_probes)
+    wrappers = (distance.scores, tilescan.tile_maxes, tilescan.tile_rescore,
+                gathermv.gather_block_scores, topk.approx_bin_max, binary.binary_scores,
+                binary.binary_block_scores, binary.group_probes)
     caps = GLOBAL_COUNTERS.get("SearchProgramCaptures")
     first = idx.search(q, 10, params=params, mask=mask)  # warm-up, capture, replay
     before = [w.launches for w in wrappers]
@@ -815,6 +970,7 @@ def _replays_bit_for_bit(idx, q, mask, params):
         assert torch.equal(got[1], eager[1].to(torch.int32))
         assert torch.equal(got[0].view(torch.int32), eager[0].contiguous().view(torch.int32))
     assert first[0].data_ptr() != again[0].data_ptr()  # each search its own copy
+    return dict(zip(wrappers, replay))
 
 
 @pytest.mark.cuda
@@ -823,6 +979,18 @@ def _replays_bit_for_bit(idx, q, mask, params):
 def test_program_replay_equals_the_eager_body(cuda_device, kind, metric, n, params):
     idx, q, mask = _program_index(cuda_device, kind, metric, n)
     _replays_bit_for_bit(idx, q, mask, params)
+
+
+@pytest.mark.cuda
+def test_exact_flat_search_launches_tile_max_and_rescore_once(cuda_device):
+    """An exact FLAT search over a 1,000,000-row segment (capacity
+    1,048,576, the benchmark's SIFT table) takes the tile prune: a replay
+    of its program launches tile_max once and the rescore once, and equals
+    the eager body."""
+    idx, q, mask = _program_index(cuda_device, "FLAT", Metric.L2, 1_000_000)
+    launched = _replays_bit_for_bit(idx, q, mask, {})
+    assert launched[tilescan.tile_maxes] == launched[tilescan.tile_rescore] == 1
+    assert sum(launched.values()) == 2
 
 
 @pytest.mark.cuda
