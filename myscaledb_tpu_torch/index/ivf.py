@@ -51,7 +51,7 @@ import torch.nn.functional as tnf
 from ..errors import IndexParameterError
 from ..metrics import Metric
 from ..ops import distance, kmeans, quantize
-from ..ops._cuda import round_up
+from ..ops._cuda import count_work, round_up
 from ..ops.stream import HostRep
 from ..ops.topk import NEG_INF, dedup_rows
 from ..service.event_log import GLOBAL_COUNTERS
@@ -559,9 +559,20 @@ class IVFIndex(VectorIndex):
         if not self.two_stage:
             return self._scan_stage(queries, k, mask=mask, params=params, dyn_nprobe=dyn_nprobe)
         self._require_payload()
-        ncand = min(max(k * self.rerank_multiple, k), self.n_rows)
-        _, r = self._scan_stage(queries, ncand, mask=mask, params=params, dyn_nprobe=dyn_nprobe)
-        ev = self._exact_scores(queries, r)
+        _, r = self._scan_stage(queries, self._ncand(k), mask=mask, params=params,
+                                dyn_nprobe=dyn_nprobe)
+        return self._rerank(queries, k, r, self._exact_scores)
+
+    def _ncand(self, k: int) -> int:
+        """Candidates the first pass of a two-stage index hands its re-rank."""
+        return min(max(k * self.rerank_multiple, k), self.n_rows)
+
+    def _rerank(self, queries, k: int, r: torch.Tensor, exact):
+        """Top k of the first pass's candidates `r` int32[Q, C] by their
+        exact scores (`exact(queries, r)`); counts the Q * C rows it
+        re-scores in `ivf.rerank_rows`."""
+        count_work("ivf.rerank_rows", r.shape[0] * r.shape[1])
+        ev = exact(queries, r)
         v2, p2 = torch.topk(ev, min(k, ev.shape[-1]), dim=-1)
         r2 = torch.gather(r, 1, p2)
         r2 = torch.where(torch.isfinite(v2), r2, torch.full_like(r2, -1))
@@ -603,6 +614,9 @@ class IVFIndex(VectorIndex):
         probe = torch.topk(cs, nprobe, dim=1).indices  # [Q, P]
 
         w_budget = int(min(self.n_windows + nprobe, nprobe * self.wpp + 4))
+        # the rows the window step gathers and scores, padding and
+        # repeated windows included
+        count_work("ivf.window_rows", nq * w_budget * WINDOW)
         limit = None
         if isinstance(dyn_nprobe, torch.Tensor):  # a program's device scalar
             limit = torch.clamp(dyn_nprobe, max=nprobe)
@@ -745,13 +759,8 @@ class IVFIndex(VectorIndex):
         one program."""
         if self.raw_host is None:
             return super().search(queries, k, params=params, mask=mask, programs=programs)
-        ncand = min(max(k * self.rerank_multiple, k), self.n_rows)
-        _, r = self.search_first_stage(queries, ncand, params=params, mask=mask)
-        ev = self._exact_scores_host(queries, r)
-        v2, p2 = torch.topk(ev, min(k, ev.shape[-1]), dim=-1)
-        r2 = torch.gather(r, 1, p2)
-        r2 = torch.where(torch.isfinite(v2), r2, torch.full_like(r2, -1))
-        return _pad_cols(v2, r2, k)
+        _, r = self.search_first_stage(queries, self._ncand(k), params=params, mask=mask)
+        return self._rerank(queries, k, r, self._exact_scores_host)
 
     # -------------------------------------------------------------- misc
     @property

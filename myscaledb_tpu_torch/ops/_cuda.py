@@ -26,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from ..service.event_log import GLOBAL_COUNTERS
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -205,6 +207,15 @@ _LAUNCH_COUNT_LOCK = threading.Lock()
 _RECORDING = threading.local()
 
 
+class LaunchRecord(list):
+    """What a thread recorded: (wrapper, f32) launches, and in `work` the
+    (name, amount) work amounts of `count_work`."""
+
+    def __init__(self):
+        super().__init__()
+        self.work: list = []
+
+
 def count_launch(wrapper, f32: bool = False) -> None:
     """Add one to a kernel wrapper's `launches` counter, and to its
     `launches_f32` counter when the launch took the f32 engine (the scan
@@ -224,12 +235,25 @@ def count_launch(wrapper, f32: bool = False) -> None:
             wrapper.launches_f32 += 1
 
 
+def count_work(name: str, amount: int) -> None:
+    """Add a work amount that the host knows from shapes (rows a window
+    step gathers, rows a re-rank scores) to the profile event `name`.
+    While the calling thread records (`recording_launches`), the amount
+    goes to the record's `work` instead: the captured work runs when the
+    graph replays, and each replay adds the record's amounts."""
+    record = getattr(_RECORDING, "launches", None)
+    if record is not None:
+        record.work.append((name, amount))
+        return
+    GLOBAL_COUNTERS.bump(name, amount)
+
+
 @contextlib.contextmanager
 def recording_launches():
-    """Within the block, this thread's `count_launch` calls append
-    (wrapper, f32) to the yielded list instead of counting."""
+    """Within the block, this thread's `count_launch` and `count_work`
+    calls append to the yielded `LaunchRecord` instead of counting."""
     prev = getattr(_RECORDING, "launches", None)
-    record: list = []
+    record = LaunchRecord()
     _RECORDING.launches = record
     try:
         yield record

@@ -37,7 +37,11 @@ another stream than the last one waits for it first.
 A run is a `program.run` span (service/tracing.py): the lock, the
 capture on the first run, the launch (on the CPU the eager body) and the
 output's copy, around a `program.load` span (the inputs). No span opens
-inside a body, whose work on the card is the graph's.
+inside a body, whose work on the card is the graph's. The amounts of
+work a body knows from shapes (rows gathered, rows re-ranked) it counts
+with `ops._cuda.count_work`: a capture records them and every replay adds
+them with `SearchProgramReplays`, under one hold of the counters' lock; on
+the CPU the eager body counts them on every run.
 
 A `GridProgram` is one entry over several devices (the mesh's programs,
 parallel/distributed.py): a `Program` a device, so no graph holds work of
@@ -198,6 +202,9 @@ class Program:
         self._state = _device_state(self.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: tuple = ()  # the kernel launches the capture recorded
+        # the counters a replay adds under one hold of their lock (the
+        # capture's `replay_counts`)
+        self.replay_counts: tuple = ((), ())
         self.runs = 0
         # the pinned staging buffer of a host query (made at its first use)
         # and the event of its last copy: the next write waits for it
@@ -270,7 +277,7 @@ class Program:
                 self.graph.replay()
                 add_launches(self.launches)
                 self.runs += 1
-                GLOBAL_COUNTERS.bump("SearchProgramReplays")
+                GLOBAL_COUNTERS.bump_many(*self.replay_counts)
                 out = self.out.clone()
                 done = torch.cuda.Event()
                 done.record(stream)
@@ -297,7 +304,18 @@ class Program:
                 ) from e
         self.graph = graph
         self.launches = tuple(record)
+        self.replay_counts = replay_counts(record)
         GLOBAL_COUNTERS.bump("SearchProgramCaptures")
+
+
+def replay_counts(record) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """(names, counts) that one replay of a capture adds to the profile
+    events: `SearchProgramReplays` 1, and each work amount the capture's
+    `LaunchRecord` holds (`ops._cuda.count_work`), summed by name."""
+    counts = {"SearchProgramReplays": 1}
+    for name, amount in record.work:
+        counts[name] = counts.get(name, 0) + amount
+    return tuple(counts), tuple(counts.values())
 
 
 class GridProgram:
