@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--out DIR] [--f32-tables-only] [--root DIR]
                           [--mesh-cards] [--approx-only] [--programs-only]
-                          [--rescore-only]
+                          [--rescore-only] [--window-scan-only]
 
 Run from the root of a checkout on a machine with one CUDA GPU (an H100:
 the kernels are built for sm_90a). It imports nothing of JAX and nothing
@@ -55,7 +55,10 @@ of the JAX package. Phases, each of which raises on failure:
      ends of it; the tile prune's rescore kernel at the benchmark's SIFT
      and GIST exact shapes (`rescore_path`: against its plain version with
      a bf16-query control, then timed; `--rescore-only` runs phase 1 and
-     this alone);
+     this alone); the IVF window scan kernel at the benchmark's two IVF
+     cells' shapes (`window_scan_path`: against its plain version, then
+     timed beside the bound of the live windows' bytes;
+     `--window-scan-only` runs phase 1 and this alone);
   8. the IVF family on phase 3's table: IVFFLAT (ncentroids 1024) with its
      build time, an nprobe sweep that stops at the first recall_ids@10 >=
      0.95 (bench.py's rule), QPS at that operating point at batch 100 and
@@ -324,6 +327,13 @@ RAGGED_SHAPES = [("score", 300, 4_099, 136, "L2"), ("tile_max", 300, 16_512, 102
 # exact cells over a 1,048,576-row segment at k 10 (S = k + TILE_SLACK)
 RESCORE_SHAPES = [(1_000, 12, 128, "L2"), (256, 12, 1024, "L2")]
 RESCORE_N = 1_048_576
+# (cell, Q, D, payload, metric, rows, lists, nprobe) of the window scan's
+# comparison and times: the benchmark's IVF cells (SIFT1M IVFFLAT, 1,024
+# lists asked, 1,536 built, nprobe 2, batch 1,000; Cohere1M MSTG, 4,096
+# asked, 6,144 built, nprobe 4, batch 256, SQ8 codes); the window budget
+# follows from them as the index sizes it (10 and 12 slots)
+WINDOW_SHAPES = [("sift1m-ivfflat-b1000", 1_000, 128, "bf16", "L2", 1_000_000, 1_536, 2),
+                 ("cohere1m-mstg-b256", 256, 768, "sq8", "Cosine", 1_000_000, 6_144, 4)]
 # (Q, D) of the split check: a resident and a streamed query
 SPLIT_SHAPES = [(100, 128), (300, 1024)]
 # (Q, N, D) of the f32 engine's bit-level probes: NT 64 / 104 / 256 / two
@@ -1298,6 +1308,97 @@ def rescore_path(dev, card):
                 f"{rec['plain_ms']:.4f} ms, library n/a, bound {rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']}; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it)  [{card}]")
         del x32, x, aux, sub, q, m8
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = err
+    return rec
+
+
+def window_scan_path(dev, card):
+    """The IVF window scan kernel (`windowscan.window_scan`) at the IVF
+    cells' shapes (WINDOW_SHAPES): a cluster-major payload of balanced
+    lists (sizes 0.5-1.5x the mean), each query probing nprobe distinct
+    random lists, its window budget from `ivf.windows_for_probes` as the
+    index makes it. Against its plain version (the library passes it
+    replaced) within `scan_error_bound`, -inf where the plain version is;
+    then its time (20 launches after 3 warm-up), the plain version's and
+    the bound of its work: the live windows' bytes read once a (query,
+    window) pair, the aux of their rows under L2, the queries, window ids
+    and flags, the scores written once. Returns the record fields of the
+    last shape."""
+    import torch
+
+    from myscaledb_tpu_torch.index import ivf
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, quantize, windowscan
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rec, err = {}, 0.0
+    for cell, qn, d, payload, mname, rows, lists, nprobe in WINDOW_SHAPES:
+        metric = Metric(mname)
+        npad = -(-rows // windowscan.WINDOW) * windowscan.WINDOW
+        n_windows = npad // windowscan.WINDOW
+        w = torch.rand(lists, generator=gen, device=dev) + 0.5
+        sizes = torch.floor(w / w.sum() * rows).to(torch.int64)
+        sizes[-1] += rows - int(sizes.sum())
+        starts = torch.zeros(lists + 1, dtype=torch.int64, device=dev)
+        starts[1:] = torch.cumsum(sizes, 0)
+        wpp = -(-rows // lists // windowscan.WINDOW) + 1
+        w_budget = min(n_windows + nprobe, nprobe * wpp + 4)
+        probe = torch.rand((qn, lists), generator=gen, device=dev).argsort(dim=1)[:, :nprobe]
+        widx, valid = ivf.windows_for_probes(starts.to(torch.int32), probe, n_windows, w_budget)
+        live = int(valid.sum())
+        x = torch.randn((npad, d), generator=gen, device=dev)
+        x[rows:] = 0.0
+        q = distance.normalize_queries(torch.randn((qn, d), generator=gen, device=dev), metric)
+        lo = scale = None
+        if payload == "sq8":
+            lo, scale = quantize.sq8_train_dev(x[:rows])
+            data = quantize.sq8_encode_dev(x, lo, scale)
+        else:
+            data = x.to(torch.bfloat16)
+        del x
+        dec_sq = torch.zeros(npad, device=dev)
+        if metric == Metric.L2:
+            dec_sq = torch.sum(data.to(torch.float32) ** 2, dim=1)
+            dec_sq[rows:] = float("inf")
+        shape = (f"{cell}: Q={qn} W={w_budget} D={d} {payload} {mname} ({live / qn:.2f} live "
+                 f"windows a query)")
+        got = windowscan.window_scan(q, data, dec_sq, widx, valid, metric=metric, lo=lo,
+                                     scale=scale)
+        ratio = 0.0
+        for i in range(0, qn, 50):
+            sl = slice(i, i + 50)
+            want = windowscan.window_scan_plain(q[sl], data, dec_sq, widx[sl], valid[sl],
+                                                metric=metric, lo=lo, scale=scale)
+            tol = windowscan.scan_error_bound(q[sl], data, widx[sl], metric, lo, scale)
+            check(torch.equal(torch.isneginf(got[sl]), torch.isneginf(want)),
+                  f"window_scan reads -inf elsewhere than its plain version: {shape}")
+            ok = torch.isfinite(want)
+            diff = (got[sl] - want).abs()[ok]
+            ratio = max(ratio, float((diff / (tol + distance.KERNEL_RTOL * want.abs())[ok]).max()))
+            err = max(err, float(diff.max()))
+            del want, tol, diff
+        log(f"  window_scan {shape}: worst err/bound {ratio:.3g}")
+        check(ratio <= 1.0, f"window_scan disagrees with its plain version: {shape}")
+        call = lambda: windowscan.window_scan(  # noqa: E731
+            q, data, dec_sq, widx, valid, metric=metric, lo=lo, scale=scale)
+        rec = dict(
+            ms=cuda_time_ms(call),
+            plain_ms=cuda_time_ms(lambda: windowscan.window_scan_plain(
+                q, data, dec_sq, widx, valid, metric=metric, lo=lo, scale=scale)),
+            library_ms=None,  # no one PyTorch call gathers windows, decodes and dots
+            shape=shape,
+        )
+        live_rows = live * windowscan.WINDOW
+        aux_bytes = 4 * live_rows if metric == Metric.L2 else 0
+        nbytes = (live_rows * d * data.element_size() + aux_bytes + 4 * qn * d
+                  + 9 * qn * w_budget + 4 * qn * w_budget * windowscan.WINDOW)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * live_rows * d, "f32")
+        log(f"  window_scan {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, library n/a, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}: {nbytes / 1e6:.1f} MB; {100 * rec['bound_ms'] / rec['ms']:.1f}% "
+            f"of it)  [{card}]")
+        del data, dec_sq, q, got, widx, valid
         torch.cuda.empty_cache()
     rec["max_abs_err"] = err
     return rec
@@ -5944,6 +6045,9 @@ def main(argv=None):
     ap.add_argument("--rescore-only", action="store_true",
                     help="run the set-up and the rescore kernel's comparison and times only, "
                          "and print no record")
+    ap.add_argument("--window-scan-only", action="store_true",
+                    help="run the set-up and the IVF window scan kernel's comparison and times "
+                         "only, and print no record")
     ap.add_argument("--root", default=None,
                     help="import myscaledb_tpu_torch from this checkout (another commit's, "
                          "for a same-machine comparison) instead of this file's")
@@ -5960,7 +6064,8 @@ def main(argv=None):
         return 1
     sys.path.insert(0, here)
     import myscaledb_tpu_torch as ms
-    from myscaledb_tpu_torch.ops import _cuda, binary, distance, gathermv, tilescan, topk
+    from myscaledb_tpu_torch.ops import (
+        _cuda, binary, distance, gathermv, tilescan, topk, windowscan)
 
     # ---- 1. set-up
     t_start = time.perf_counter()
@@ -6001,6 +6106,12 @@ def main(argv=None):
         rescore_path(dev, card)
         log(f"chip_smoke: the rescore kernel passed in {time.perf_counter() - t_start:.1f} s  "
             f"[{card}]")
+        return 0
+    if args.window_scan_only:
+        log("[7w] the window scan kernel at the IVF cells' shapes")
+        window_scan_path(dev, card)
+        log(f"chip_smoke: the window scan kernel passed in {time.perf_counter() - t_start:.1f} s"
+            f"  [{card}]")
         return 0
 
     # ---- 2. kernels vs their plain versions
@@ -6101,6 +6212,7 @@ def main(argv=None):
     timing = time_kernels(dev, idx, card)
     timing["approx_bin_max"] = timing17
     timing["tile_rescore"] = rescore_path(dev, card)
+    timing["window_scan"] = window_scan_path(dev, card)
     cost_model(gist, gist_scan, graph, hb, card, args.out)
 
     # ---- 8. the IVF family and HNSWPQ, with the launch counters zeroed
@@ -6110,16 +6222,20 @@ def main(argv=None):
     tilescan.tile_maxes.launches = 0
     tilescan.tile_rescore.launches = 0
     gathermv.gather_block_scores.launches = 0
+    windowscan.window_scan.launches = 0
     ivf_op, mstg_op = ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
     hnswpq_path(ms, dev, gist, gist_batches, np.concatenate(gist_batches), card)
     p8 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
           "tile_rescore": tilescan.tile_rescore.launches,
           "gathermv": gathermv.gather_block_scores.launches}
-    log(f"  kernel launches on the IVF and HNSWPQ paths: {p8}")
+    log(f"  kernel launches on the IVF and HNSWPQ paths: {p8}; window_scan "
+        f"{windowscan.window_scan.launches}")
     check_rescores(p8, "phase 8")
     for name, n in p8.items():
         check(n > 0, f"kernel {name} was not launched on phase 8's paths")
         launches[name] += n
+    launches["window_scan"] = windowscan.window_scan.launches
+    check(launches["window_scan"] > 0, "kernel window_scan was not launched on phase 8's paths")
 
     # ---- 9. text and hybrid search (score and tile_max zeroed inside)
     log(f"[9] text and hybrid path ({SIFT_N:,} + {SIFT_SMALL_N:,} rows: body String of "
@@ -6342,6 +6458,11 @@ def main(argv=None):
          "launches": launches["tile_rescore"],
          "max_abs_err": timing["tile_rescore"]["max_abs_err"],
          **{k: timing["tile_rescore"][k] for k in keys}},
+        {"name": "window_scan", "route": "cuda",
+         "source": "myscaledb_tpu_torch/csrc/window_scan.cu", "replaces": None,
+         "launches": launches["window_scan"],
+         "max_abs_err": timing["window_scan"]["max_abs_err"],
+         **{k: timing["window_scan"][k] for k in keys}},
         {"name": "approx_bin_max", "route": "cuda",
          "source": "myscaledb_tpu_torch/csrc/approx_topk.cu",
          "replaces": "myscaledb_tpu/ops/topk.py:39",

@@ -10,9 +10,10 @@ Counterpart of myscaledb_tpu/index/ivf.py, device path:
     and zero padding beyond rounding N up to the 512-row window size;
   * a search ranks the centroids, turns each query's top-nprobe clusters
     into a list of 512-row windows (`windows_for_probes`, sized to a
-    budget W), and scores the windows group by group: ONE gather of the
-    group's windows for the whole batch, the decode to f32 and ONE
-    `torch.bmm`, then a top-k merge. No loop runs per query or per window.
+    budget W), and scores every window of the budget in one call
+    (`ops/windowscan.py::window_scan`: on the card one kernel that reads
+    each live window once and decodes it in registers), then takes ONE
+    top-k. No loop runs per query or per window.
 
 The pre-filter ∩ delete bitmap applies inside the scan, by row-id lookup
 in a row-space mask or by contiguous window lookup in a `WindowMask`
@@ -54,17 +55,13 @@ from ..ops import distance, kmeans, quantize
 from ..ops._cuda import count_work, round_up
 from ..ops.stream import HostRep
 from ..ops.topk import NEG_INF, dedup_rows
+from ..ops.windowscan import WINDOW, batched_dot, window_scan, window_scan_plain
 from ..service.event_log import GLOBAL_COUNTERS
 from ..storage.segment import host_tensor
 from .base import IndexKind, ParamsKey, VectorIndex, check_cancel, params_key
 from .registry import register
 
 DEFAULT_NPROBE = 16
-WINDOW = 512  # rows per scan window
-# Bound on one group's f32 transient [Q, G * WINDOW, D'|M] (the JAX
-# package's cap, which sizes its groups): the window step gathers at most
-# this many bytes' worth of windows per bmm.
-GROUP_TRANSIENT_CAP = 512 << 20
 
 
 def _pq_m(params: Dict[str, Any], dim: int) -> int:
@@ -520,23 +517,6 @@ class IVFIndex(VectorIndex):
         return torch.where(sizes > 0, heads, torch.full_like(heads, -1))
 
     # ------------------------------------------------------------- score
-    def _decode(self, gathered: torch.Tensor) -> torch.Tensor:
-        """Gathered payload -> f32 rows for scoring. The JAX package scores
-        gathered rows in f32 too: a bf16 hi/lo split of the query measured
-        unsafe there, and the gather, not the arithmetic, bounds the step."""
-        if self.codec == "raw":
-            return gathered.to(torch.float32)
-        if self.codec == "sq8":
-            return quantize.sq8_decode_dev(gathered, self.codec_a, self.codec_b).to(torch.float32)
-        return quantize.pq_decode_dev(gathered, self.codec_a).to(torch.float32)
-
-    @staticmethod
-    def _dot(q: torch.Tensor, rows_mat: torch.Tensor) -> torch.Tensor:
-        """[Q, D] x [Q, B, D'] -> f32[Q, B]: one batched f32 matmul (exact
-        while TF32 is off, the policy `connect` sets on CUDA)."""
-        d = rows_mat.shape[-1]
-        return torch.bmm(rows_mat, q[:, :d, None])[:, :, 0]
-
     def _nprobe(self, params: ParamsKey) -> int:
         d = dict(params)
         p = d.get("nprobe", DEFAULT_NPROBE)
@@ -627,40 +607,23 @@ class IVFIndex(VectorIndex):
         )
 
         kk = min(k, self.n_rows)
-        pdw = self.perm_data.view(self.n_windows, WINDOW, -1)
         prw = self.perm_rows.view(self.n_windows, WINDOW)
-        paw = self.perm_aux.view(self.n_windows, WINDOW)
-
-        # G windows per step: one gather, one decode and one bmm for the
-        # whole batch; the whole budget in one step when its f32 transient
-        # fits the cap (at SIFT1M shapes, nprobe 2 and batch 100: 10
-        # windows, one step)
-        elem = 4 * max(1, pdw.shape[-1])
-        cap_windows = max(1, GROUP_TRANSIENT_CAP // max(1, nq * WINDOW * elem))
-        group = max(1, min(w_budget, cap_windows))
-        bv = br = None
-        for s in range(0, w_budget, group):
-            sl = widx[:, s : s + group]
-            live = valid_w[:, s : s + group]
-            rows = prw[sl].masked_fill(~live[..., None], -1).reshape(nq, -1)
-            xb = self._decode(pdw[sl]).reshape(nq, rows.shape[1], -1)
-            scores = self._dot(q, xb)
-            del xb
-            if self.metric == Metric.L2:
-                scores = 2.0 * scores - paw[sl].reshape(nq, -1)
-            valid = rows >= 0
-            if wmask is not None:
-                valid = valid & wmask[sl].reshape(nq, -1)
-            elif mask is not None:
-                valid = valid & mask[torch.clamp(rows, min=0).to(torch.int64)]
-            scores = scores.masked_fill(~valid, NEG_INF)
-            sv, sp = torch.topk(scores, min(kk, scores.shape[1]), dim=1)
-            sr = torch.gather(rows, 1, sp)
-            if bv is None:
-                bv, br = _pad_cols(sv, sr, kk)
-            else:
-                bv, npos = torch.topk(torch.cat([bv, sv], dim=1), kk, dim=1)
-                br = torch.gather(torch.cat([br, sr], dim=1), 1, npos)
+        q = q.contiguous()
+        if self.codec == "pq":  # no kernel decodes PQ codes
+            scores = window_scan_plain(q, self.perm_data, self.perm_aux, widx, valid_w,
+                                       metric=self.metric, codebooks=self.codec_a)
+        else:
+            scores = window_scan(q, self.perm_data, self.perm_aux, widx, valid_w,
+                                 metric=self.metric, lo=self.codec_a, scale=self.codec_b)
+        rows = prw[widx].masked_fill(~valid_w[..., None], -1).reshape(nq, -1)
+        valid = rows >= 0
+        if wmask is not None:
+            valid = valid & wmask[widx].reshape(nq, -1)
+        elif mask is not None:
+            valid = valid & mask[torch.clamp(rows, min=0).to(torch.int64)]
+        scores = scores.masked_fill(~valid, NEG_INF)
+        bv, sp = torch.topk(scores, min(kk, scores.shape[1]), dim=1)
+        bv, br = _pad_cols(bv, torch.gather(rows, 1, sp), kk)
 
         # boundary windows shared by adjacent probed clusters can score a
         # row twice: dedup before the final cut
@@ -706,7 +669,7 @@ class IVFIndex(VectorIndex):
         safe = torch.clamp(row_ids, min=0).to(torch.int64)
         rows = self.raw_data[safe].to(torch.float32)  # [Q, C, D']
         q = distance.normalize_queries(queries.to(torch.float32), self.metric)
-        s = self._dot(q, rows)
+        s = batched_dot(q, rows)
         if self.metric == Metric.L2:
             s = 2.0 * s - self.raw_aux[safe]
         elif self.metric == Metric.COSINE:

@@ -50,10 +50,12 @@ def set_exact_precision() -> None:
     the JAX package, which forces HIGHEST on the TPU): f32 matmuls must not
     run in TF32, which keeps ~10 mantissa bits and reorders near-tied
     neighbours at SIFT score scale. The matmuls this covers are the
-    reference `scores_ref` and the kernels' plain versions; the search
-    path's own exact rescore (`tilescan.tile_rescore`: f32 FMAs in
-    csrc/tile_rescore.cu, an f32 multiply and sum in its plain version)
-    uses no matmul, so it stays exact whatever a caller sets later.
+    reference `scores_ref` and the kernels' plain versions (among them
+    the IVF window scan's `bmm`); the search path's own exact rescore
+    (`tilescan.tile_rescore`: f32 FMAs in csrc/tile_rescore.cu, an f32
+    multiply and sum in its plain version) and, on the card, its IVF
+    window scan (csrc/window_scan.cu: f32 FMAs) use no matmul, so they
+    stay exact whatever a caller sets later.
     PyTorch's defaults already say so; `connect(device="cuda")` applies
     the policy once, explicitly."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,6 +191,8 @@ class _Library:
         lib.msd_approx_bin_max.restype = ci
         lib.msd_tile_rescore.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         lib.msd_tile_rescore.restype = ci
+        lib.msd_window_scan.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+        lib.msd_window_scan.restype = ci
         return lib
 
 

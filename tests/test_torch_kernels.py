@@ -23,7 +23,11 @@ same kind of bound around sum_d |bf16(q_d) c_d|
 (`gathermv.kernel_error_bound`), which a kernel that skips the query's
 bf16 cast falls outside. The approximate top-k's partial reduce
 (`topk.approx_bin_max`) compares and selects only, so it equals its plain
-version bit for bit, values and indices, ties included.
+version bit for bit, values and indices, ties included. The IVF window
+scan (`windowscan.window_scan`) sums exact f32 products of the decoded row
+and the f32 query, as its plain version does, and is held to 2^-18 of
+sum_i |q_i x_i| (`windowscan.scan_error_bound`); its SQ8 decode equals
+`quantize.sq8_decode_dev` bit for bit.
 """
 
 import numpy as np
@@ -32,7 +36,7 @@ import torch
 
 from myscaledb_tpu_torch.index import hnsw
 from myscaledb_tpu_torch.metrics import Metric
-from myscaledb_tpu_torch.ops import binary, distance, gathermv, tilescan, topk
+from myscaledb_tpu_torch.ops import binary, distance, gathermv, quantize, tilescan, topk, windowscan
 from myscaledb_tpu_torch.storage.schema import FloatVector, Schema, UInt64
 from myscaledb_tpu_torch.storage.segment import Segment
 
@@ -542,6 +546,239 @@ def test_tile_rescore_wrapper_rejects_what_the_kernel_does_not_take(cuda_device)
         call(aux=ok["aux"].cpu())
 
 
+# ------------------------------------------------ the IVF window scan
+WINDOW_PAYLOADS = ["bf16", "f32", "sq8"]
+WINDOW_D = [128, 768, 1024]
+
+
+def _window_operands(device, payload, metric, q, d, nw=9, w=6, seed=0):
+    """A clustered payload of `nw` 512-row windows stored as `payload`
+    (bf16 or f32 rows, or SQ8 codes with their lo and scale), whose last
+    window is ragged (its last 100 rows zero padding, aux inf, as an
+    index pads its layout); queries near rows (normalized for Cosine); and
+    duplicate-free budgets of `w` slots laid out as `windows_for_probes`
+    lays them out: live slots first in window order, then dead ones
+    (window 0). Query i has 1 + i % w live slots; the first has the
+    ragged window. Returns (queries, data, aux, widx, valid, lo, scale,
+    n_rows)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = nw * windowscan.WINDOW
+    n_rows = n - 100
+    centres = 6.0 * torch.randn((32, d), generator=g)
+    x = centres[torch.randint(0, 32, (n,), generator=g)] + torch.randn((n, d), generator=g)
+    qs = x[torch.randint(0, n_rows, (q,), generator=g)] + 0.3 * torch.randn((q, d), generator=g)
+    if metric == Metric.COSINE:
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    qs = distance.normalize_queries(qs, metric)
+    x[n_rows:] = 0.0
+    lo = scale = None
+    if payload == "sq8":
+        lo, scale = quantize.sq8_train_dev(x[:n_rows])
+        data = quantize.sq8_encode_dev(x, lo, scale)
+        data[n_rows:] = 0
+        dec = quantize.sq8_decode_dev(data, lo, scale).to(torch.float32)
+    else:
+        data = x.to(torch.bfloat16 if payload == "bf16" else torch.float32)
+        dec = data.to(torch.float32)
+    aux = torch.sum(dec * dec, dim=1)
+    aux[n_rows:] = float("inf")
+    widx = torch.zeros((q, w), dtype=torch.int64)
+    valid = torch.zeros((q, w), dtype=torch.bool)
+    for i in range(q):
+        live = 1 + i % w
+        pick = torch.randperm(nw, generator=g)[:live]
+        if i == 0:
+            pick[0] = nw - 1
+        widx[i, :live] = torch.sort(pick).values
+        valid[i, :live] = True
+    out = [t.to(device) if t is not None else None
+           for t in (qs, data, aux, widx, valid, lo, scale)]
+    return (*out, n_rows)
+
+
+def _window_rows(widx, n_rows):
+    """bool[Q, W*512]: the slots' rows that hold a stored row (the index
+    masks its layout padding by row id after the scan)."""
+    r = (widx[:, :, None] * windowscan.WINDOW
+         + torch.arange(windowscan.WINDOW, device=widx.device)).reshape(widx.shape[0], -1)
+    return r < n_rows
+
+
+def _exact_window_scores(qs, data, aux, widx, metric, lo, scale):
+    """The window scan's products and sums in f64, rounded to f32 once."""
+    q, d = qs.shape
+    g = windowscan.decode_rows(data.view(-1, windowscan.WINDOW, d)[widx], lo, scale)
+    s = torch.einsum("qd,qwrd->qwr", qs.to(torch.float64), g.to(torch.float64)).reshape(q, -1)
+    if metric == Metric.L2:
+        a = aux.view(-1, windowscan.WINDOW)[widx].reshape(q, -1).to(torch.float64)
+        s = 2.0 * s - a
+    return s.to(torch.float32)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("payload", WINDOW_PAYLOADS)
+@pytest.mark.parametrize("q,d", [(13, 128), (8, 768)])
+def test_window_scan_bound_admits_exact_math_and_rejects_bf16_query(payload, metric, q, d):
+    """The plain version (f32 products and sums) lies inside
+    `scan_error_bound` around the same products summed in f64; a control
+    that rounds the query to bf16 before its products lies outside it. A
+    dead slot reads -inf, and so does a padding row under L2."""
+    qs, data, aux, widx, valid, lo, scale, n_rows = _window_operands(
+        torch.device("cpu"), payload, metric, q, d, seed=q + d)
+    want = windowscan.window_scan(qs, data, aux, widx, valid, metric=metric, lo=lo, scale=scale)
+    bound = windowscan.scan_error_bound(qs, data, widx, metric, lo, scale)
+    live = valid[:, :, None].expand(-1, -1, windowscan.WINDOW).reshape(q, -1)
+    assert torch.isneginf(want[~live]).all()
+    ok = live & _window_rows(widx, n_rows)
+    assert torch.isfinite(want[ok]).all()
+    if metric == Metric.L2:
+        assert torch.isneginf(want[live & ~_window_rows(widx, n_rows)]).all()
+    exact = _exact_window_scores(qs, data, aux, widx, metric, lo, scale)
+    assert not distance.outside_kernel_bound(exact[ok], want[ok], bound[ok]).any()
+    control = windowscan.window_scan_plain(_hi_only(qs), data, aux, widx, valid, metric=metric,
+                                           lo=lo, scale=scale)
+    assert distance.outside_kernel_bound(control[ok], want[ok], bound[ok]).any()
+
+
+def _window_rejections(device):
+    """What every device's wrapper refuses: shapes, types, decode
+    constants, metrics, devices."""
+    x = torch.randn((1024, 128), device=device)
+    codes = torch.zeros((1024, 128), dtype=torch.uint8, device=device)
+    ok = dict(queries=torch.randn((8, 128), device=device), data=x.to(torch.bfloat16),
+              aux=torch.zeros(1024, device=device),
+              widx=torch.zeros((8, 3), dtype=torch.int64, device=device),
+              valid=torch.ones((8, 3), dtype=torch.bool, device=device), metric=Metric.L2)
+    sq8 = dict(data=codes, lo=torch.zeros(128, device=device), scale=torch.ones(128, device=device))
+
+    def call(**kw):
+        return windowscan.window_scan(**{**ok, **kw})
+
+    assert call().shape == (8, 3 * windowscan.WINDOW)
+    assert call(**sq8).shape == (8, 3 * windowscan.WINDOW)
+    with pytest.raises(ValueError, match="whole 512-row windows"):
+        call(data=ok["data"][:1000], aux=ok["aux"][:1000])
+    with pytest.raises(ValueError, match="queries and data"):
+        call(queries=ok["queries"][:, :64])
+    with pytest.raises(TypeError, match="data must be"):
+        call(data=x.half())
+    with pytest.raises(TypeError, match="queries must be float32"):
+        call(queries=ok["queries"].double())
+    with pytest.raises(ValueError, match="need scale"):
+        call(**{**sq8, "scale": None})
+    with pytest.raises(ValueError, match="need lo"):
+        call(**{**sq8, "lo": torch.zeros(64, device=device)})
+    with pytest.raises(ValueError, match="take no lo"):
+        call(lo=sq8["lo"], scale=sq8["scale"])
+    with pytest.raises(ValueError, match="aux must be"):
+        call(aux=ok["aux"][:512])
+    with pytest.raises(ValueError, match="widx must be int64"):
+        call(widx=ok["widx"].int())
+    with pytest.raises(ValueError, match="widx must be int64"):
+        call(widx=ok["widx"][:4], valid=ok["valid"][:4])
+    with pytest.raises(ValueError, match="widx must be int64"):
+        call(widx=ok["widx"][:, :0], valid=ok["valid"][:, :0])
+    with pytest.raises(ValueError, match="valid must be bool"):
+        call(valid=ok["valid"].to(torch.uint8))
+    with pytest.raises(ValueError, match="does not take metric"):
+        call(metric=Metric.HAMMING)
+    return call, ok
+
+
+def test_window_scan_wrapper_rejects_bad_operands_on_the_cpu():
+    _window_rejections(torch.device("cpu"))
+
+
+@pytest.mark.cuda
+def test_window_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    call, ok = _window_rejections(cuda_device)
+    with pytest.raises(ValueError, match="D % 128"):
+        call(queries=ok["queries"][:, :64].contiguous(), data=ok["data"][:, :64].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(widx=torch.zeros((3, 8), dtype=torch.int64, device=cuda_device).t(),
+             valid=ok["valid"])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(data=torch.zeros((128, 1024), device=cuda_device).to(torch.bfloat16).t())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(queries=torch.randn(8 * 128 + 1, device=cuda_device)[1:].view(8, 128))
+    with pytest.raises(ValueError, match="payload's device"):
+        call(widx=ok["widx"].cpu())
+    with pytest.raises(ValueError, match="payload's device"):
+        call(queries=ok["queries"].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", WINDOW_D)
+@pytest.mark.parametrize("payload", WINDOW_PAYLOADS)
+def test_window_scan_kernel_vs_plain(cuda_device, payload, d, metric):
+    """The kernel against its plain version over dead slots, duplicate-free
+    budgets and a ragged last window: inside `scan_error_bound`, -inf
+    exactly where the plain version is -inf (dead slots; padding under
+    L2), and the same top-10 ids, once the layout padding is masked, for
+    the queries whose scores have no tie within twice the bound. One
+    launch a call."""
+    q = 37
+    qs, data, aux, widx, valid, lo, scale, n_rows = _window_operands(
+        cuda_device, payload, metric, q, d, seed=d + q)
+    before = windowscan.window_scan.launches
+    got = windowscan.window_scan(qs, data, aux, widx, valid, metric=metric, lo=lo, scale=scale)
+    assert windowscan.window_scan.launches == before + 1
+    want = windowscan.window_scan_plain(qs, data, aux, widx, valid, metric=metric, lo=lo,
+                                        scale=scale)
+    bound = windowscan.scan_error_bound(qs, data, widx, metric, lo, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (q, widx.shape[1] * windowscan.WINDOW)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    ok = torch.isfinite(want)
+    assert not distance.outside_kernel_bound(got[ok], want[ok], bound[ok]).any()
+    _assert_tie_free_top_k_equal(got, want, bound, _window_rows(widx, n_rows), 10)
+
+
+def _assert_tie_free_top_k_equal(got, want, bound, keep, k):
+    """Top-k ids of the kernel's and the plain version's scores over the
+    `keep` columns: the same set for every query whose plain k-th and
+    (k+1)-th scores lie further apart than twice the bound (no tie at the
+    cut), and the same ids in the same order where every neighbouring pair
+    of its top k+1 does (no tie at all); at least half the queries have no
+    tie at the cut."""
+    got, want = (s.masked_fill(~keep, float("-inf")) for s in (got, want))
+    v, top_want = torch.topk(want, k + 1, dim=1)
+    top_got = torch.topk(got, k, dim=1).indices
+    margin = 2.0 * (bound.masked_fill(~keep, 0.0).amax(dim=1)
+                    + distance.KERNEL_RTOL * v.abs().amax(dim=1))
+    gaps = v[:, :-1] - v[:, 1:]
+    cut = gaps[:, k - 1] > margin
+    assert 2 * int(cut.sum()) >= got.shape[0]
+    top_want = top_want[:, :k]
+    assert torch.equal(torch.sort(top_got[cut]).values, torch.sort(top_want[cut]).values)
+    ordered = (gaps > margin[:, None]).all(dim=1)
+    assert torch.equal(top_got[ordered], top_want[ordered])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WINDOW_D)
+def test_window_scan_sq8_decode_is_bit_exact(cuda_device, d):
+    """One-hot queries under IP read the decoded payload itself (each score
+    is one product by 1 and products by 0): over a window whose rows hold
+    every one of the 256 codes at every dimension, the kernel's scores
+    equal `quantize.sq8_decode_dev` exactly, widened to f32."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    r = torch.arange(windowscan.WINDOW)[:, None]
+    codes = ((r + 3 * torch.arange(d)[None, :]) % 256).to(torch.uint8)
+    lo = (torch.randn(d, generator=g) * 10.0 ** torch.randint(-3, 3, (d,), generator=g)).float()
+    scale = (torch.rand(d, generator=g) * 10.0 ** torch.randint(-4, 1, (d,), generator=g)).float()
+    codes, lo, scale = codes.to(cuda_device), lo.to(cuda_device), scale.to(cuda_device)
+    qs = torch.eye(d, device=cuda_device)
+    widx = torch.zeros((d, 1), dtype=torch.int64, device=cuda_device)
+    valid = torch.ones((d, 1), dtype=torch.bool, device=cuda_device)
+    aux = torch.zeros(windowscan.WINDOW, device=cuda_device)
+    got = windowscan.window_scan(qs, codes, aux, widx, valid, metric=Metric.IP, lo=lo,
+                                 scale=scale)
+    want = quantize.sq8_decode_dev(codes, lo, scale).to(torch.float32).T  # [D, 512]
+    assert torch.equal(got, want)
+
+
 def _gathermv_operands(device, q, beam, m, dt, n=500, seed=0):
     """Codes, block rows (some outside [0, N), which the kernel clamps) and
     queries scaled as the traversal scales them."""
@@ -937,10 +1174,13 @@ PROGRAM_CASES = [
     ("FLAT", Metric.COSINE, 20_000, {}),
     ("FLAT_TILE", Metric.L2, 70_000, {}),  # capacity 81,920: tile_max
     ("FLAT_APPROX", Metric.IP, 70_000, {}),  # approx_bin_max
-    ("IVFFLAT", Metric.L2, 20_000, {"nprobe": 4}),
+    ("IVFFLAT", Metric.L2, 20_000, {"nprobe": 4}),  # window_scan
+    ("IVFFLAT", Metric.IP, 20_000, {"nprobe": 4}),
     ("IVFSQ", Metric.L2, 20_000, {"nprobe": 4}),
-    ("IVFPQ", Metric.L2, 20_000, {"nprobe": 4}),
+    ("IVFSQ", Metric.COSINE, 20_000, {"nprobe": 4}),
+    ("IVFPQ", Metric.L2, 20_000, {"nprobe": 4}),  # PQ codes: no kernel
     ("MSTG", Metric.COSINE, 20_000, {"nprobe": 4}),
+    ("MSTG", Metric.L2, 20_000, {"nprobe": 4}),
     ("HNSWFLAT", Metric.L2, 20_000, {"ef_s": 64}),  # gathermv
     ("HNSWSQ", Metric.L2, 20_000, {"ef_s": 64}),
     ("HNSWPQ", Metric.L2, 20_000, {"ef_s": 64}),
@@ -953,7 +1193,7 @@ def _replays_bit_for_bit(idx, q, mask, params):
 
     wrappers = (distance.scores, tilescan.tile_maxes, tilescan.tile_rescore,
                 gathermv.gather_block_scores, topk.approx_bin_max, binary.binary_scores,
-                binary.binary_block_scores, binary.group_probes)
+                binary.binary_block_scores, binary.group_probes, windowscan.window_scan)
     caps = GLOBAL_COUNTERS.get("SearchProgramCaptures")
     first = idx.search(q, 10, params=params, mask=mask)  # warm-up, capture, replay
     before = [w.launches for w in wrappers]
@@ -991,6 +1231,29 @@ def test_exact_flat_search_launches_tile_max_and_rescore_once(cuda_device):
     launched = _replays_bit_for_bit(idx, q, mask, {})
     assert launched[tilescan.tile_maxes] == launched[tilescan.tile_rescore] == 1
     assert sum(launched.values()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["IVFFLAT", "IVFSQ", "IVFPQ", "MSTG"])
+def test_ivf_search_launches_window_scan_once_a_replay(cuda_device, kind):
+    """A replayed IVF search runs its first pass through the window scan
+    kernel once (IVFPQ, whose codes have no kernel, not at all), and each
+    further replay adds one launch to `window_scan.launches`."""
+    from myscaledb_tpu_torch.index.base import params_key
+
+    metric = Metric.COSINE if kind == "MSTG" else Metric.L2
+    idx, q, mask = _program_index(cuda_device, kind, metric, 20_000)
+    launched = _replays_bit_for_bit(idx, q, mask, {"nprobe": 4})
+    want = 0 if kind == "IVFPQ" else 1
+    assert launched[windowscan.window_scan] == want
+    before = windowscan.window_scan.launches
+    for _ in range(3):
+        idx.search(q, 10, params={"nprobe": 4}, mask=mask)
+    assert windowscan.window_scan.launches == before + 3 * want
+    assert idx._programs.programs()[0].runs == 5
+    eager = windowscan.window_scan.launches
+    idx.search_t(q, 10, mask=mask, params=params_key({"nprobe": 4}))
+    assert windowscan.window_scan.launches == eager + want
 
 
 @pytest.mark.cuda
