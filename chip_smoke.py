@@ -5750,7 +5750,7 @@ def program_text_path(ms, t, vb, tb, lb, here, card, out_dir):
     device = t.live_segments()[0].device
     # the graphs' own bytes: the pool's allocated blocks across one capture
     # of each text program, made afresh
-    t._text_programs.invalidate()
+    t._programs.invalidate()
     pools = [graph_pool_bytes(device)]
     for qb in (lb[0], tb[0]):
         t.text_search("body", qb, k=K)
@@ -5779,7 +5779,7 @@ def program_text_path(ms, t, vb, tb, lb, here, card, out_dir):
     after = torch.cuda.memory_reserved()
     log(f"  18h-k: the caching allocator's reserved bytes {before:,} before the text cells, "
         f"{after:,} after ({after - before:+,}: the graphs' shared pool and the eager bodies' "
-        f"cached blocks); {len(t._text_programs)} text programs cached, "
+        f"cached blocks); {len(t._programs)} programs cached, "
         f"{len(text_executor._FUSE_PROGRAMS)} fuse programs  [{card}]")
     res, s_text = host_syncs(lambda: t.text_search("body", tb[0], k=K), here)
     _, s_hyb = host_syncs(lambda: t.hybrid_search("vec", "body", vb[0], tb[0], k=K,

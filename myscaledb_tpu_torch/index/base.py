@@ -14,11 +14,21 @@ from __future__ import annotations
 import abc
 import dataclasses
 import enum
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..metrics import Metric
+from ..search.filters import mask_argument, mask_spec, materialize_mask
+from ..search.program import (
+    Program,
+    ProgramCache,
+    normalize_device,
+    pack_topk,
+    tensors_key,
+    unpack_topk,
+)
 
 # Search-time parameters as a hashable tuple of sorted (name, value) pairs.
 ParamsKey = Tuple[Tuple[str, Any], ...]
@@ -156,6 +166,9 @@ class VectorIndex(abc.ABC):
         applied inside selection.
         """
 
+    # the standalone search's programs, made at its first call
+    _programs: Optional[ProgramCache] = None
+
     def search(
         self,
         queries,
@@ -163,18 +176,50 @@ class VectorIndex(abc.ABC):
         *,
         params: Optional[Dict[str, Any]] = None,
         mask=None,
-        programs=None,
+        programs: Optional[ProgramCache] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Standalone entry point (the JAX package's jitted `search`):
-        `search_t` as one program, keyed by k, the params, the queries'
-        shape and type, the mask's kind and the index's tensors. queries:
-        [Q, D] on the index's device (or host data, uploaded); mask: None,
-        a bool[capacity] bitmap, a DeviceMask or a WindowMask. `programs`
-        is the cache to keep the program in (a table's; by default one on
-        the index). Returns copies (scores f32[Q, k], rows int32[Q, k])."""
-        from ..search.program import index_search
+        `search_t` as one program, keyed as the JAX package's
+        `_jitted_index_search` is (k, the params, the queries' shape and
+        type, the mask's kind) plus what a graph bakes in (the index's
+        tensors). queries: [Q, D] on the index's device (or host data,
+        uploaded); mask: None, a bool[capacity] bitmap, a DeviceMask or a
+        WindowMask. `programs` is the cache to keep the program in (a
+        table's; by default the index's own). Returns copies (scores
+        f32[Q, k], rows int32[Q, k])."""
+        k = int(k)
+        pkey = params_key(params)
+        device = _index_device(self)
+        if isinstance(queries, torch.Tensor):
+            on_device = normalize_device(queries.device) == device
+            q = queries if on_device else queries.detach().cpu().numpy()
+        else:
+            q = np.ascontiguousarray(np.asarray(queries))
+        m = materialize_mask(mask)
+        ms = mask_spec(m)
+        refs: List[torch.Tensor] = []
+        key = ("index", signature(self, refs), k, pkey, tuple(q.shape), str(q.dtype), ms)
+        if programs is None:
+            if self._programs is None:
+                self._programs = ProgramCache()
+            programs = self._programs
+        kind = None if ms is None else ms[0]
 
-        return index_search(self, queries, k, params=params, mask=mask, programs=programs)
+        def body(qb, masks, dyn):
+            del dyn
+            v, r = self.search_t(qb, k, mask=mask_argument(kind, masks[0]), params=pkey)
+            return pack_topk(v, r)
+
+        def make():
+            qdtype = q.dtype if isinstance(q, torch.Tensor) else torch.from_numpy(q[:0]).dtype
+            return Program(
+                body, device=device, query=(tuple(q.shape), qdtype),
+                masks=[None if ms is None else (ms[1], ms[2])], out_shape=(2, q.shape[0], k),
+                label=label_of([self]), refs=refs,
+            )
+
+        prog = programs.get(key, make)
+        return unpack_topk(prog.run(q, [None if m is None else m[1]]))
 
     @classmethod
     def estimate_build_bytes(cls, payload, n_rows: int, params=None) -> int:
@@ -236,3 +281,58 @@ class VectorIndex(abc.ABC):
                 seen.add(v.untyped_storage().data_ptr())
                 total += v.numel() * v.element_size()
         return total
+
+
+# ------------------------------------------------------------ program keys
+def _sig_value(v, refs: List[torch.Tensor]):
+    if isinstance(v, torch.Tensor):
+        return tensors_key((v,), refs)[0]
+    if isinstance(v, VectorIndex):
+        return signature(v, refs)
+    if isinstance(v, (tuple, list)):
+        return tuple(_sig_value(x, refs) for x in v)
+    if isinstance(v, enum.Enum):
+        return (type(v).__name__, v.value)
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    raise TypeError(f"a search program cannot key a {type(v).__name__} attribute")
+
+
+def signature(searcher, refs: List[torch.Tensor]) -> tuple:
+    """A searcher's part of a program key: its class, its static
+    configuration and the pointer, shape, strides, type and device of
+    every tensor it holds, a sub-index's included (attributes whose name
+    starts with `_` are caches the body does not read). The tensors are
+    appended to `refs`."""
+    attrs = tuple(
+        (name, _sig_value(v, refs))
+        for name, v in sorted(vars(searcher).items())
+        if not name.startswith("_")
+    )
+    return (type(searcher).__module__, type(searcher).__qualname__, attrs)
+
+
+def _index_device(index) -> torch.device:
+    """The device an index searches on: that of its first tensor off the
+    host (a disk-mode index keeps host rows too), or its sub-indexes'."""
+    for v in vars(index).values():
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            return normalize_device(v.device)
+    for v in vars(index).values():
+        if isinstance(v, (tuple, list)):
+            for s in v:
+                if hasattr(s, "search_t"):
+                    return _index_device(s)
+    return torch.device("cpu")
+
+
+def label_of(searchers) -> str:
+    """The searchers' index kinds (class names where there is no kind),
+    for messages."""
+    names = []
+    for s in searchers:
+        kind = getattr(s, "kind", None)
+        name = getattr(kind, "value", None) or type(s).__name__
+        if name not in names:
+            names.append(name)
+    return ", ".join(names)

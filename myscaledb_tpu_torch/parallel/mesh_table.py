@@ -36,12 +36,11 @@ the search's program.
 
 Every search is one program (parallel/distributed.py::MeshProgram: on a
 one-card grid one CUDA graph; across cards a graph a card) of the table's
-caches: `_programs` for vector searches, `_text_programs` for BM25,
-`_hybrid_programs` for hybrid searches, keyed on their static arguments,
-the padded batch, the mask's kind and the cache's generation. A graph
+one cache, `_programs`: vector, BM25 and hybrid searches, keyed on their
+kind, static arguments, the padded batch and the mask's kind. A graph
 reads the table's tensors in place, so in-place inserts and deletes need
 no recapture; a reseal, an index build and a text-index rebuild make new
-tensors and drop the programs that read the old ones.
+tensors and drop the whole cache, the generation its `version`.
 """
 
 from __future__ import annotations
@@ -193,23 +192,13 @@ class MeshTable:
         self._delta_mask = None  # per shard bool[cap]: slots not in the index
         self._text: Optional[_TextIndex] = None
         self._text_stale = True
-        # the searches' programs; a hybrid one reads both sides' tensors
+        # every search's program; a hybrid one reads both sides' tensors.
+        # Dropped whole before any tensor a program may read is replaced
         self._programs = ProgramCache()
-        self._text_programs = ProgramCache()
-        self._hybrid_programs = ProgramCache()
 
     @property
     def _first(self) -> torch.device:
         return self.mesh.devices[0][0]
-
-    def _drop_programs(self, *, vector: bool = True, text: bool = True) -> None:
-        """Drop the programs that read tensors about to be replaced (and
-        with them the graphs), moving each cache's generation on."""
-        if vector:
-            self._programs.invalidate()
-        if text:
-            self._text_programs.invalidate()
-        self._hybrid_programs.invalidate()
 
     # -------------------------------------------------------------- ingest
     def insert(self, columns: Dict[str, Any]) -> int:
@@ -407,7 +396,7 @@ class MeshTable:
             alive &= ~dead
         valid = np.nonzero(ids_pad >= 0)[0]
         id2slot = dict(zip(ids_pad[valid].tolist(), valid.tolist()))
-        self._drop_programs()
+        self._programs.invalidate()
         self._s = _Sealed(
             cap,
             fill,
@@ -515,7 +504,7 @@ class MeshTable:
         kind, masks, fresh = self._mask_inputs(filter, s)
         route, delta, nprobe, num_reorder, bpad = self._vector_route(k, params)
         key = ("vector", route, delta, k, nprobe, num_reorder, bpad, q.shape[0], kind,
-               self.metric.value, version)
+               self.metric.value)
 
         def make():
             legs = self._vector_legs(route, delta, k, nprobe, num_reorder, masks)
@@ -621,13 +610,13 @@ class MeshTable:
         """Serve `ivf` or `mstg` (device parts a shard): the fill it covers
         and the delta mask of the slots past it (per shard bool[cap],
         static until the next build or reseal), built here, outside any
-        search; the vector programs that read the old index drop."""
+        search; the programs drop."""
         s = self._s
         self._ivf, self._mstg = ivf, mstg
         self._ivf_fill = s.fill.copy()
         pos = np.arange(s.cap * self.n_shards)
         self._delta_mask = shard_rows(self.mesh, (pos % s.cap) >= self._ivf_fill[pos // s.cap])
-        self._drop_programs(text=False)
+        self._programs.invalidate()
 
     # ---------------------------------------------------------------- text
     def _text_index(self) -> _TextIndex:
@@ -640,7 +629,7 @@ class MeshTable:
         s = self._seal()
         if self._text is not None and not self._text_stale:
             return self._text
-        self._drop_programs(vector=False)
+        self._programs.invalidate()
         from ..text.analyzer import Analyzer
         from ..text.inverted import BM25Stats, InvertedIndex
 
@@ -730,12 +719,12 @@ class MeshTable:
         queries = list(queries)
         s = self._seal()
         ti = self._text_index()
-        version = self._text_programs.version
+        version = self._programs.version
         nq = len(queries)
         nq_pad = -(-nq // ALIGN) * ALIGN
         plan, T, budget = self._text_plan(ti, queries + [""] * (nq_pad - nq))
         kind, masks, fresh = self._mask_inputs(filter, s)
-        key = ("text", k, T, budget, nq_pad, kind, version)
+        key = ("text", k, T, budget, nq_pad, kind)
 
         def make():
             return MeshProgram(
@@ -743,7 +732,7 @@ class MeshTable:
                 lambda outs: [pack_topk(*outs[0])], query=(plan.shape, torch.int32),
                 out_specs=[((2, nq_pad, k), torch.int32)], label=self._label("BM25"))
 
-        (out,) = self._text_programs.get(key, make, version).run(plan, fresh)
+        (out,) = self._programs.get(key, make, version).run(plan, fresh)
         return out, nq
 
     def hybrid_search(
@@ -783,7 +772,7 @@ class MeshTable:
             raise QueryShapeError(f"unknown fusion_type {fusion_type!r}")
         s = self._seal()
         ti = self._text_index()
-        version = self._hybrid_programs.version
+        version = self._programs.version
         q, nq = self._queries_host(query_vec)
         texts = [query_text] * nq if isinstance(query_text, str) else list(query_text)
         if len(texts) != nq:
@@ -794,7 +783,7 @@ class MeshTable:
         kind, masks, fresh = self._mask_inputs(filter, s)
         route, delta, nprobe, num_reorder, bpad = self._vector_route(k, params)
         key = ("hybrid", route, delta, k, nprobe, num_reorder, bpad, T, budget, nq_pad, kind,
-               self.metric.value, fusion_type, fusion_k, fusion_weight, version)
+               self.metric.value, fusion_type, fusion_k, fusion_weight)
 
         def tags(r):
             return torch.where(r >= 0, 0, -1).to(torch.int32)
@@ -820,7 +809,7 @@ class MeshTable:
                 out_specs=[((2, nq_pad, k), torch.int32)],
                 label=self._label(f"hybrid {fusion_type.upper()} ({route} + BM25)"))
 
-        (out,) = self._hybrid_programs.get(key, make, version).run(packed, fresh)
+        (out,) = self._programs.get(key, make, version).run(packed, fresh)
         return out, nq
 
     def batch_distance(

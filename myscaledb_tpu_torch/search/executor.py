@@ -15,9 +15,9 @@ reference's search-manager stack:
 As in the JAX package, the WHOLE query -- the cast and pad of the
 queries, every segment's index search or scan and the global merge -- is
 one program (`_fused_multi_search`): on a CUDA device one captured graph,
-replayed from search/program.py's cache per (k, params bucket, padded
-batch, the masks' kinds, the searchers and their tensors, the table's
-segment-set version). Outside it stay the query upload (through a pinned
+replayed from the table's program cache (search/program.py) per (k,
+params bucket, padded batch, the masks' kinds, the searchers and their
+tensors). Outside it stay the query upload (through a pinned
 staging buffer), one copy per mask and one copy of the packed outputs.
 Results are lazy: that copy stays on the device until the caller reads
 it. The two-stage path (first passes, a global cut, the exact re-rank)
@@ -37,7 +37,7 @@ import torch.nn.functional as tnf
 
 from ..config import Settings
 from ..errors import QueryShapeError
-from ..index.base import VectorIndex, params_key, split_dyn_nprobe
+from ..index.base import VectorIndex, label_of, params_key, signature, split_dyn_nprobe
 from ..index.binary import BinaryFlatIndex
 from ..index.flat import FlatIndex
 from ..metrics import Metric, score_to_distance
@@ -45,15 +45,24 @@ from ..ops.topk import NEG_INF, topk_stable
 from ..service.event_log import GLOBAL_COUNTERS
 from ..service.tracing import span
 from ..storage.schema import BinaryVector
-from .filters import DeviceMask, Expr, Lambda, WindowMask, as_mask_array
-from .program import Program, label_of, mask_argument, mask_spec, materialize_mask, signature
+from .filters import (
+    DeviceMask,
+    Expr,
+    Lambda,
+    WindowMask,
+    as_mask_array,
+    mask_argument,
+    mask_spec,
+    materialize_mask,
+)
+from .program import Program
 
 
 class SearchResult:
-    """Global top-k for a batch of queries. Device-lazy: the (scores,
-    segment tag, row) tensors stay on the device until first host access.
-    `device` is that tuple, or one int32[3, Q, k] tensor (`pack_result`):
-    the scores' bits, the tags and the rows, read back in one copy."""
+    """Global top-k for a batch of queries. Device-lazy: `device`, one
+    int32[3, Q, k] tensor (`pack_result`: the scores' bits, the segment
+    tags and the rows), stays on the device until the first host access
+    reads it back in one copy."""
 
     def __init__(
         self,
@@ -67,10 +76,7 @@ class SearchResult:
         query_sqnorm: Optional[np.ndarray] = None,
     ):
         self.metric = metric
-        self._packed = device if isinstance(device, torch.Tensor) else None
-        if self._packed is not None:
-            device = (self._packed[0].view(torch.float32), self._packed[1], self._packed[2])
-        self._device = device
+        self._packed = device
         self._seg_ids = seg_ids
         self._host = host
         self.nq = nq
@@ -94,12 +100,8 @@ class SearchResult:
     def _materialize(self):
         if self._host is None:
             with span("result.readback"):
-                if self._packed is not None:
-                    packed = self._packed.cpu().numpy()[:, : self.nq]
-                    vals, tags, rows = packed[0].view(np.float32), packed[1], packed[2]
-                else:
-                    vals, tags, rows = (t[: self.nq].cpu().numpy() for t in self._device)
-                rows = rows.astype(np.int32)
+                packed = self._packed.cpu().numpy()[:, : self.nq]
+                vals, tags, rows = packed[0].view(np.float32), packed[1], packed[2]
                 segs = np.where(tags >= 0, self._seg_ids[np.maximum(tags, 0)], -1)
                 self._host = (vals, segs.astype(np.int64), rows)
         return self._host
@@ -240,22 +242,16 @@ def _as_binary_query_batch(query, vtype) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(q), q.shape[0]
 
 
-# (segment uid, filter repr, mutation generation) -> device mask. Repeated
-# queries with the same host-evaluated predicate skip host evaluation AND
-# the mask upload. Bounded; Lambda filters are not cached (their repr
-# does not capture the closure).
-_MASK_CACHE: dict = {}
-_MASK_CACHE_CAP = 256
-
-
 def segment_mask(segment, filter_expr: Optional[Expr]):
     """Pre-filter bitmap for one segment: WHERE bitmap ∩ alive bitmap,
     extended to capacity (False in padding). None when unconstrained.
 
     Numeric predicates lower to the device (DeviceMask): the bitmap is
     built on the segment's device from mirrored scalar columns, with no
-    host evaluation and no upload. Strings/Lambda evaluate on the host
-    (with the repeated-predicate mask cache)."""
+    host evaluation and no upload. Strings/Lambda evaluate on the host;
+    a repeated predicate's device mask comes from the segment's
+    `mask_cache` (Lambda filters are not cached: their repr does not
+    capture the closure)."""
     alive = segment.alive_mask_device()
     if filter_expr is None:
         return alive  # may be None
@@ -268,24 +264,22 @@ def segment_mask(segment, filter_expr: Optional[Expr]):
             ([alive] if has_alive else []) + leaves,
             segment.device,
         )
-    cacheable = not any(isinstance(e, Lambda) for e in _walk_filter(filter_expr))
-    key = None
-    if cacheable:
-        key = (segment.uid, repr(filter_expr), segment.mutation_generation)
-        hit = _MASK_CACHE.get(key)
-        if hit is not None:
-            return hit
-    host = filter_expr.evaluate(segment)  # bool[n_rows]
-    full = np.zeros(segment.capacity, dtype=bool)
-    full[: segment.n_rows] = host
-    dev = torch.from_numpy(full).to(segment.device)
-    if alive is not None:
-        dev = torch.logical_and(dev, alive)
-    if key is not None:
-        if len(_MASK_CACHE) >= _MASK_CACHE_CAP:
-            _MASK_CACHE.pop(next(iter(_MASK_CACHE)))
-        _MASK_CACHE[key] = dev
-    return dev
+
+    def make():
+        host = filter_expr.evaluate(segment)  # bool[n_rows]
+        full = np.zeros(segment.capacity, dtype=bool)
+        full[: segment.n_rows] = host
+        dev = torch.from_numpy(full).to(segment.device)
+        return dev if alive is None else torch.logical_and(dev, alive)
+
+    if _has_lambda(filter_expr):
+        return make()
+    key = (repr(filter_expr), segment.mutation_generation)
+    return _memo(segment.mask_cache, _MASK_CACHE_CAP, key, make)
+
+
+def _has_lambda(expr) -> bool:
+    return any(isinstance(e, Lambda) for e in _walk_filter(expr))
 
 
 def _walk_filter(expr):
@@ -296,29 +290,38 @@ def _walk_filter(expr):
             yield from _walk_filter(child)
 
 
-# (segment uid, predicate repr, mutation generation) -> passing-row count.
-_SELECTIVITY_CACHE: dict = {}
-_SELECTIVITY_CACHE_CAP = 512
-
-
 def estimate_selectivity(segment, filter_expr: Optional[Expr]) -> Optional[float]:
     """Fraction of the segment's rows passing `filter_expr` (ignoring
     deletes), or None when it cannot be costed cheaply (Lambda closures).
-    Cached per (segment, predicate, mutation generation)."""
+    Cached on the segment per (predicate, mutation generation)."""
     if filter_expr is None:
         return 1.0
     if segment.n_rows == 0:
         return 0.0
-    if any(isinstance(e, Lambda) for e in _walk_filter(filter_expr)):
+    if _has_lambda(filter_expr):
         return None
-    key = (segment.uid, repr(filter_expr), segment.mutation_generation)
-    hit = _SELECTIVITY_CACHE.get(key)
-    if hit is None:
+
+    def make():
         host = filter_expr.evaluate(segment)
-        hit = float(np.count_nonzero(host)) / float(segment.n_rows)
-        if len(_SELECTIVITY_CACHE) >= _SELECTIVITY_CACHE_CAP:
-            _SELECTIVITY_CACHE.pop(next(iter(_SELECTIVITY_CACHE)))
-        _SELECTIVITY_CACHE[key] = hit
+        return float(np.count_nonzero(host)) / float(segment.n_rows)
+
+    key = (repr(filter_expr), segment.mutation_generation)
+    return _memo(segment.selectivity_cache, _SELECTIVITY_CACHE_CAP, key, make)
+
+
+# entries of a segment's mask and selectivity caches
+_MASK_CACHE_CAP = 256
+_SELECTIVITY_CACHE_CAP = 512
+
+
+def _memo(cache: dict, cap: int, key, make):
+    """cache[key], made on a miss; past `cap` the oldest entry goes."""
+    hit = cache.get(key)
+    if hit is None:
+        hit = make()
+        if len(cache) >= cap:
+            cache.pop(next(iter(cache)))
+        cache[key] = hit
     return hit
 
 
@@ -513,7 +516,7 @@ class VectorSearchExecutor:
         with span("program.key"):
             key = (
                 "fused", k, bucketed, nq_pad, dpad, tuple(qh.shape[1:]), is_binary, specs,
-                tuple(signature(s, refs) for s in searchers), dyn_np is not None, version,
+                tuple(signature(s, refs) for s in searchers), dyn_np is not None,
             )
             prog = t._programs.get(key, make, version)
         packed = prog.run(qh, [None if m is None else m[1] for m in mats], dyn_np)

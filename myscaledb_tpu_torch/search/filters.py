@@ -122,6 +122,40 @@ def as_mask_array(mask):
     return mask
 
 
+def materialize_mask(mask):
+    """The mask a search program copies in, built outside the graph: None,
+    or (kind, bool tensor). A WindowMask is built in its index's layout
+    ("window"; a repeated filter's bitmap comes from the index's cache); a
+    DeviceMask or a bitmap in row space ("rows")."""
+    if mask is None:
+        return None
+    if isinstance(mask, WindowMask):
+        return ("window", mask.build())
+    if isinstance(mask, DeviceMask):
+        return ("rows", mask.build())
+    return ("rows", mask)
+
+
+def mask_spec(mask) -> Optional[Tuple[str, Tuple[int, ...], torch.dtype]]:
+    """(kind, shape, dtype) of a materialized mask, None for no mask: the
+    mask's part of a program key."""
+    if mask is None:
+        return None
+    kind, t = mask
+    return (kind, tuple(t.shape), t.dtype)
+
+
+def mask_argument(kind: str, buf: Optional[torch.Tensor]):
+    """What a searcher's `search_t` takes for a program's mask buffer: a
+    prebuilt WindowMask over it for the window kind, else the bitmap."""
+    if buf is None:
+        return None
+    if kind == "window":
+        n = buf.shape[0]
+        return WindowMask(("prebuilt", n, n, False, None), [buf], buf.device)
+    return buf
+
+
 def _numeric_minmax(segment, column):
     """(min, max) of a numeric scalar column over the segment's rows, or
     None for string/missing columns. Cached on the segment per mutation

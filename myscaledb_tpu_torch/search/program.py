@@ -15,10 +15,12 @@ device scalar, and the packed int32 output. The body reads
 only those and the searchers' own tensors, which the entry keeps alive
 (`refs`): a graph over a freed tensor would read whatever the allocator
 put there next. A `ProgramCache` maps keys to entries, least recently
-used first out past `MAX_PROGRAMS`; each table owns one and drops it when
-its segment set changes (storage/table.py), and one for its text searches
-that its fts stores' changes drop too; a standalone index search
+used first out past `MAX_PROGRAMS`. Its owner drops it whenever a tensor
+a program reads may go: a table holds one for all its searches and drops
+it in one place (storage/table.py); a standalone index search
 (`VectorIndex.search`) uses one on the index, an fts store one of its own.
+This module knows no index, filter or table: its callers build the keys
+(`tensors_key` for the tensors a body reads) and the bodies.
 
 On a CUDA device the first run warms the body up on a side stream (the
 kernels' build, their shared-memory opt-in and tensor-map entry point,
@@ -54,7 +56,6 @@ events on both streams, with no host wait.
 from __future__ import annotations
 
 import collections
-import enum
 import threading
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
@@ -336,7 +337,9 @@ class GridProgram:
 
 class ProgramCache:
     """Key -> Program, bounded by `cap` (least recently used out first).
-    `version` counts `invalidate` calls: a table's segment-set version."""
+    `version` counts `invalidate` calls: the owner's generation. No entry
+    is older than the last `invalidate` (see `get`), so no key carries
+    the generation."""
 
     def __init__(self, cap: int = MAX_PROGRAMS):
         self.cap = cap
@@ -380,82 +383,18 @@ class ProgramCache:
 
 
 # --------------------------------------------------------------- keys
-def _sig_value(v, refs: List[torch.Tensor]):
-    from ..index.base import VectorIndex
-
-    if isinstance(v, torch.Tensor):
-        refs.append(v)
-        return ("tensor", v.data_ptr(), tuple(v.shape), tuple(v.stride()), str(v.dtype),
-                str(v.device))
-    if isinstance(v, VectorIndex):
-        return signature(v, refs)
-    if isinstance(v, (tuple, list)):
-        return tuple(_sig_value(x, refs) for x in v)
-    if isinstance(v, enum.Enum):
-        return (type(v).__name__, v.value)
-    if v is None or isinstance(v, (bool, int, float, str)):
-        return v
-    raise TypeError(f"a search program cannot key a {type(v).__name__} attribute")
-
-
 def tensors_key(tensors: Sequence[torch.Tensor], refs: List[torch.Tensor]) -> tuple:
-    """The key part of tensors a body reads (pointer, shape, strides, type,
-    device); they are appended to `refs`."""
-    return tuple(_sig_value(t, refs) for t in tensors)
-
-
-def signature(searcher, refs: List[torch.Tensor]) -> tuple:
-    """A searcher's part of a program key: its class, its static
-    configuration and the pointer, shape, strides, type and device of
-    every tensor it holds (attributes whose name starts with `_` are
-    caches the body does not read). The tensors are appended to `refs`."""
-    attrs = tuple(
-        (name, _sig_value(v, refs))
-        for name, v in sorted(vars(searcher).items())
-        if not name.startswith("_")
+    """The key part of tensors a body reads: what a graph bakes in of each
+    (pointer, shape, strides, type, device). They are appended to `refs`,
+    which the program keeps alive."""
+    refs.extend(tensors)
+    return tuple(
+        ("tensor", t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.dtype), str(t.device))
+        for t in tensors
     )
-    return (type(searcher).__module__, type(searcher).__qualname__, attrs)
 
 
-def mask_spec(mask) -> Optional[Tuple[str, Tuple[int, ...], torch.dtype]]:
-    """(kind, shape, dtype) of a materialized mask: "window" for an index's
-    window-layout bitmap, "rows" for a row bitmap; None for no mask."""
-    if mask is None:
-        return None
-    kind, t = mask
-    return (kind, tuple(t.shape), t.dtype)
-
-
-def materialize_mask(mask):
-    """The mask a program copies in, built outside the graph: None, or
-    (kind, bool tensor). A WindowMask is built in its index's layout (a
-    repeated filter's bitmap comes from the index's cache); a DeviceMask
-    in row space."""
-    from .filters import DeviceMask, WindowMask
-
-    if mask is None:
-        return None
-    if isinstance(mask, WindowMask):
-        return ("window", mask.build())
-    if isinstance(mask, DeviceMask):
-        return ("rows", mask.build())
-    return ("rows", mask)
-
-
-def mask_argument(kind: str, buf: Optional[torch.Tensor]):
-    """What a searcher's `search_t` takes for a program's mask buffer: a
-    prebuilt WindowMask over it for the window kind, else the bitmap."""
-    if buf is None:
-        return None
-    if kind == "window":
-        from .filters import WindowMask
-
-        n = buf.shape[0]
-        return WindowMask(("prebuilt", n, n, False, None), [buf], buf.device)
-    return buf
-
-
-# ------------------------------------------------------- index search
+# ------------------------------------------------------------ outputs
 def pack_topk(vals: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """int32[2, Q, k]: the scores' bits and the rows, one buffer."""
     return torch.stack([vals.contiguous().view(torch.int32), rows.to(torch.int32)])
@@ -463,71 +402,3 @@ def pack_topk(vals: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def unpack_topk(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return packed[0].view(torch.float32), packed[1]
-
-
-def index_search(index, queries, k: int, *, params=None, mask=None,
-                 programs: Optional[ProgramCache] = None):
-    """`VectorIndex.search`: the index's `search_t` as one program, keyed as
-    the JAX package's `_jitted_index_search` is (k, params, the query's
-    shape and type, the mask's kind) plus what a graph bakes in (the
-    index's tensors). Returns (scores f32[Q, k], rows int32[Q, k]), a copy
-    of the program's output."""
-    from ..index.base import params_key
-
-    k = int(k)
-    pkey = params_key(params)
-    device = _index_device(index)
-    if isinstance(queries, torch.Tensor):
-        on_device = normalize_device(queries.device) == device
-        q = queries if on_device else queries.detach().cpu().numpy()
-    else:
-        q = np.ascontiguousarray(np.asarray(queries))
-    m = materialize_mask(mask)
-    ms = mask_spec(m)
-    refs: List[torch.Tensor] = []
-    key = ("index", signature(index, refs), k, pkey, tuple(q.shape), str(q.dtype), ms)
-    if programs is None:
-        programs = index.__dict__.setdefault("_programs", ProgramCache())
-    kind = None if ms is None else ms[0]
-
-    def body(qb, masks, dyn):
-        del dyn
-        v, r = index.search_t(qb, k, mask=mask_argument(kind, masks[0]), params=pkey)
-        return pack_topk(v, r)
-
-    def make():
-        qdtype = q.dtype if isinstance(q, torch.Tensor) else torch.from_numpy(q[:0]).dtype
-        return Program(
-            body, device=device, query=(tuple(q.shape), qdtype),
-            masks=[None if ms is None else (ms[1], ms[2])], out_shape=(2, q.shape[0], k),
-            label=label_of([index]), refs=refs,
-        )
-
-    prog = programs.get(key, make)
-    return unpack_topk(prog.run(q, [None if m is None else m[1]]))
-
-
-def _index_device(index) -> torch.device:
-    """The device an index searches on: that of its first tensor off the
-    host (a disk-mode index keeps host rows too), or its sub-indexes'."""
-    for v in vars(index).values():
-        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
-            return normalize_device(v.device)
-    for v in vars(index).values():
-        if isinstance(v, (tuple, list)):
-            for s in v:
-                if hasattr(s, "search_t"):
-                    return _index_device(s)
-    return torch.device("cpu")
-
-
-def label_of(searchers) -> str:
-    """The searchers' index kinds (class names where there is no kind),
-    for messages."""
-    names = []
-    for s in searchers:
-        kind = getattr(s, "kind", None)
-        name = getattr(kind, "value", None) or type(s).__name__
-        if name not in names:
-            names.append(name)
-    return ", ".join(names)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import re
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -42,23 +42,20 @@ from ..text.inverted import (
     store_topk,
 )
 from .executor import SearchResult, merge_tagged_topk, pack_result, segment_mask
-from .filters import Expr
+from .filters import Expr, mask_spec, materialize_mask
 from .fusion import rrf_fuse_t, rsf_fuse_t
-from .program import (
-    Program,
-    ProgramCache,
-    mask_spec,
-    materialize_mask,
-    normalize_device,
-    tensors_key,
-)
+from .program import Program, ProgramCache, normalize_device, tensors_key
 
 
 class TextIndexDefinition:
     """One fts index over one or more string columns (the
-    `INDEX name(col, ...) TYPE fts('{json}')` DDL analogue)."""
+    `INDEX name(col, ...) TYPE fts('{json}')` DDL analogue). `on_change`
+    is called with every change of a store: the table's drop of its
+    search programs, so that no graph keeps a replaced store's postings
+    alive on the device."""
 
-    def __init__(self, name: str, columns: List[str], params: Optional[Dict[str, Any]] = None):
+    def __init__(self, name: str, columns: List[str], params: Optional[Dict[str, Any]] = None,
+                 *, on_change: Callable[[], None]):
         self.name = name
         self.columns = list(columns)
         self.analyzer = Analyzer(params)
@@ -74,10 +71,7 @@ class TextIndexDefinition:
         # bumped on every invalidation: a stats computation that straddles
         # one must not install its (stale) result
         self._stats_gen = 0
-        # the table's text programs (set by Table.add_fts_index): dropped
-        # with every change of a store, so that no graph keeps a replaced
-        # store's postings alive on the device
-        self.programs: Optional[ProgramCache] = None
+        self._on_change = on_change
 
     def _build_store(self, segment) -> InvertedIndex:
         texts = [segment.scalar(c)[: segment.n_rows] for c in self.columns]
@@ -90,8 +84,7 @@ class TextIndexDefinition:
     def _invalidate_locked(self) -> None:
         self._stats_cache = None
         self._stats_gen += 1
-        if self.programs is not None:
-            self.programs.invalidate()
+        self._on_change()
 
     def on_new_segment(self, segment, scheduler=None) -> None:
         """Register (and build) the fts store for a segment: now, or with a
@@ -504,10 +497,9 @@ class TextSearchExecutor:
         `query` may be one string or a list of strings (a batch). The
         batch is tokenized once, each live store planned from its terms,
         and every store's BM25 body and the merge run as one program (on
-        the card one CUDA graph) of the table's `_text_programs`, keyed on
-        k, the batch padded to 8 rows, each store's route, budget, nt,
-        need_counts, capacity and tensors, the masks' shapes, the
-        segment-set version and the index's store generation; the plans
+        the card one CUDA graph) of the table's program cache, keyed on k,
+        the batch padded to 8 rows, each store's route, budget, nt,
+        need_counts, capacity and tensors and the masks' shapes; the plans
         and statistics are its one packed input. stats_override: corpus
         statistics injected by a distributed initiator, in place of the
         table's own. The result is device-lazy like vector search."""
@@ -537,8 +529,7 @@ class TextSearchExecutor:
             )
         tdef = self._resolve(column_or_index)
         GLOBAL_COUNTERS.bump("TextSearchQueries", nq)
-        # read before the segments and stores: see ProgramCache.get
-        version, seg_version, gen = t._text_programs.version, t.segment_version, tdef._stats_gen
+        version = t.segment_version  # read before the segments and stores: see ProgramCache.get
         segments = t.live_segments()
         seg_ids = [s.segment_id for s in segments]
         stats = stats_override if stats_override is not None else tdef.merged_stats(seg_ids)
@@ -574,7 +565,7 @@ class TextSearchExecutor:
         )
         mats = [m for _, _, _, ms in parts for m in ms]
         specs = tuple(mask_spec(m) for m in mats)
-        key = ("text", k, nq_pad, stores, specs, seg_version, gen)
+        key = ("text", k, nq_pad, stores, specs)
         found = [(part[1].tensors, off, desc) for part, off, desc in zip(parts, offs, stores)]
 
         def body(plan, mbufs, dyn):
@@ -605,7 +596,7 @@ class TextSearchExecutor:
                 out_shape=(3, nq_pad, k), label=f"the text search ({label})", refs=refs,
             )
 
-        out = t._text_programs.get(key, make, version).run(
+        out = t._programs.get(key, make, version).run(
             packed, [None if m is None else m[1] for m in mats]
         )
         # BM25 score is bigger-better: exposed under the IP (similarity)
@@ -616,7 +607,8 @@ class TextSearchExecutor:
         )
 
 
-# the fuse programs (their bodies read nothing but their buffers)
+# the fuse programs, process-wide: their bodies read nothing but their
+# own buffers, so no table's change can make one stale
 _FUSE_PROGRAMS = ProgramCache()
 
 

@@ -218,6 +218,11 @@ class Segment:
         self._minmax_cache: Dict[str, tuple] = {}
         # device mirrors of numeric scalar columns (predicate lowering)
         self._scalar_dev_cache: Dict[str, tuple] = {}
+        # (filter repr, mutation generation) -> a host-evaluated predicate's
+        # device mask / passing share (search/executor.py): they die with
+        # the segment
+        self.mask_cache: Dict[tuple, torch.Tensor] = {}
+        self.selectivity_cache: Dict[tuple, float] = {}
         # process-unique id (segment_ids restart per table)
         self.uid = next(_SEGMENT_UID)
         # exact f32 rows per bf16-stored float-vector column (column reads)

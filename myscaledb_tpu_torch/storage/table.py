@@ -167,12 +167,11 @@ class Table:
         self._slots: Dict[tuple, IndexSlot] = {}  # (segment_id, index_name)
         self._text_indexes: Dict[str, Any] = {}  # name -> TextIndexDefinition
         self._executor = VectorSearchExecutor(self)
-        # the search programs over this table's segments (one CUDA graph
-        # each on the card); dropped whenever the segment set changes
+        # every search program over this table's data (one CUDA graph each
+        # on the card): the fused vector searches, the two-stage path's
+        # index searches and the text searches; `_segments_changed` drops
+        # them all
         self._programs = ProgramCache()
-        # the text searches' programs: dropped with the segment set too,
-        # and by the fts definitions whenever a store changes
-        self._text_programs = ProgramCache()
         # Commit listeners, called after a local commit (insert / deletes /
         # mutate / merge / truncate) outside the table's locks: the hook
         # data replication publishes through (the ReplicatedMergeTree
@@ -194,14 +193,15 @@ class Table:
         return self._programs.version
 
     def _segments_changed(self) -> None:
-        """Drop the cached search programs: a graph bakes in the tensors it
-        reads and keeps them alive, so a dropped segment's or index's bytes
-        would otherwise stay on the device, unseen by the memory governor.
-        Called after every insert (and its spill), delete, UPDATE, ALTER,
-        merge, truncate, index build, load, drop or cache eviction; the
-        database calls it on DROP and DETACH."""
+        """Drop the cached search programs, the table's only drop: a graph
+        bakes in the tensors it reads and keeps them alive, so a dropped
+        segment's, index's or fts store's bytes would otherwise stay on the
+        device, unseen by the memory governor. Called after every insert
+        (and its spill), delete, UPDATE, ALTER, merge, truncate, index
+        build, load, drop or cache eviction, by the fts definitions on
+        every store change and on `drop_fts_index`; the database calls it
+        on DROP and DETACH."""
         self._programs.invalidate()
-        self._text_programs.invalidate()
 
     def add_commit_listener(self, fn) -> None:
         self._commit_listeners.append(fn)
@@ -942,8 +942,7 @@ class Table:
         with self._lock:
             if name in self._text_indexes:
                 raise IndexParameterError(f"fts index {name!r} already exists")
-            tdef = TextIndexDefinition(name, columns, params)
-            tdef.programs = self._text_programs
+            tdef = TextIndexDefinition(name, columns, params, on_change=self._segments_changed)
             self._text_indexes[name] = tdef
         for seg in self.live_segments():
             tdef.on_new_segment(seg)
@@ -955,7 +954,7 @@ class Table:
             tdef = self._text_indexes.pop(name, None)
         if tdef is None:
             raise IndexParameterError(f"no fts index named {name!r}")
-        self._text_programs.invalidate()
+        self._segments_changed()
         self.event_log.record(self.name, name, ",".join(tdef.columns), EventType.DEFINITION_DROPPED)
 
     def has_token(self, column: str, token: str) -> Expr:

@@ -694,8 +694,7 @@ class InvertedIndex:
         bound of each query's scores on the sparse path (f32[Q],
         `sparse_error_bound`) and None on the dense one. (The JAX
         package's method returns the first four.)"""
-        from ..search.filters import as_mask_array
-        from ..search.program import mask_spec
+        from ..search.filters import as_mask_array, mask_spec
 
         stats = stats or self.stats
         mask = as_mask_array(mask)

@@ -185,3 +185,38 @@ def test_no_quiet_fallback_for_other_devices():
         binary.binary_scores(qb, xb, Metric.HAMMING)
     with pytest.raises(ValueError, match="unsupported device"):
         binary.binary_block_scores(qb, blocks, blk, brows, Metric.JACCARD)
+
+
+def test_program_runtime_knows_none_of_its_callers():
+    """search/program.py is the bottom of the search stack: it imports
+    nothing from the index, filter, executor or storage layers, and sets
+    attributes only on its own objects (`self`, a device's state `st`)."""
+    path = os.path.join(PKG, "search", "program.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    callers = ("myscaledb_tpu_torch.index", "myscaledb_tpu_torch.search.filters",
+               "myscaledb_tpu_torch.search.executor", "myscaledb_tpu_torch.storage")
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            if node.level:  # relative to the package myscaledb_tpu_torch.search
+                pkg = ["myscaledb_tpu_torch", "search"][: 3 - node.level]
+                module = ".".join(pkg + ([module] if module else []))
+            names = [module] + [f"{module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            names = []
+        for name in names:
+            assert not any(name == c or name.startswith(c + ".") for c in callers), name
+        if isinstance(node, (ast.Assign, ast.AugAssign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for tg in targets:
+                for t in ast.walk(tg):
+                    if isinstance(t, ast.Attribute) and isinstance(t.ctx, ast.Store):
+                        assert isinstance(t.value, ast.Name) and t.value.id in ("self", "st"), (
+                            f"program.py:{t.lineno} sets an attribute on another object")
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            assert node.func.id != "setattr", f"program.py:{node.lineno} calls setattr"
+        if isinstance(node, ast.Attribute):
+            assert node.attr != "__dict__", f"program.py:{node.lineno} reaches into a __dict__"

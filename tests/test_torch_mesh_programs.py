@@ -246,8 +246,7 @@ def split_routes(corpus):
     try:
         t = _table(corpus, make_mesh(8, query_axis=2, device="cpu"), "split")
         out = _routes(t, corpus)
-        parts = {len(p.parts) for c in (t._programs, t._text_programs, t._hybrid_programs)
-                 for p in c.programs()}
+        parts = {len(p.parts) for p in t._programs.programs()}
     finally:
         dist._graph_key = real
     return out, parts
@@ -324,11 +323,11 @@ def test_in_place_mutations_need_no_recapture(corpus):
 def test_each_change_drops_the_programs_it_invalidates(corpus, change):
     ids, vecs, price, body, q, texts = corpus
     t = _table(corpus, make_mesh(8, device="cpu"), "drop", n=2_000)
+    t.text_search(texts, K)  # first: building the text index drops every program
     t.search(q, K)
-    t.text_search(texts, K)
     t.hybrid_search(q, texts, K)
     old = t._s.data[0]
-    assert (len(t._programs), len(t._text_programs), len(t._hybrid_programs)) == (1, 1, 1)
+    assert sorted(key[0] for key in t._programs._entries) == ["hybrid", "text", "vector"]
     if change == "reseal":
         t.insert(_cols(corpus, 2_000, N))  # past the slack: the next search reseals
     elif change == "text_rebuild":
@@ -342,9 +341,14 @@ def test_each_change_drops_the_programs_it_invalidates(corpus, change):
     text_captures = _captures() - c0 - vector_captures
     t.hybrid_search(q, texts, K)
     hybrid_captures = _captures() - c0 - vector_captures - text_captures
-    want = {"reseal": (1, 1, 1), "build_ivf": (1, 0, 1), "build_mstg": (1, 0, 1),
-            "text_rebuild": (0, 1, 1)}[change]
+    # one cache: a change drops every program; a text rebuild drops them at
+    # the text search that makes it, after the vector search has replayed
+    want = (0, 1, 1) if change == "text_rebuild" else (1, 1, 1)
     assert (vector_captures, text_captures, hybrid_captures) == want
+    # after a reseal or an insert the text search rebuilds the text index,
+    # which drops the vector program made before it
+    kinds = ["hybrid", "text"] + ([] if change in ("reseal", "text_rebuild") else ["vector"])
+    assert sorted(key[0] for key in t._programs._entries) == kinds
     assert (t._s.data[0] is old) == (change != "reseal")
 
 
@@ -509,15 +513,13 @@ def test_card_replay_equals_its_body(cuda_table, route):
     if route == "mstg":
         t.build_mstg(ncentroids=32)
     if route in ("text", "rrf", "rsf"):
-        cache = t._text_programs if route == "text" else t._hybrid_programs
         got = (t._text_run(texts, K)[0] if route == "text" else
                t._hybrid_run(q, texts, K, filter=None, params=None, fusion_k=60,
                              fusion_type=route, fusion_weight=0.5)[0])
     else:
-        cache = t._programs
         got = t._vector_run(q, K, filter=_cheap if route in ("filtered", "delta") else None,
                             params=None if route in ("exact", "filtered") else p)[0]
-    _replay_equals_body(cache.programs()[-1], got)
+    _replay_equals_body(t._programs.programs()[-1], got)  # the last one used
 
 
 @pytest.mark.cuda

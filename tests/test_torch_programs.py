@@ -46,7 +46,7 @@ from myscaledb_tpu.storage.schema import Schema as JSchema
 from myscaledb_tpu.storage.schema import UInt64 as JUInt64
 from myscaledb_tpu.storage.segment import Segment as JSegment
 
-from myscaledb_tpu_torch.index import flat, ivf
+from myscaledb_tpu_torch.index import base, flat, ivf
 from myscaledb_tpu_torch.index.binary import BinaryFlatIndex
 from myscaledb_tpu_torch.metrics import Metric
 from myscaledb_tpu_torch.ops import _cuda
@@ -498,6 +498,72 @@ def test_dropped_table_releases_its_tensors(how, tmp_path):
     db.close()
 
 
+def _ivf_fts_table():
+    """A port table of two segments with an MSTG index on the first (an
+    IVF index with a two-stage path) and an fts index on both: every kind
+    of program a table keeps."""
+    cols, q = _table_columns()
+    st = tms.Settings()
+    st.table.min_rows_to_build_vector_index = 5_000
+    db = tms.connect(st, device="cpu")
+    t = db.create_table("t", tms.Schema({"id": tms.UInt64(), "tag": tms.Int32(),
+                                         "body": tms.String(), "vec": tms.FloatVector(DIM)}))
+    words = np.array(["alpha beta", "beta gamma", "gamma delta"], dtype=object)
+    for c in cols:
+        t.insert({**c, "body": words[c["tag"] % 3]})
+    t.add_vector_index("i", "vec", type="MSTG", ncentroids=NCENT)
+    t.add_fts_index("ft", "body")
+    assert t.wait_index_built()
+    return db, t, q
+
+
+@pytest.mark.parametrize("drop", ["segments_changed", "fts_store_rebuild", "drop_fts_index"])
+def test_one_cache_a_table_and_one_drop(drop):
+    """The fused vector programs, the two-stage path's index programs and
+    the text programs live in the table's one cache; `_segments_changed`,
+    which an fts store's rebuild and `drop_fts_index` call too, empties it
+    and lets go of every program."""
+    db, t, q = _ivf_fts_table()
+    p = {"nprobe": 4}
+    t.search("vec", q, k=K, params=p)
+    t.search("vec", q, k=K, params=p, filter=tms.F("tag") < 5)
+    t.search("vec", q, k=K, params=p, two_stage=True)
+    t.text_search("ft", ["alpha", "gamma delta"], k=K)
+    assert sorted(key[0] for key in t._programs._entries) == ["fused", "fused", "index", "text"]
+    old = [weakref.ref(prog) for prog in t._programs.programs()]
+    version = t.segment_version
+    {"segments_changed": t._segments_changed,
+     "fts_store_rebuild": lambda: t._text_indexes["ft"].on_new_segment(t.live_segments()[0]),
+     "drop_fts_index": lambda: t.drop_fts_index("ft")}[drop]()
+    assert t.segment_version > version and len(t._programs) == 0
+    gc.collect()
+    assert all(r() is None for r in old)
+    db.close()
+
+
+def test_dropped_table_releases_its_filter_masks():
+    """A string predicate's device mask is cached on its segment and goes
+    with it: after DROP no mask of the table's segments is reachable."""
+    db = tms.connect(device="cpu")
+    t = db.create_table("t", tms.Schema({"id": tms.UInt64(), "body": tms.String(),
+                                         "vec": tms.FloatVector(DIM)}))
+    cols, q = _table_columns()
+    words = np.array(["alpha beta", "beta gamma"], dtype=object)
+    t.insert({"id": cols[0]["id"], "body": words[cols[0]["tag"] % 2], "vec": cols[0]["vec"]})
+    flt = tms.F("body") == "beta gamma"
+    assert t.search("vec", q, k=K, filter=flt).valid.any()
+    seg = t.live_segments()[0]
+    mask, = seg.mask_cache.values()
+    assert executor.segment_mask(seg, flt) is mask  # the repeated predicate's hit
+    ref = weakref.ref(mask)
+    del mask, seg
+    db.drop_table("t")
+    del t
+    gc.collect()
+    assert ref() is None
+    db.close()
+
+
 def test_eight_threads_get_their_own_answers():
     ((jdb, jt), (tdb, tt)), q = _pair()
     batches = [q[i % 4 * 3:(i % 4 + 1) * 3] + 0.01 * i for i in range(8)]
@@ -608,4 +674,4 @@ def test_program_checks_its_inputs():
     with pytest.raises(ValueError, match="nprobe"):
         prog.run(np.ones((3, 4), np.float32), [None], 3)
     with pytest.raises(TypeError, match="cannot key"):
-        program.signature(type("Odd", (), {"__init__": lambda s: setattr(s, "x", object())})(), [])
+        base.signature(type("Odd", (), {"__init__": lambda s: setattr(s, "x", object())})(), [])

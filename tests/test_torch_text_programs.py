@@ -3,7 +3,7 @@ package's jitted BM25 bodies (`_bm25_score_topk_batch`,
 `_bm25_sparse_topk_batch`), `merge_tagged_topk`, `_fuse_device` and
 `_phrase_doc_counts`, on the CPU.
 
-A text search is one program of the table's (`Table._text_programs`):
+A text search is one program of the table's one cache (`Table._programs`):
 every live store's BM25 body and the merge, over one packed int32 plan
 (`inverted.pack_plans`) and the masks' buffers; a hybrid search adds the
 fuse program. On the CPU a program runs its body eagerly through the same
@@ -404,6 +404,12 @@ def test_packed_plan_equals_each_store_plan(tables):
 
 
 # ------------------------------------------------------ keys and replays
+def _text_keys(t):
+    """The text searches' keys in the table's one cache, least recently
+    used first."""
+    return [key for key in t._programs._entries if key[0] == "text"]
+
+
 def test_keys_and_replays(tables):
     """The same shapes replay; a new budget or nt makes a new key; new
     statistics (stats_override) do not, and score as JAX's do."""
@@ -411,19 +417,19 @@ def test_keys_and_replays(tables):
     jt, tt = tables[2]
     rng = np.random.default_rng(30)
     qs = _queries(rng, 5, 3)
-    tt._text_programs.invalidate()
+    tt._programs.invalidate()
     caps, reps = _count("SearchProgramCaptures"), _count("SearchProgramReplays")
     tt.text_search("ft", qs, k=K)
     tt.text_search("ft", _queries(rng, 8, 3), k=K)  # 8 rows: the same padded batch
     tt.text_search("ft", _queries(rng, 3, 2), k=K)
-    assert {s[1] for s in next(iter(tt._text_programs._entries))[3]} == {128}
+    assert {s[1] for s in _text_keys(tt)[0][3]} == {128}
     assert (_count("SearchProgramCaptures") - caps, _count("SearchProgramReplays") - reps) == (1, 3)
-    key, = [k for k in tt._text_programs._entries]
+    key, = _text_keys(tt)
     budgets = lambda key: tuple(s[1] for s in key[3])  # noqa: E731
     nts = lambda key: tuple(s[2] for s in key[3])  # noqa: E731
     tt.text_search("ft", [q + " common" for q in qs], k=K)  # common's postings > 128
     tt.text_search("ft", [" ".join(VOCAB[:9])] + qs, k=K)  # 9 terms: nt 16
-    keys = list(tt._text_programs._entries)
+    keys = _text_keys(tt)
     assert len(keys) == 3
     assert budgets(keys[1]) != budgets(key) and nts(keys[2]) != nts(key)
     caps = _count("SearchProgramCaptures")
@@ -432,7 +438,7 @@ def test_keys_and_replays(tables):
         tres = tt.text_search("ft", qs, k=K, stats_override=tinv.BM25Stats(
             st.total_docs, st.total_tokens, dict(st.doc_freq)))
         _same(jres, tres, "dense")
-    assert _count("SearchProgramCaptures") == caps and len(tt._text_programs) == 3
+    assert _count("SearchProgramCaptures") == caps and len(_text_keys(tt)) == 3
 
 
 def _ops(ms, t):
@@ -457,13 +463,13 @@ def test_changes_miss_the_cache_and_release_the_stores(op):
     tdb, tt = _make(tms, 2, device="cpu")
     qs = ["w1 w2", "w3 rebuilt", "w4 w5 w6"]
     tt.text_search("ft", qs, k=K)
-    old_progs = [weakref.ref(p) for p in tt._text_programs.programs()]
+    old_progs = [weakref.ref(p) for p in tt._programs.programs()]
     tdef = tt._text_indexes["ft"]
     old_store = weakref.ref(tdef.store(0).postings_rows)
     del tdef
     _ops(jms, jt)[op]()
     _ops(tms, tt)[op]()
-    assert len(tt._text_programs) == 0
+    assert len(tt._programs) == 0
     gc.collect()
     assert all(r() is None for r in old_progs)
     if op != "insert" and op != "delete":
@@ -627,7 +633,7 @@ def test_text_replay_equals_its_body(cuda_table, operator):
     rng = np.random.default_rng(5)
     for qs in (_queries(rng, 9, 3), _queries(rng, 9, 8)):
         res = cuda_table.text_search("ft", qs, k=K, operator=operator)
-        prog = cuda_table._text_programs.programs()[-1]
+        prog = cuda_table._programs.programs()[-1]  # the last one used
         _replay_equals_body(prog, res._packed)
         _pad_rows_empty(res)
 
@@ -663,6 +669,6 @@ def test_a_body_that_does_not_capture_raises(cuda_table, monkeypatch):
         return out
 
     monkeypatch.setattr(text_executor, "store_topk", syncing)
-    cuda_table._text_programs.invalidate()
+    cuda_table._programs.invalidate()
     with pytest.raises(RuntimeError, match="segment 0: BM25"):
         cuda_table.text_search("ft", ["w1 w2"], k=K)
