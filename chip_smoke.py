@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--out DIR] [--f32-tables-only] [--root DIR]
                           [--mesh-cards] [--approx-only] [--programs-only]
-                          [--rescore-only] [--window-scan-only]
+                          [--rescore-only] [--window-scan-only] [--row-rescore-only]
 
 Run from the root of a checkout on a machine with one CUDA GPU (an H100:
 the kernels are built for sm_90a). It imports nothing of JAX and nothing
@@ -58,7 +58,12 @@ of the JAX package. Phases, each of which raises on failure:
      this alone); the IVF window scan kernel at the benchmark's two IVF
      cells' shapes (`window_scan_path`: against its plain version, then
      timed beside the bound of the live windows' bytes;
-     `--window-scan-only` runs phase 1 and this alone);
+     `--window-scan-only` runs phase 1 and this alone); the two-stage IVF
+     re-rank kernel at the Cohere MSTG cell's shape and a 128-d IVFSQ
+     shape (`row_rescore_path`: against its plain version with a
+     bf16-query control, then timed beside the four library passes it
+     replaced and its byte bound; `--row-rescore-only` runs phase 1 and
+     this alone);
   8. the IVF family on phase 3's table: IVFFLAT (ncentroids 1024) with its
      build time, an nprobe sweep that stops at the first recall_ids@10 >=
      0.95 (bench.py's rule), QPS at that operating point at batch 100 and
@@ -334,6 +339,12 @@ RESCORE_N = 1_048_576
 # follows from them as the index sizes it (10 and 12 slots)
 WINDOW_SHAPES = [("sift1m-ivfflat-b1000", 1_000, 128, "bf16", "L2", 1_000_000, 1_536, 2),
                  ("cohere1m-mstg-b256", 256, 768, "sq8", "Cosine", 1_000_000, 6_144, 4)]
+# (cell, Q, C, D, metric, rows) of the two-stage re-rank's comparison and
+# times: the Cohere1M MSTG cell (k 100 x rerank_multiple 4 candidates,
+# batch 256, bf16 rows) and a 128-d IVFSQ search over phase 3's SIFT1M
+# table (k 10 x 4, batch 1,000); the candidates random rows of the table
+RERANK_SHAPES = [("cohere1m-mstg-b256", 256, 400, 768, "Cosine", 1_000_000),
+                 ("sift1m-ivfsq-b1000", 1_000, 40, 128, "L2", 1_000_000)]
 # (Q, D) of the split check: a resident and a streamed query
 SPLIT_SHAPES = [(100, 128), (300, 1024)]
 # (Q, N, D) of the f32 engine's bit-level probes: NT 64 / 104 / 256 / two
@@ -1399,6 +1410,82 @@ def window_scan_path(dev, card):
             f"({rec['bound_by']}: {nbytes / 1e6:.1f} MB; {100 * rec['bound_ms'] / rec['ms']:.1f}% "
             f"of it)  [{card}]")
         del data, dec_sq, q, got, widx, valid
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = err
+    return rec
+
+
+def row_rescore_path(dev, card):
+    """The two-stage IVF re-rank kernel (`rowrescore.row_rescore`) at
+    RERANK_SHAPES over a bf16 payload of the table's size, each query's
+    candidates random rows with about one in eight -1 (the rows a global
+    cut drops) for the comparison: against its plain version within
+    `rerank_error_bound`, -inf exactly at the -1 ids, with a control that
+    rounds the query to bf16 and must fall outside; then, with every id
+    live as the search hands them, its time (20 launches after 3 warm-up),
+    the plain version's, each of the four library passes it replaced
+    (gather, f32 copy, `bmm`, norms) and the bound of its work: the
+    candidate rows read once, their aux under L2, the queries and ids, the
+    scores written once. Returns the record fields of the last shape."""
+    import torch
+
+    from myscaledb_tpu_torch.metrics import Metric
+    from myscaledb_tpu_torch.ops import distance, rowrescore
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rec, err = {}, 0.0
+    for cell, qn, c, d, mname, rows in RERANK_SHAPES:
+        metric = Metric(mname)
+        data = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+        aux = distance.base_aux(data, metric)
+        q = distance.normalize_queries(torch.randn((qn, d), generator=gen, device=dev), metric)
+        ids = torch.randint(0, rows, (qn, c), generator=gen, device=dev, dtype=torch.int32)
+        cut = ids.masked_fill(torch.rand((qn, c), generator=gen, device=dev) < 0.125, -1)
+        shape = f"{cell}: Q={qn} C={c} D={d} bf16 {mname} (N {rows:,})"
+        got = rowrescore.row_rescore(q, data, aux, cut, metric=metric)
+        want = rowrescore.row_rescore_plain(q, data, aux, cut, metric)
+        tol = rowrescore.rerank_error_bound(q, data, cut, metric)
+        live = cut >= 0
+        check(torch.equal(torch.isneginf(got), ~live),
+              f"row_rescore reads -inf elsewhere than at the -1 ids: {shape}")
+        diff = (got - want).abs()[live]
+        ratio = float((diff / (tol + distance.KERNEL_RTOL * want.abs())[live]).max())
+        control = rowrescore.row_rescore_plain(q.to(torch.bfloat16).to(torch.float32), data, aux,
+                                               cut, metric)
+        n_out = int(distance.outside_kernel_bound(control[live], want[live], tol[live]).sum())
+        err = max(err, float(diff.max()))
+        log(f"  row_rescore {shape}: max_abs_err={float(diff.max()):.6g} (worst err/bound "
+            f"{ratio:.3g}); bf16-query control {n_out} of {int(live.sum())} outside")
+        check(ratio <= 1.0, f"row_rescore disagrees with its plain version: {shape}")
+        check(n_out > 0, f"the bound does not catch a bf16-query re-rank: {shape}")
+        del got, want, tol, control, diff, cut
+        call = lambda: rowrescore.row_rescore(q, data, aux, ids, metric=metric)  # noqa: E731
+        rec = dict(
+            ms=cuda_time_ms(call),
+            plain_ms=cuda_time_ms(lambda: rowrescore.row_rescore_plain(q, data, aux, ids, metric)),
+            library_ms=None,  # no one PyTorch call gathers rows by id and dots them
+            shape=shape,
+        )
+        # the library passes the kernel replaced, one at a time
+        ids64 = ids.to(torch.int64)
+        g = data[ids64]
+        g32 = g.to(torch.float32)
+        passes = {"gather": cuda_time_ms(lambda: data[ids64]),
+                  "f32 copy": cuda_time_ms(lambda: g.to(torch.float32)),
+                  "bmm": cuda_time_ms(lambda: torch.bmm(g32, q[:, :, None]))}
+        if metric == Metric.COSINE:
+            passes["norms"] = cuda_time_ms(lambda: torch.linalg.vector_norm(g32, dim=-1))
+        del g, g32, ids64
+        n_rows = qn * c
+        aux_bytes = 4 * n_rows if metric == Metric.L2 else 0
+        nbytes = n_rows * d * data.element_size() + aux_bytes + 4 * qn * d + 8 * qn * c
+        flops = 2 * n_rows * d * (2 if metric == Metric.COSINE else 1)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "f32")
+        log(f"  row_rescore {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+            + f"), library n/a, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+            f"{nbytes / 1e6:.1f} MB; {100 * rec['bound_ms'] / rec['ms']:.1f}% of it)  [{card}]")
+        del data, aux, q, ids
         torch.cuda.empty_cache()
     rec["max_abs_err"] = err
     return rec
@@ -6048,6 +6135,9 @@ def main(argv=None):
     ap.add_argument("--window-scan-only", action="store_true",
                     help="run the set-up and the IVF window scan kernel's comparison and times "
                          "only, and print no record")
+    ap.add_argument("--row-rescore-only", action="store_true",
+                    help="run the set-up and the two-stage re-rank kernel's comparison and "
+                         "times only, and print no record")
     ap.add_argument("--root", default=None,
                     help="import myscaledb_tpu_torch from this checkout (another commit's, "
                          "for a same-machine comparison) instead of this file's")
@@ -6065,7 +6155,7 @@ def main(argv=None):
     sys.path.insert(0, here)
     import myscaledb_tpu_torch as ms
     from myscaledb_tpu_torch.ops import (
-        _cuda, binary, distance, gathermv, tilescan, topk, windowscan)
+        _cuda, binary, distance, gathermv, rowrescore, tilescan, topk, windowscan)
 
     # ---- 1. set-up
     t_start = time.perf_counter()
@@ -6111,6 +6201,12 @@ def main(argv=None):
         log("[7w] the window scan kernel at the IVF cells' shapes")
         window_scan_path(dev, card)
         log(f"chip_smoke: the window scan kernel passed in {time.perf_counter() - t_start:.1f} s"
+            f"  [{card}]")
+        return 0
+    if args.row_rescore_only:
+        log("[7q] the two-stage re-rank kernel at the Cohere cell's and a 128-d IVFSQ shape")
+        row_rescore_path(dev, card)
+        log(f"chip_smoke: the re-rank kernel passed in {time.perf_counter() - t_start:.1f} s"
             f"  [{card}]")
         return 0
 
@@ -6213,6 +6309,7 @@ def main(argv=None):
     timing["approx_bin_max"] = timing17
     timing["tile_rescore"] = rescore_path(dev, card)
     timing["window_scan"] = window_scan_path(dev, card)
+    timing["row_rescore"] = row_rescore_path(dev, card)
     cost_model(gist, gist_scan, graph, hb, card, args.out)
 
     # ---- 8. the IVF family and HNSWPQ, with the launch counters zeroed
@@ -6223,19 +6320,22 @@ def main(argv=None):
     tilescan.tile_rescore.launches = 0
     gathermv.gather_block_scores.launches = 0
     windowscan.window_scan.launches = 0
+    rowrescore.row_rescore.launches = 0
     ivf_op, mstg_op = ivf_path(dev, sift, sift_batches, sift_queries, sift_gt, card, args)
     hnswpq_path(ms, dev, gist, gist_batches, np.concatenate(gist_batches), card)
     p8 = {"score": distance.scores.launches, "tile_max": tilescan.tile_maxes.launches,
           "tile_rescore": tilescan.tile_rescore.launches,
           "gathermv": gathermv.gather_block_scores.launches}
     log(f"  kernel launches on the IVF and HNSWPQ paths: {p8}; window_scan "
-        f"{windowscan.window_scan.launches}")
+        f"{windowscan.window_scan.launches}, row_rescore {rowrescore.row_rescore.launches}")
     check_rescores(p8, "phase 8")
     for name, n in p8.items():
         check(n > 0, f"kernel {name} was not launched on phase 8's paths")
         launches[name] += n
     launches["window_scan"] = windowscan.window_scan.launches
     check(launches["window_scan"] > 0, "kernel window_scan was not launched on phase 8's paths")
+    launches["row_rescore"] = rowrescore.row_rescore.launches
+    check(launches["row_rescore"] > 0, "kernel row_rescore was not launched on phase 8's paths")
 
     # ---- 9. text and hybrid search (score and tile_max zeroed inside)
     log(f"[9] text and hybrid path ({SIFT_N:,} + {SIFT_SMALL_N:,} rows: body String of "
@@ -6463,6 +6563,11 @@ def main(argv=None):
          "launches": launches["window_scan"],
          "max_abs_err": timing["window_scan"]["max_abs_err"],
          **{k: timing["window_scan"][k] for k in keys}},
+        {"name": "row_rescore", "route": "cuda",
+         "source": "myscaledb_tpu_torch/csrc/row_rescore.cu", "replaces": None,
+         "launches": launches["row_rescore"],
+         "max_abs_err": timing["row_rescore"]["max_abs_err"],
+         **{k: timing["row_rescore"][k] for k in keys}},
         {"name": "approx_bin_max", "route": "cuda",
          "source": "myscaledb_tpu_torch/csrc/approx_topk.cu",
          "replaces": "myscaledb_tpu/ops/topk.py:39",

@@ -21,7 +21,9 @@ in a row-space mask or by contiguous window lookup in a `WindowMask`
 
 IVFSQ, IVFPQ and MSTG are two-stage: their first pass ranks candidates on
 the codes, then the top k * rerank_multiple are re-scored exactly against
-the segment's own payload (`raw_data`, a reference, never a copy). An
+the segment's own payload (`raw_data`, a reference, never a copy;
+`ops/rowrescore.py::row_rescore`: on the card one kernel that reads each
+candidate row once by its id). An
 index loaded from a state dict gets that reference back through
 `reattach_payload`; until then its search raises rather than serve
 quantized distances.
@@ -55,7 +57,8 @@ from ..ops import distance, kmeans, quantize
 from ..ops._cuda import count_work, round_up
 from ..ops.stream import HostRep
 from ..ops.topk import NEG_INF, dedup_rows
-from ..ops.windowscan import WINDOW, batched_dot, window_scan, window_scan_plain
+from ..ops.rowrescore import row_rescore
+from ..ops.windowscan import WINDOW, window_scan, window_scan_plain
 from ..service.event_log import GLOBAL_COUNTERS
 from ..storage.segment import host_tensor
 from .base import IndexKind, ParamsKey, VectorIndex, check_cancel, params_key
@@ -662,20 +665,20 @@ class IVFIndex(VectorIndex):
 
     def _exact_scores(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
         """Exact scores of the candidate rows against the raw payload
-        (computeTopDistanceSubset), f32[Q, C]; -inf where row_ids < 0."""
+        (computeTopDistanceSubset), f32[Q, C]; -inf where row_ids < 0.
+        A device payload goes through `ops/rowrescore.py::row_rescore`:
+        on the card one kernel (csrc/row_rescore.cu) that reads each
+        candidate row once by its id and scores it in f32 in registers,
+        the Cosine norm of the same widened row included; on the CPU
+        `row_rescore_plain`. A host payload (disk mode) takes
+        `_exact_scores_host`."""
         self._require_payload()
         if self.raw_host is not None:
             return self._exact_scores_host(queries, row_ids)
-        safe = torch.clamp(row_ids, min=0).to(torch.int64)
-        rows = self.raw_data[safe].to(torch.float32)  # [Q, C, D']
+        d = self.raw_data.shape[1]
         q = distance.normalize_queries(queries.to(torch.float32), self.metric)
-        s = batched_dot(q, rows)
-        if self.metric == Metric.L2:
-            s = 2.0 * s - self.raw_aux[safe]
-        elif self.metric == Metric.COSINE:
-            nrm = torch.linalg.vector_norm(rows, dim=-1)
-            s = s * torch.where(nrm > 0, 1.0 / torch.where(nrm > 0, nrm, torch.ones_like(nrm)), 0.0)
-        return s.masked_fill(row_ids < 0, NEG_INF)
+        return row_rescore(q[:, :d].contiguous(), self.raw_data, self.raw_aux,
+                           row_ids.to(torch.int32), metric=self.metric)
 
     def _exact_scores_host(self, queries: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
         """Disk-mode computeTopDistanceSubset: the distinct candidate rows

@@ -51,11 +51,12 @@ def set_exact_precision() -> None:
     run in TF32, which keeps ~10 mantissa bits and reorders near-tied
     neighbours at SIFT score scale. The matmuls this covers are the
     reference `scores_ref` and the kernels' plain versions (among them
-    the IVF window scan's `bmm`); the search path's own exact rescore
-    (`tilescan.tile_rescore`: f32 FMAs in csrc/tile_rescore.cu, an f32
-    multiply and sum in its plain version) and, on the card, its IVF
-    window scan (csrc/window_scan.cu: f32 FMAs) use no matmul, so they
-    stay exact whatever a caller sets later.
+    the IVF window scan's and the two-stage re-rank's `bmm`); the search
+    path's own exact rescore (`tilescan.tile_rescore`: f32 FMAs in
+    csrc/tile_rescore.cu, an f32 multiply and sum in its plain version)
+    and, on the card, its IVF window scan (csrc/window_scan.cu) and
+    two-stage re-rank (csrc/row_rescore.cu), both f32 FMAs, use no
+    matmul, so they stay exact whatever a caller sets later.
     PyTorch's defaults already say so; `connect(device="cuda")` applies
     the policy once, explicitly."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,6 +194,8 @@ class _Library:
         lib.msd_tile_rescore.restype = ci
         lib.msd_window_scan.argtypes = [vp] * 8 + [ci] * 5 + [vp]
         lib.msd_window_scan.restype = ci
+        lib.msd_row_rescore.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        lib.msd_row_rescore.restype = ci
         return lib
 
 

@@ -27,7 +27,10 @@ version bit for bit, values and indices, ties included. The IVF window
 scan (`windowscan.window_scan`) sums exact f32 products of the decoded row
 and the f32 query, as its plain version does, and is held to 2^-18 of
 sum_i |q_i x_i| (`windowscan.scan_error_bound`); its SQ8 decode equals
-`quantize.sq8_decode_dev` bit for bit.
+`quantize.sq8_decode_dev` bit for bit. The two-stage IVF re-rank
+(`rowrescore.row_rescore`) reads each candidate row by its id and is held
+to the same 2^-18, with the Cosine norm's term
+(`rowrescore.rerank_error_bound`); a row of a negative id is not read.
 """
 
 import numpy as np
@@ -36,7 +39,8 @@ import torch
 
 from myscaledb_tpu_torch.index import hnsw
 from myscaledb_tpu_torch.metrics import Metric
-from myscaledb_tpu_torch.ops import binary, distance, gathermv, quantize, tilescan, topk, windowscan
+from myscaledb_tpu_torch.ops import (
+    binary, distance, gathermv, quantize, rowrescore, tilescan, topk, windowscan)
 from myscaledb_tpu_torch.storage.schema import FloatVector, Schema, UInt64
 from myscaledb_tpu_torch.storage.segment import Segment
 
@@ -779,6 +783,116 @@ def test_window_scan_sq8_decode_is_bit_exact(cuda_device, d):
     assert torch.equal(got, want)
 
 
+# ------------------------------------------------ the two-stage re-rank
+RR_Q, RR_C, RR_D = [1, 256], [1, 63, 64, 400, 1000], [128, 768, 1024]
+RR_N = 4096
+
+
+def _rerank_operands(device, dtype, metric, q, c, d, n=RR_N, seed=0):
+    """A clustered payload of `n` rows (row 5 all zero) as a segment keeps
+    it, with its aux (|x|^2 for L2, 1/|x| for Cosine, none for IP), queries
+    near rows (normalized for Cosine) and int32 ids: random rows with
+    repeats, the zero row in column 0, and about one id in seven -1 (the
+    rows a global cut drops)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    centres = 6.0 * torch.randn((32, d), generator=g)
+    x = centres[torch.randint(0, 32, (n,), generator=g)] + torch.randn((n, d), generator=g)
+    qs = x[torch.randint(0, n, (q,), generator=g)] + 0.3 * torch.randn((q, d), generator=g)
+    x[5] = 0.0
+    data = x.to(dtype)
+    aux = distance.base_aux(data, metric)
+    qs = distance.normalize_queries(qs, metric)
+    ids = torch.randint(0, n, (q, c), generator=g, dtype=torch.int32)
+    ids[:, 0] = 5
+    ids[torch.rand((q, c), generator=g) < 1 / 7] = -1
+    out = [t.to(device) if t is not None else None for t in (qs, data, aux, ids)]
+    return tuple(out)
+
+
+def _rerank_plain_and_bound(qs, data, aux, ids, metric, rows=64):
+    """`row_rescore_plain` and `rerank_error_bound`, a few queries at a
+    time (at Q 256, C 1,000, D 1,024 the gathered f32 rows are 1 GB)."""
+    parts = [(rowrescore.row_rescore_plain(qs[i:i + rows], data, aux, ids[i:i + rows], metric),
+              rowrescore.rerank_error_bound(qs[i:i + rows], data, ids[i:i + rows], metric))
+             for i in range(0, qs.shape[0], rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", RR_D)
+@pytest.mark.parametrize("c", RR_C)
+@pytest.mark.parametrize("q", RR_Q)
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_rescore_kernel_vs_plain(cuda_device, dtype, metric, q, c, d):
+    """The kernel against its plain version within `rerank_error_bound`:
+    -inf exactly at the negative ids, the zero row's Cosine score exactly
+    0, one launch a call."""
+    qs, data, aux, ids = _rerank_operands(cuda_device, dtype, metric, q, c, d, seed=q + c + d)
+    before = rowrescore.row_rescore.launches
+    got = rowrescore.row_rescore(qs, data, aux, ids, metric=metric)
+    assert rowrescore.row_rescore.launches == before + 1
+    want, bound = _rerank_plain_and_bound(qs, data, aux, ids, metric)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (q, c)
+    assert torch.equal(torch.isneginf(got), ids < 0)
+    assert torch.equal(torch.isneginf(want), ids < 0)
+    live = ids >= 0
+    assert not distance.outside_kernel_bound(got[live], want[live], bound[live]).any()
+    if metric == Metric.COSINE:
+        zero = ids == 5
+        assert (got[zero] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_rescore_reads_no_row_of_a_negative_id(cuda_device, dtype, metric):
+    """Over a payload whose rows no id names are NaN (aux NaN too), with
+    ids of -1 between the named rows: every named row's score is finite and
+    the plain version's within the bound, every -1 reads -inf. A kernel
+    that read row 0 (or any other) in a -1's place would carry a NaN into
+    its row group's sums."""
+    q, c, d = 37, 400, 768
+    qs, data, aux, ids = _rerank_operands(cuda_device, dtype, metric, q, c, d, seed=3)
+    ids[ids == 0] = 1  # row 0, where a clamped id would land, is NaN
+    named = torch.zeros(data.shape[0], dtype=torch.bool, device=cuda_device)
+    named[ids[ids >= 0].long()] = True
+    assert not named[0]
+    nan_data = data.masked_fill(~named[:, None], float("nan"))
+    nan_aux = None if aux is None else aux.masked_fill(~named, float("nan"))
+    got = rowrescore.row_rescore(qs, nan_data, nan_aux, ids, metric=metric)
+    want, bound = _rerank_plain_and_bound(qs, data, aux, ids, metric)
+    torch.cuda.synchronize()
+    live = ids >= 0
+    assert torch.isfinite(got[live]).all()
+    assert torch.isneginf(got[~live]).all() and (~live).any()
+    assert not distance.outside_kernel_bound(got[live], want[live], bound[live]).any()
+
+
+@pytest.mark.cuda
+def test_row_rescore_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.randn((256, 128), device=cuda_device).to(torch.bfloat16)
+    ok = dict(queries=torch.randn((8, 128), device=cuda_device), data=x,
+              aux=torch.zeros(256, device=cuda_device),
+              ids=torch.zeros((8, 5), dtype=torch.int32, device=cuda_device), metric=Metric.L2)
+
+    def call(**kw):
+        return rowrescore.row_rescore(**{**ok, **kw})
+
+    assert call().shape == (8, 5)
+    with pytest.raises(ValueError, match="D % 128"):
+        call(queries=ok["queries"][:, :64].contiguous(), data=x[:, :64].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(ids=torch.zeros((5, 8), dtype=torch.int32, device=cuda_device).t())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(queries=torch.randn(8 * 128 + 1, device=cuda_device)[1:].view(8, 128))
+    with pytest.raises(ValueError, match="payload's device"):
+        call(ids=ok["ids"].cpu())
+    with pytest.raises(ValueError, match="payload's device"):
+        call(queries=ok["queries"].cpu())
+
+
 def _gathermv_operands(device, q, beam, m, dt, n=500, seed=0):
     """Codes, block rows (some outside [0, N), which the kernel clamps) and
     queries scaled as the traversal scales them."""
@@ -1193,7 +1307,8 @@ def _replays_bit_for_bit(idx, q, mask, params):
 
     wrappers = (distance.scores, tilescan.tile_maxes, tilescan.tile_rescore,
                 gathermv.gather_block_scores, topk.approx_bin_max, binary.binary_scores,
-                binary.binary_block_scores, binary.group_probes, windowscan.window_scan)
+                binary.binary_block_scores, binary.group_probes, windowscan.window_scan,
+                rowrescore.row_rescore)
     caps = GLOBAL_COUNTERS.get("SearchProgramCaptures")
     first = idx.search(q, 10, params=params, mask=mask)  # warm-up, capture, replay
     before = [w.launches for w in wrappers]
@@ -1230,6 +1345,7 @@ def test_exact_flat_search_launches_tile_max_and_rescore_once(cuda_device):
     idx, q, mask = _program_index(cuda_device, "FLAT", Metric.L2, 1_000_000)
     launched = _replays_bit_for_bit(idx, q, mask, {})
     assert launched[tilescan.tile_maxes] == launched[tilescan.tile_rescore] == 1
+    assert launched[rowrescore.row_rescore] == 0
     assert sum(launched.values()) == 2
 
 
@@ -1254,6 +1370,29 @@ def test_ivf_search_launches_window_scan_once_a_replay(cuda_device, kind):
     eager = windowscan.window_scan.launches
     idx.search_t(q, 10, mask=mask, params=params_key({"nprobe": 4}))
     assert windowscan.window_scan.launches == eager + want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["IVFFLAT", "IVFSQ", "IVFPQ", "MSTG"])
+def test_two_stage_ivf_search_launches_row_rescore_once_a_replay(cuda_device, kind):
+    """A replayed two-stage IVF search (IVFSQ, IVFPQ, MSTG) re-ranks its
+    candidates through the row rescore kernel once, and each further
+    replay adds one launch to `row_rescore.launches`; IVFFLAT, single
+    stage, launches none."""
+    from myscaledb_tpu_torch.index.base import params_key
+
+    metric = Metric.COSINE if kind == "MSTG" else Metric.L2
+    idx, q, mask = _program_index(cuda_device, kind, metric, 20_000)
+    launched = _replays_bit_for_bit(idx, q, mask, {"nprobe": 4})
+    want = 0 if kind == "IVFFLAT" else 1
+    assert launched[rowrescore.row_rescore] == want
+    before = rowrescore.row_rescore.launches
+    for _ in range(3):
+        idx.search(q, 10, params={"nprobe": 4}, mask=mask)
+    assert rowrescore.row_rescore.launches == before + 3 * want
+    eager = rowrescore.row_rescore.launches
+    idx.search_t(q, 10, mask=mask, params=params_key({"nprobe": 4}))
+    assert rowrescore.row_rescore.launches == eager + want
 
 
 @pytest.mark.cuda
