@@ -68,7 +68,7 @@ of the JAX package. Phases, each of which raises on failure:
      build time, an nprobe sweep that stops at the first recall_ids@10 >=
      0.95 (bench.py's rule), QPS at that operating point at batch 100 and
      500, an nprobe-3 search (dyn_nprobe), a 10% filter through the
-     index's WindowMask (built once, then cached) and a 0.5% filter that
+     index's layout of the passing rows (built once, then cached) and a 0.5% filter that
      falls back to the exact scan (tile_max); then IVFSQ, IVFPQ and the
      default MSTG (add_vector_index with no type), one at a time, and MSTG
      under two_stage_search. Every hit must be a live row with its exact
@@ -341,9 +341,14 @@ WINDOW_SHAPES = [("sift1m-ivfflat-b1000", 1_000, 128, "bf16", "L2", 1_000_000, 1
                  ("cohere1m-mstg-b256", 256, 768, "sq8", "Cosine", 1_000_000, 6_144, 4)]
 # (cell, Q, C, D, metric, rows) of the two-stage re-rank's comparison and
 # times: the Cohere1M MSTG cell (k 100 x rerank_multiple 4 candidates,
-# batch 256, bf16 rows) and a 128-d IVFSQ search over phase 3's SIFT1M
-# table (k 10 x 4, batch 1,000); the candidates random rows of the table
+# batch 256, bf16 rows); its filtered cell, whose layout of the passing
+# rows scores nprobe 4 x 163 rows a list (6,144 lists); phase 8's filtered
+# IVFFLAT search on the rows of its layout (nprobe 2 x 652 rows a list of
+# 1,536, batch 100); and a 128-d IVFSQ search over phase 3's SIFT1M table
+# (k 10 x 4, batch 1,000); the candidates random rows of the table
 RERANK_SHAPES = [("cohere1m-mstg-b256", 256, 400, 768, "Cosine", 1_000_000),
+                 ("cohere1m-mstg-f99-b256", 256, 652, 768, "Cosine", 1_000_000),
+                 ("sift1m-ivfflat-filter", 100, 1_304, 128, "L2", 1_000_000),
                  ("sift1m-ivfsq-b1000", 1_000, 40, 128, "L2", 1_000_000)]
 # (Q, D) of the split check: a resident and a streamed query
 SPLIT_SHAPES = [(100, 128), (300, 1024)]
@@ -1418,8 +1423,9 @@ def window_scan_path(dev, card):
 def row_rescore_path(dev, card):
     """The two-stage IVF re-rank kernel (`rowrescore.row_rescore`) at
     RERANK_SHAPES over a bf16 payload of the table's size, each query's
-    candidates random rows with about one in eight -1 (the rows a global
-    cut drops) for the comparison: against its plain version within
+    candidates random rows, every one live (as a filtered search hands
+    them) and then with about one in eight -1 (the rows a global cut
+    drops), for the comparison: against its plain version within
     `rerank_error_bound`, -inf exactly at the -1 ids, with a control that
     rounds the query to bf16 and must fall outside; then, with every id
     live as the search hands them, its time (20 launches after 3 warm-up),
@@ -1442,23 +1448,25 @@ def row_rescore_path(dev, card):
         ids = torch.randint(0, rows, (qn, c), generator=gen, device=dev, dtype=torch.int32)
         cut = ids.masked_fill(torch.rand((qn, c), generator=gen, device=dev) < 0.125, -1)
         shape = f"{cell}: Q={qn} C={c} D={d} bf16 {mname} (N {rows:,})"
-        got = rowrescore.row_rescore(q, data, aux, cut, metric=metric)
-        want = rowrescore.row_rescore_plain(q, data, aux, cut, metric)
-        tol = rowrescore.rerank_error_bound(q, data, cut, metric)
-        live = cut >= 0
-        check(torch.equal(torch.isneginf(got), ~live),
-              f"row_rescore reads -inf elsewhere than at the -1 ids: {shape}")
-        diff = (got - want).abs()[live]
-        ratio = float((diff / (tol + distance.KERNEL_RTOL * want.abs())[live]).max())
-        control = rowrescore.row_rescore_plain(q.to(torch.bfloat16).to(torch.float32), data, aux,
-                                               cut, metric)
-        n_out = int(distance.outside_kernel_bound(control[live], want[live], tol[live]).sum())
-        err = max(err, float(diff.max()))
-        log(f"  row_rescore {shape}: max_abs_err={float(diff.max()):.6g} (worst err/bound "
-            f"{ratio:.3g}); bf16-query control {n_out} of {int(live.sum())} outside")
-        check(ratio <= 1.0, f"row_rescore disagrees with its plain version: {shape}")
-        check(n_out > 0, f"the bound does not catch a bf16-query re-rank: {shape}")
-        del got, want, tol, control, diff, cut
+        for which, cand in (("every id live", ids), ("1 in 8 cut", cut)):
+            got = rowrescore.row_rescore(q, data, aux, cand, metric=metric)
+            want = rowrescore.row_rescore_plain(q, data, aux, cand, metric)
+            tol = rowrescore.rerank_error_bound(q, data, cand, metric)
+            live = cand >= 0
+            check(torch.equal(torch.isneginf(got), ~live),
+                  f"row_rescore reads -inf elsewhere than at the -1 ids: {shape}, {which}")
+            diff = (got - want).abs()[live]
+            ratio = float((diff / (tol + distance.KERNEL_RTOL * want.abs())[live]).max())
+            control = rowrescore.row_rescore_plain(q.to(torch.bfloat16).to(torch.float32), data,
+                                                   aux, cand, metric)
+            n_out = int(distance.outside_kernel_bound(control[live], want[live], tol[live]).sum())
+            err = max(err, float(diff.max()))
+            log(f"  row_rescore {shape}, {which}: max_abs_err={float(diff.max()):.6g} (worst "
+                f"err/bound {ratio:.3g}); bf16-query control {n_out} of {int(live.sum())} outside")
+            check(ratio <= 1.0, f"row_rescore disagrees with its plain version: {shape}, {which}")
+            check(n_out > 0, f"the bound does not catch a bf16-query re-rank: {shape}, {which}")
+            del got, want, tol, control, diff
+        del cut
         call = lambda: rowrescore.row_rescore(q, data, aux, ids, metric=metric)  # noqa: E731
         rec = dict(
             ms=cuda_time_ms(call),
@@ -1732,8 +1740,9 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
     """The IVF family on phase 3's SIFT table (1M-row segment indexed, the
     50k-row segment scanned by the score kernel): IVFFLAT's nprobe sweep,
     QPS at its operating point, a dyn_nprobe search, a filtered search
-    through the index's WindowMask and one that falls back to the exact
-    scan (tile_max); then IVFSQ, IVFPQ and a default MSTG one at a time.
+    through the index's layout of the passing rows and one that falls back
+    to the exact scan (tile_max); then IVFSQ, IVFPQ and a default MSTG one
+    at a time.
     Returns IVFFLAT's operating nprobe and the MSTG's hits there."""
     import torch
 
@@ -1744,7 +1753,7 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
     from myscaledb_tpu_torch.ops import distance, tilescan
 
     names = ("VectorIndexSearches", "VectorBruteForceSearches", "VectorIndexFallbackToFlat",
-             "IvfWindowMaskBuilds", "IvfWindowMaskCacheHits")
+             "IvfFilterLayoutBuilds", "IvfFilterLayoutHits")
     nb = len(batches)
 
     def search_all(params=None, flt=None, bs=batches, **kw):
@@ -1818,13 +1827,14 @@ def ivf_path(dev, t, batches, queries, gt, card, args):
     fres, b = search_all({"nprobe": op}, flt)
     check(b["VectorIndexSearches"] == nb and b["VectorIndexFallbackToFlat"] == 0,
           f"id < {hi} must search the 1M segment through the index: {b}")
-    check(b["IvfWindowMaskBuilds"] == 1 and b["IvfWindowMaskCacheHits"] == nb - 1,
-          f"id < {hi}: the window bitmap must be built once and then come from the cache: {b}")
+    check(b["IvfFilterLayoutBuilds"] == 1 and b["IvfFilterLayoutHits"] == nb - 1,
+          f"id < {hi}: the passing rows' layout must be built once and then come from the "
+          f"cache: {b}")
     ids = np.concatenate([t.gather(r, ["id"])["id"] for r in fres])
     check((ids < hi).all(), f"every filtered IVF hit must pass id < {hi}")
     check_hits_exact(t, queries, fres, f"IVFFLAT id < {hi}")
     fgt = exact_topk(t, "vec", queries, K, Metric.L2, lambda s: s.scalar("id")[: s.n_rows] < hi)
-    log(f"  IVFFLAT nprobe={op}, id < {hi}: WindowMask built once, {b['IvfWindowMaskCacheHits']} "
+    log(f"  IVFFLAT nprobe={op}, id < {hi}: layout built once, {b['IvfFilterLayoutHits']} "
         f"cache hits, all {ids.size} hits pass; recall_ids@{K} "
         f"{ivf_recall(fres, fgt, queries)[0]:.4f}; QPS "
         f"{qps(lambda qb: t.search('vec', qb, k=K, metric='L2', params={'nprobe': op}, filter=flt), batches, SIFT_BATCH):.1f}"
@@ -6204,7 +6214,7 @@ def main(argv=None):
             f"  [{card}]")
         return 0
     if args.row_rescore_only:
-        log("[7q] the two-stage re-rank kernel at the Cohere cell's and a 128-d IVFSQ shape")
+        log("[7q] the re-rank kernel at the Cohere cells', a filtered IVFFLAT and an IVFSQ shape")
         row_rescore_path(dev, card)
         log(f"chip_smoke: the re-rank kernel passed in {time.perf_counter() - t_start:.1f} s"
             f"  [{card}]")

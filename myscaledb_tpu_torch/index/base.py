@@ -319,10 +319,9 @@ def _index_device(index) -> torch.device:
         if isinstance(v, torch.Tensor) and v.device.type != "cpu":
             return normalize_device(v.device)
     for v in vars(index).values():
-        if isinstance(v, (tuple, list)):
-            for s in v:
-                if hasattr(s, "search_t"):
-                    return _index_device(s)
+        for s in v if isinstance(v, (tuple, list)) else (v,):
+            if hasattr(s, "search_t"):
+                return _index_device(s)
     return torch.device("cpu")
 
 

@@ -19,6 +19,15 @@ The pre-filter ∩ delete bitmap applies inside the scan, by row-id lookup
 in a row-space mask or by contiguous window lookup in a `WindowMask`
 (`to_window_mask`). Cosine is normalize-then-IP.
 
+A table's filtered search takes another route (`filter_layout`): the rows
+that pass its filter, kept in the index's cluster-major order once per
+(filter, mutation generation), searched as a `FilteredIVF`.
+A masked scan of the probed windows keeps about nprobe * selectivity of
+their rows, and returns fewer than k where a filter is selective; the
+layout takes lists in the same centroid order until it holds the rows
+the user's nprobe buys unfiltered, counted in passing rows, and scores
+each of them exactly. Whenever k rows pass it returns k.
+
 IVFSQ, IVFPQ and MSTG are two-stage: their first pass ranks candidates on
 the codes, then the top k * rerank_multiple are re-scored exactly against
 the segment's own payload (`raw_data`, a reference, never a copy;
@@ -61,7 +70,8 @@ from ..ops.rowrescore import row_rescore
 from ..ops.windowscan import WINDOW, window_scan, window_scan_plain
 from ..service.event_log import GLOBAL_COUNTERS
 from ..storage.segment import host_tensor
-from .base import IndexKind, ParamsKey, VectorIndex, check_cancel, params_key
+from .base import (IndexKind, ParamsKey, VectorIndex, check_cancel, params_key,
+                   split_dyn_nprobe)
 from .registry import register
 
 DEFAULT_NPROBE = 16
@@ -246,6 +256,9 @@ class IVFIndex(VectorIndex):
         # materialized window bitmaps of repeated filters (to_window_mask)
         self._win_mirrors: Dict[Any, torch.Tensor] = {}
         self._win_mask_built: Dict[Any, torch.Tensor] = {}
+        # the passing rows' layouts of repeated filters (filter_layout),
+        # keyed by the filter and the mutation generation
+        self._filter_layouts: Dict[Any, tuple] = {}
 
     # --------------------------------------------------- window-space masks
     def to_window_mask(self, dmask, segment):
@@ -318,6 +331,68 @@ class IVFIndex(VectorIndex):
         else:
             GLOBAL_COUNTERS.bump("IvfWindowMaskCacheHits")
         return WindowMask(("prebuilt", n_prime, n_prime, False, None), [hit], dmask.device)
+
+    def filter_layout(self, mask, key, k: int, params: ParamsKey):
+        """The index under a pre-filter: (a `FilteredIVF`, the int32
+        buffer it searches, its layout of the passing rows). `mask` is the
+        filter ∩ the alive bitmap in row space (a bool[capacity] bitmap, or
+        a `DeviceMask` that builds one). The layout is built at a filter's
+        first search and then taken from the index's cache under `key` (the
+        filter and the mutation generation; None builds it every time, as
+        for a Lambda); k and the params' nprobe bucket size the searcher's
+        probe count. None where the re-rank reads host rows (disk mode):
+        such a search keeps the window mask."""
+        from ..search.filters import as_mask_array
+
+        if self.raw_host is not None:
+            return None
+        hit = None if key is None else self._filter_layouts.get(key)
+        if hit is not None:
+            GLOBAL_COUNTERS.bump("IvfFilterLayoutHits")
+        else:
+            hit = self._layout_of(as_mask_array(mask))
+            GLOBAL_COUNTERS.bump("IvfFilterLayoutBuilds")
+            if key is not None:
+                if len(self._filter_layouts) >= _FILTER_LAYOUTS:
+                    self._filter_layouts.pop(next(iter(self._filter_layouts)))
+                self._filter_layouts[key] = hit
+        buf, least_rows = hit
+        need, per_list = _filtered_need(self, k)
+        nprobe = self._nprobe(split_dyn_nprobe(params)[0])
+        budget = max(need, nprobe * per_list)
+        # the fewest lists that hold the budget whichever non-empty lists
+        # they are (at most every non-empty one), and at least nprobe, to a
+        # power of two
+        n = len(least_rows)
+        p = max(1, nprobe, min(n, int(np.searchsorted(least_rows, budget)) + 1))
+        # the slots past the budget that nprobe lists may fill, the largest
+        # ones: their passing rows are all candidates, as the unfiltered
+        # search's probed windows are
+        top = int(least_rows[-1] - (least_rows[-1 - nprobe] if nprobe < n else 0)) if n else 0
+        over = top - budget
+        return FilteredIVF(self, min(self.n_clusters, 1 << (p - 1).bit_length()),
+                           0 if over <= 0 else 1 << (over - 1).bit_length()), buf
+
+    def _layout_of(self, rows: torch.Tensor):
+        """(int32[C + 1 + M'], the ascending running sums of the non-empty
+        lists' passing rows) of a row-space bitmap: each list's first entry
+        in the passing rows, then those rows in cluster-major order, as the
+        exact scores read them (a row id of the payload for a two-stage
+        index, a position in `perm_data` for IVFFLAT), padded to a power of
+        two M' (at least 1,024) so that filters of one size share a
+        program. The sums are on the host: they size a search's probes."""
+        perm = self.perm_rows.to(torch.int64)
+        passing = (perm >= 0) & rows[torch.clamp(perm, min=0)]
+        pos = torch.nonzero(passing).flatten()  # ascending: cluster-major
+        lists = torch.searchsorted(self.cluster_start[1:].to(torch.int64), pos, right=True)
+        sizes = torch.bincount(lists, minlength=self.n_clusters)
+        c, m = self.n_clusters, int(pos.shape[0])
+        buf = torch.zeros(c + 1 + (1 << max(10, (m - 1).bit_length())), dtype=torch.int32,
+                          device=pos.device)
+        buf[1: c + 1] = torch.cumsum(sizes, dim=0)
+        buf[c + 1: c + 1 + m] = perm[pos] if self.two_stage else pos
+        held = sizes.cpu().numpy()
+        return buf, np.cumsum(np.sort(held[held > 0]))
 
     # ------------------------------------------------------------- build
     @classmethod
@@ -546,6 +621,17 @@ class IVFIndex(VectorIndex):
                                 dyn_nprobe=dyn_nprobe)
         return self._rerank(queries, k, r, self._exact_scores)
 
+    def _list_scores(self, q: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+        """f32[Q, C]: the coarse probe's ranking of the lists for the
+        queries `q` (normalized for Cosine), -inf where `sizes` is 0. The
+        ranking follows the assignment geometry (rows were L2-assigned):
+        L2 and Cosine (|q| = 1) rank by 2 q·c - |c|^2, IP (MIPS) by raw
+        q·c."""
+        cs = q[:, : self.centroids.shape[1]] @ self.centroids.T
+        if self.metric in (Metric.L2, Metric.COSINE):
+            cs = 2.0 * cs - self.csq[None, :]
+        return cs.masked_fill(~(sizes > 0)[None, :], NEG_INF)
+
     def _ncand(self, k: int) -> int:
         """Candidates the first pass of a two-stage index hands its re-rank."""
         return min(max(k * self.rerank_multiple, k), self.n_rows)
@@ -584,17 +670,9 @@ class IVFIndex(VectorIndex):
         nprobe = self._nprobe(params)
         nq = queries.shape[0]
         q = distance.normalize_queries(queries.to(torch.float32), self.metric)
-
-        # coarse probe: the cell ranking follows the assignment geometry
-        # (rows were L2-assigned): L2 and Cosine (|q| = 1) rank by
-        # 2 q·c - |c|^2, IP (MIPS) by raw q·c
-        cs = q[:, : self.centroids.shape[1]] @ self.centroids.T
-        if self.metric in (Metric.L2, Metric.COSINE):
-            cs = 2.0 * cs - self.csq[None, :]
         # empty clusters never take a probe slot
         sizes = self.cluster_start[1:] - self.cluster_start[:-1]
-        cs = cs.masked_fill(~(sizes > 0)[None, :], NEG_INF)
-        probe = torch.topk(cs, nprobe, dim=1).indices  # [Q, P]
+        probe = torch.topk(self._list_scores(q, sizes), nprobe, dim=1).indices  # [Q, P]
 
         w_budget = int(min(self.n_windows + nprobe, nprobe * self.wpp + 4))
         # the rows the window step gathers and scores, padding and
@@ -794,6 +872,93 @@ class IVFIndex(VectorIndex):
             rerank_multiple=int(meta["rerank_multiple"]),
         )
         return cls(**kw)
+
+
+class FilteredIVF(VectorIndex):
+    """An IVF index under a pre-filter (`IVFIndex.filter_layout`). Its
+    search takes the index's layout of the passing rows as its mask:
+    int32[C + 1 + M'], each list's first entry, then the passing rows in
+    the index's cluster-major order. It ranks the index's lists as the
+    unfiltered search does, takes them in that order until it holds
+    `budget` candidates (nprobe lists of the index's mean size, and at
+    least what the index would re-rank: the rows the user's nprobe buys,
+    counted in passing rows) and every passing row of the first nprobe
+    lists (in up to `over` slots past the budget), and scores every
+    candidate exactly against the stored rows (`row_rescore`: on the card
+    one kernel that reads each row once by its id) before one top-k. The
+    lists a search ranks (`n_probe`) and its slots are static, the layout
+    an input, so filters of one size share one captured program; the
+    actual nprobe cuts the candidates past its own budget and lists, as it
+    masks probes unfiltered."""
+
+    supports_dyn_nprobe = True
+
+    def __init__(self, index: IVFIndex, n_probe: int, over: int):
+        self.index = index
+        self.kind = index.kind
+        self.metric = index.metric
+        self.dim = index.dim
+        self.n_rows = index.n_rows
+        self.n_probe = n_probe
+        self.over = over
+
+    def search_t(self, queries, k, *, mask=None, params=(), dyn_nprobe=None):
+        if mask is None or mask.dtype != torch.int32:
+            raise ValueError("a filtered IVF search takes its layout of the passing rows as "
+                             "its mask")
+        idx = self.index
+        need, per_list = _filtered_need(idx, k)
+        nprobe = idx._nprobe(params)
+        budget = max(need, nprobe * per_list)
+        nq, c, n_probe = queries.shape[0], idx.n_clusters, self.n_probe
+        start = mask[: c + 1].to(torch.int64)
+        q = distance.normalize_queries(queries.to(torch.float32), idx.metric)
+        count = start[1:] - start[:-1]
+        probe = torch.topk(idx._list_scores(q, count), n_probe, dim=1).indices  # [Q, P]
+        held = count[probe]  # [Q, P]
+        cum = torch.cumsum(held, dim=1)
+        slots = budget + self.over
+        j = torch.arange(slots, device=q.device)
+        # the probe each candidate slot falls in, and its place there
+        p_idx = torch.searchsorted(cum, j.expand(nq, slots).contiguous(), right=True)
+        if isinstance(dyn_nprobe, torch.Tensor):  # a program's device scalar
+            act = torch.clamp(dyn_nprobe, max=nprobe)
+            live = (j < torch.clamp(act * per_list, min=need)) | (p_idx < act)
+        elif dyn_nprobe is not None:
+            act = min(int(dyn_nprobe), nprobe)
+            live = (j < max(need, act * per_list)) | (p_idx < act)
+        else:
+            live = (j < budget) | (p_idx < nprobe)
+        live = live & (p_idx < n_probe)
+        p_idx = torch.clamp(p_idx, max=n_probe - 1)
+        first = torch.gather(cum - held, 1, p_idx)
+        pos = start[torch.gather(probe, 1, p_idx)] + (j - first)
+        cand = mask[c + 1:][torch.where(live, pos, torch.zeros_like(pos))]
+        cand = cand.masked_fill(~live, -1)
+        count_work("ivf.window_rows", nq * slots)
+        if idx.two_stage:
+            scores = idx._exact_scores(queries, cand)
+        else:  # IVFFLAT's rows: Cosine's are normalized already
+            metric = Metric.IP if idx.metric == Metric.COSINE else idx.metric
+            scores = row_rescore(q[:, : idx.perm_data.shape[1]].contiguous(), idx.perm_data,
+                                 idx.perm_aux, cand, metric=metric)
+        v, p = torch.topk(scores, min(k, slots), dim=1)
+        r = torch.gather(cand, 1, p)
+        if not idx.two_stage:
+            r = idx.perm_rows[torch.clamp(r, min=0).to(torch.int64)]
+        r = torch.where(torch.isfinite(v), r, torch.full_like(r, -1))
+        return _pad_cols(v, r, k)
+
+
+# the layouts an index keeps of repeated filters, the oldest out first
+_FILTER_LAYOUTS = 32
+
+
+def _filtered_need(idx: IVFIndex, k: int) -> Tuple[int, int]:
+    """(the fewest candidates a filtered search scores: k, or the rows a
+    two-stage index re-ranks; the rows of the index's mean list)."""
+    need = idx._ncand(k) if idx.two_stage else min(k, idx.n_rows)
+    return need, -(-idx.n_rows // idx.n_clusters)
 
 
 def _build(cls, payload, n_rows, metric, dim, params, settings, cancel_cb, codec, two_stage):

@@ -4,7 +4,9 @@ Counterpart of myscaledb_tpu/search/executor.py. The re-expression of the
 reference's search-manager stack:
 
   MergeTreeVSManager::vectorScan            -> per-segment search_t
-  performPrefilter + DenseBitmap            -> filters.Expr -> device mask
+  performPrefilter + DenseBitmap            -> filters.Expr -> device mask (an
+                                               IVF index: its layout of the
+                                               passing rows, `_prefilter`)
   getTotalTopSearchResultImpl (k-way heap)  -> on-device merge across segments
   two-stage search (first_stage_only +      -> _two_stage_run: a global
     computeTopDistanceSubset)                  candidate cut, exact re-rank
@@ -325,6 +327,39 @@ def _memo(cache: dict, cap: int, key, make):
     return hit
 
 
+def _prefilter(segment, fexpr: Optional[Expr], idx, st, k: int, pkey):
+    """(mask, searcher, forced to the exact scan) of one segment under a
+    filter: the pre-filter bitmap, the route its selectivity decides, and
+    for an IVF index the searcher of the passing rows with their layout as
+    its mask (`filter_layout`, cached by the filter as the segment's masks
+    are), or in disk mode its window mask."""
+    mask = segment_mask(segment, fexpr)
+    if idx is None or fexpr is None:
+        return mask, idx, False
+    if st.query.filter_fallback_selectivity > 0:
+        sel = estimate_selectivity(segment, fexpr)
+        if sel is not None and sel < st.query.filter_fallback_selectivity:
+            # over-selective filter: the exact masked scan is both correct
+            # (a graph walk loses recall on sparse masks) and cheap (few
+            # survivors) -- fallbackToFlat
+            GLOBAL_COUNTERS.bump("VectorIndexFallbackToFlat")
+            return mask, None, True
+    if hasattr(idx, "filter_layout"):
+        # IVF-layout indexes search the passing rows in their own order,
+        # or (disk mode) test the predicate over their window-permuted
+        # column mirrors
+        key = None if _has_lambda(fexpr) else (repr(fexpr), segment.mutation_generation)
+        found = idx.filter_layout(mask, key, k, pkey)
+        if found is not None:
+            layout, buf = found
+            return buf, layout, False
+        if isinstance(mask, DeviceMask):
+            wm = idx.to_window_mask(mask, segment)
+            if wm is not None:
+                return wm, idx, False
+    return mask, idx, False
+
+
 class VectorSearchExecutor:
     """Executes a vector search over a table's segments.
 
@@ -403,22 +438,12 @@ class VectorSearchExecutor:
                     continue  # provably no row passes: skip the segment
                 if fold is True:
                     fexpr = None  # provably all pass: alive mask only
-            mask = segment_mask(seg, fexpr)
             idx = t.loaded_index(seg.segment_id, column, metric)
-            forced_exact = False
-            if (
-                idx is not None
-                and fexpr is not None
-                and st.query.filter_fallback_selectivity > 0
-            ):
-                sel = estimate_selectivity(seg, fexpr)
-                if sel is not None and sel < st.query.filter_fallback_selectivity:
-                    # over-selective filter: the exact masked scan is both
-                    # correct (a graph walk loses recall on sparse masks)
-                    # and cheap (few survivors) -- fallbackToFlat
-                    idx = None
-                    forced_exact = True
-                    GLOBAL_COUNTERS.bump("VectorIndexFallbackToFlat")
+            if filter is None:
+                mask, forced_exact = segment_mask(seg, None), False
+            else:
+                with span("filter.mask"):
+                    mask, idx, forced_exact = _prefilter(seg, fexpr, idx, st, k, pkey)
             if idx is not None and st.query.cost_based_index_routing:
                 payload = seg.vector(column)
                 # a host-tier payload is never routed to the scan: its
@@ -429,12 +454,6 @@ class VectorSearchExecutor:
                     idx = None
                     forced_exact = True
                     GLOBAL_COUNTERS.bump("VectorIndexCostRouteToScan")
-            if idx is not None and isinstance(mask, DeviceMask) and hasattr(idx, "to_window_mask"):
-                # IVF-layout indexes test the predicate over their own
-                # window-permuted column mirrors (no per-row gather)
-                wm = idx.to_window_mask(mask, seg)
-                if wm is not None:
-                    mask = wm
             if (
                 idx is not None
                 and (use_two_stage or idx.requires_two_stage())

@@ -124,16 +124,17 @@ def as_mask_array(mask):
 
 def materialize_mask(mask):
     """The mask a search program copies in, built outside the graph: None,
-    or (kind, bool tensor). A WindowMask is built in its index's layout
+    or (kind, tensor). A WindowMask is built in its index's layout
     ("window"; a repeated filter's bitmap comes from the index's cache); a
-    DeviceMask or a bitmap in row space ("rows")."""
+    DeviceMask or a bitmap in row space ("rows"); an IVF index's int32
+    layout of the passing rows ("layout", `IVFIndex.filter_layout`)."""
     if mask is None:
         return None
     if isinstance(mask, WindowMask):
         return ("window", mask.build())
     if isinstance(mask, DeviceMask):
         return ("rows", mask.build())
-    return ("rows", mask)
+    return ("rows" if mask.dtype == torch.bool else "layout", mask)
 
 
 def mask_spec(mask) -> Optional[Tuple[str, Tuple[int, ...], torch.dtype]]:
@@ -147,7 +148,8 @@ def mask_spec(mask) -> Optional[Tuple[str, Tuple[int, ...], torch.dtype]]:
 
 def mask_argument(kind: str, buf: Optional[torch.Tensor]):
     """What a searcher's `search_t` takes for a program's mask buffer: a
-    prebuilt WindowMask over it for the window kind, else the bitmap."""
+    prebuilt WindowMask over it for the window kind, else the buffer itself
+    (a bitmap, or an IVF index's layout)."""
     if buf is None:
         return None
     if kind == "window":

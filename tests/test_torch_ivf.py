@@ -434,7 +434,8 @@ def mstg_tables():
 
 def _bumps(fn):
     names = ("VectorIndexSearches", "VectorBruteForceSearches", "VectorIndexFallbackToFlat",
-             "IvfWindowMaskBuilds", "IvfWindowMaskCacheHits")
+             "IvfWindowMaskBuilds", "IvfWindowMaskCacheHits", "IvfFilterLayoutBuilds",
+             "IvfFilterLayoutHits")
     before = {n: GLOBAL_COUNTERS.get(n) for n in names}
     out = fn()
     return out, {n: GLOBAL_COUNTERS.get(n) - before[n] for n in names}
@@ -469,18 +470,21 @@ def test_table_search_dyn_nprobe_matches_jax(mstg_tables, nprobe):
 
 
 def test_table_filtered_search_window_mask_and_fallback(mstg_tables):
-    """A filter above filter_fallback_selectivity goes to the index as a
-    WindowMask (built once, then from the cache); one below it falls back
-    to the exact scan. Both match the JAX package."""
+    """A filter above filter_fallback_selectivity goes to the index, which
+    searches its layout of the passing rows (built once, then from the
+    cache; the JAX package masks its probed windows, and here each finds
+    the same hits); one below it falls back to the exact scan. Both match
+    the JAX package."""
     jt, tt, q, _ = mstg_tables
-    for _ in range(2):  # the second search hits the cached window bitmap
+    for _ in range(2):  # the second search hits the cached layout
         jres = jt.search("vec", q, k=K, params={"nprobe": 4}, filter=jms.F("id") < 2_000)
         tres, b = _bumps(lambda: tt.search("vec", q, k=K, params={"nprobe": 4},
                                            filter=tms.F("id") < 2_000))
         _same(jres, tres)
         assert (tt.gather(tres, ["id"])["id"] < 2_000).all()
         assert b["VectorIndexSearches"] == 1 and b["VectorIndexFallbackToFlat"] == 0
-    assert b["IvfWindowMaskCacheHits"] == 1 and b["IvfWindowMaskBuilds"] == 0
+    assert b["IvfFilterLayoutHits"] == 1 and b["IvfFilterLayoutBuilds"] == 0
+    assert b["IvfWindowMaskCacheHits"] == b["IvfWindowMaskBuilds"] == 0
     jres = jt.search("vec", q, k=K, params={"nprobe": 4}, filter=jms.F("id") < 60)
     tres, b = _bumps(lambda: tt.search("vec", q, k=K, params={"nprobe": 4},
                                        filter=tms.F("id") < 60))

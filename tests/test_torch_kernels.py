@@ -1255,9 +1255,10 @@ def test_approx_bin_max_wrapper_rejects_what_the_kernel_does_not_take(cuda_devic
 
 
 # ------------------------------------------------ search programs (graphs)
-def _program_index(device, kind, metric, n, d=128, seed=0):
+def _program_index(device, kind, metric, n, d=128, seed=0, with_segment=False):
     """A port index of `kind` built on `device` over n clustered rows, its
-    padded queries and a mask over its segment's capacity."""
+    padded queries and a mask over its segment's capacity (and the segment
+    after them, `with_segment`)."""
     from myscaledb_tpu_torch.index import registry
     from myscaledb_tpu_torch.index.base import IndexKind
     from myscaledb_tpu_torch.index.flat import FlatIndex
@@ -1280,7 +1281,7 @@ def _program_index(device, kind, metric, n, d=128, seed=0):
     q = torch.from_numpy(vecs[rng.choice(n, 16, replace=False)] + 0.1).to(device)
     q = torch.nn.functional.pad(q, (0, p.data.shape[1] - d))
     mask = torch.from_numpy(np.arange(seg.capacity) % 5 != 2).to(device)
-    return idx, q, mask
+    return (idx, q, mask, seg) if with_segment else (idx, q, mask)
 
 
 PROGRAM_CASES = [
@@ -1393,6 +1394,35 @@ def test_two_stage_ivf_search_launches_row_rescore_once_a_replay(cuda_device, ki
     eager = rowrescore.row_rescore.launches
     idx.search_t(q, 10, mask=mask, params=params_key({"nprobe": 4}))
     assert rowrescore.row_rescore.launches == eager + want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.01, 0.5, 0.0])
+@pytest.mark.parametrize("kind,metric", [("IVFFLAT", Metric.L2), ("IVFSQ", Metric.L2),
+                                         ("MSTG", Metric.COSINE)])
+def test_filtered_ivf_program_replay_equals_the_eager_body(cuda_device, kind, metric, share):
+    """A filtered IVF search (`FilteredIVF` over the index's layout of the
+    rows with id >= n (1 - share), its mask) replays its program bit for
+    bit against its eager body, scoring its candidates through one row
+    rescore launch and no window scan; a layout that holds no row finds
+    nothing."""
+    import myscaledb_tpu_torch as tms
+    from myscaledb_tpu_torch.index.base import params_key
+    from myscaledb_tpu_torch.search import executor
+
+    n = 20_000
+    idx, q, _, seg = _program_index(cuda_device, kind, metric, n, with_segment=True)
+    flt = tms.F("id") >= n - int(n * share)
+    layout, buf = idx.filter_layout(executor.segment_mask(seg, flt), None, 10,
+                                    params_key({"nprobe": 4}))
+    launched = _replays_bit_for_bit(layout, q, buf, {"nprobe": 4})
+    assert launched[windowscan.window_scan] == 0
+    assert launched[rowrescore.row_rescore] == 1
+    rows = layout.search(q, 10, params={"nprobe": 4}, mask=buf)[1].cpu().numpy()
+    if share:
+        assert (rows >= n - int(n * share)).all()
+    else:
+        assert (rows == -1).all()
 
 
 @pytest.mark.cuda

@@ -613,19 +613,72 @@ def _ivf_pair():
 
 def test_dyn_nprobe_is_an_input_not_a_key():
     """nprobe 3 and 4 share the pow2 bucket 4: one program, the actual
-    nprobe a device scalar input; each equals JAX's at its nprobe."""
+    nprobe a device scalar input; each equals JAX's at its nprobe. A
+    filtered search is a program of its own over the index's layout of the
+    passing rows, beside the unfiltered one. It is held to JAX's exact
+    filtered answer, query by query: every hit passes; a hit in that answer
+    has its distance, any other is no nearer than its k-th. Its candidates
+    hold every passing row of the query's nprobe best lists (and of the
+    scanned segment), so query by query its i-th distance is no farther
+    than that of the exact top-k over those rows. JAX's masked scan of its
+    probed windows also reads rows of the lists beside them, so the two
+    answers differ, and the port's recall is held to JAX's on the mean."""
     (jdb, jt), (tdb, tt), q = _ivf_pair()
     caps = _count("SearchProgramCaptures")
     for nprobe in (3, 4, 3):
-        p = {"nprobe": nprobe}
-        _same(jt.search("vec", q, k=K, params=p), tt.search("vec", q, k=K, params=p))
+        _same(jt.search("vec", q, k=K, params={"nprobe": nprobe}),
+              tt.search("vec", q, k=K, params={"nprobe": nprobe}))
     assert _count("SearchProgramCaptures") - caps == 1
     prog, = tt._programs.programs()
     assert prog.dyn is not None and int(prog.dyn) == 3
-    # a filtered search: the index's WindowMask, materialized into the program's buffer
     f = lambda ms: (ms.F("tag") != 3) & (ms.F("id") < 7_000)  # noqa: E731
-    _same(jt.search("vec", q, k=K, params={"nprobe": 4}, filter=f(jms)),
-          tt.search("vec", q, k=K, params={"nprobe": 4}, filter=f(tms)))
+    jres = jt.search("vec", q, k=K, params={"nprobe": 4}, filter=f(jms))
+    tres = tt.search("vec", q, k=K, params={"nprobe": 4}, filter=f(tms))
+    assert len(tt._programs) == 2 and _count("SearchProgramCaptures") - caps == 2
+    jt.settings.query.filter_fallback_selectivity = 1.0  # every filtered search scans exactly
+    exact = jt.search("vec", q, k=K, params={"nprobe": 4}, filter=f(jms))
+    assert (tres.rows >= 0).all() and (exact.rows >= 0).all()
+    got = tt.gather(tres, ["id", "tag"])
+    assert (got["id"] < 7_000).all() and (got["tag"] != 3).all()
+
+    def hits(res, i):
+        return list(zip(res.segments[i].tolist(), res.rows[i].tolist()))
+
+    def recall(res):
+        return np.mean([len(set(hits(res, i)) & set(hits(exact, i))) for i in range(len(q))]) / K
+
+    assert recall(tres) >= recall(jres)
+    # the exact top-k over the passing rows of each query's 4 best lists
+    # (the index's centroid ranking) and of the scanned segment, in numpy
+    idx = tt.loaded_index(0, "vec", Metric.L2)
+    q64 = np.asarray(q, np.float64)
+    cen = idx.centroids.numpy().astype(np.float64)[:, : q64.shape[1]]
+    best = np.argsort(-(2 * q64 @ cen.T - (cen ** 2).sum(1)), axis=1)[:, :4]
+    pos_of = np.empty(idx.n_rows, np.int64)
+    perm = idx.perm_rows.numpy()
+    pos_of[perm[perm >= 0]] = np.nonzero(perm >= 0)[0]
+    owner = np.searchsorted(idx.cluster_start.numpy()[1:], pos_of, side="right")
+    parts = []
+    for seg in tt.live_segments():
+        n = seg.n_rows
+        ok = (seg.scalar("id")[:n] < 7_000) & (seg.scalar("tag")[:n] != 3)
+        x = seg.vector("vec").data[:n, : q64.shape[1]].to(torch.float64).numpy()
+        d = ((q64[:, None, :] - x[None]) ** 2).sum(-1)
+        d[:, ~ok] = np.inf
+        if seg.segment_id == 0:
+            d[~(owner[None, :] == best[:, :, None]).any(1)] = np.inf
+        parts.append(d)
+    ref = np.sort(np.concatenate(parts, axis=1), axis=1)[:, :K]
+    assert np.isfinite(ref).all()
+    for i in range(len(q)):
+        want = dict(zip(hits(exact, i), exact.distances[i]))
+        kth = float(exact.distances[i].max())
+        for hit, d in zip(hits(tres, i), tres.distances[i]):
+            if hit in want:
+                np.testing.assert_allclose(d, want[hit], **TOL)
+            else:  # L2: no row outside the exact answer is nearer than its k-th
+                assert d >= kth - TOL["atol"] - TOL["rtol"] * abs(kth)
+        assert (np.sort(tres.distances[i]) <= ref[i] + TOL["atol"] + TOL["rtol"] * ref[i]).all()
     jdb.close()
     tdb.close()
 

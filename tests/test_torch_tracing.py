@@ -200,15 +200,20 @@ def _table(kind):
     t = db.create_table("spans", tms.Schema({"id": tms.UInt64(), "vec": tms.FloatVector(DIM)}))
     t.insert({"id": np.arange(N, dtype=np.uint64),
               "vec": rng.standard_normal((N, DIM)).astype(np.float32)})
-    if kind == "ivfflat":
+    if kind.startswith("ivfflat"):
         t.add_vector_index("i", "vec", type="IVFFLAT", ncentroids=16)
         assert t.wait_index_built()
     return db, t, rng
 
 
-@pytest.mark.parametrize("kind", ["flat", "ivfflat"])
+@pytest.mark.parametrize("kind", ["flat", "ivfflat", "ivfflat_filter"])
 def test_a_search_opens_each_layers_span_once_a_call(kind, monkeypatch):
+    """The spans of one search, each once a call, and none inside a
+    program's body; a filtered search opens `filter.mask` too, inside
+    `vector_search` (the mask, the selectivity and the layout, built at
+    the first call and then looked up)."""
     db, t, rng = _table(kind)
+    flt = tms.F("id") >= N // 2 if kind == "ivfflat_filter" else None
     in_body = []
     call_body = program_mod.Program._call_body
 
@@ -219,13 +224,14 @@ def test_a_search_opens_each_layers_span_once_a_call(kind, monkeypatch):
         return out
 
     monkeypatch.setattr(program_mod.Program, "_call_body", watched)
-    route = "VectorIndexSearches" if kind == "ivfflat" else "VectorBruteForceSearches"
+    route = "VectorBruteForceSearches" if kind == "flat" else "VectorIndexSearches"
     GLOBAL_SPAN_LOG.clear()
     before = GLOBAL_COUNTERS.snapshot()
     calls = 4
     for _ in range(calls):
         q = rng.standard_normal((NQ, DIM)).astype(np.float32)
-        res = t.search("vec", q, K, params={"nprobe": 4} if kind == "ivfflat" else None)
+        res = t.search("vec", q, K, params=None if kind == "flat" else {"nprobe": 4},
+                       filter=flt)
         ids = t.gather(res, ["id"])["id"]
         assert ids.shape == (NQ, K)
     after = GLOBAL_COUNTERS.snapshot()
@@ -233,7 +239,8 @@ def test_a_search_opens_each_layers_span_once_a_call(kind, monkeypatch):
            for k in after if k.endswith(".calls") and after[k] != before.get(k, 0)}
     assert after[route] - before.get(route, 0) == calls
     assert len(t._programs) == 1
-    assert got == {s: calls for s in SEARCH_PATH}
+    path = SEARCH_PATH + (("filter.mask",) if flt is not None else ())
+    assert got == {s: calls for s in path}
     # one capture a program, then a replay a call
     assert after["SearchProgramCaptures"] - before.get("SearchProgramCaptures", 0) == 1
     assert after["SearchProgramReplays"] - before.get("SearchProgramReplays", 0) == calls
@@ -248,6 +255,7 @@ def test_a_search_opens_each_layers_span_once_a_call(kind, monkeypatch):
     for name in ("vector_search", "program.key"):
         assert all(by_id[r["parent_id"]]["span"] != "table.gather" for r in _rows(name))
     assert {by_id[r["parent_id"]]["span"] for r in _rows("result.readback")} == {"table.gather"}
+    assert {by_id[r["parent_id"]]["span"] for r in _rows("filter.mask")} <= {"vector_search"}
     db.close()
 
 
