@@ -213,6 +213,7 @@ class Database:
             seg = next(s for s in t.live_segments() if s.segment_id == new_id)
             if deleted is not None:
                 seg.delete_rows(np.nonzero(deleted)[0])
+                t._segments_changed()
             for iname in descs:
                 idir = os.path.join(sdir, f"index_{iname}")
                 if os.path.isdir(idir):

@@ -21,6 +21,9 @@ replayed from the table's program cache (search/program.py) per (k,
 params bucket, padded batch, the masks' kinds, the searchers and their
 tensors). Outside it stay the query upload (through a pinned
 staging buffer), one copy per mask and one copy of the packed outputs.
+The plan that finds the program (the segment walk, masks, routes and the
+program's key) is kept beside it under the request's key, so a repeated
+request runs the program without planning (`_Plan`).
 Results are lazy: that copy stays on the device until the caller reads
 it. The two-stage path (first passes, a global cut, the exact re-rank)
 and host-tier scans stay eager, as in the JAX package; their plain
@@ -31,6 +34,7 @@ Labels stay segment-local; a global hit is (segment_id, row_id, score).
 
 from __future__ import annotations
 
+import operator
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,9 +52,16 @@ from ..service.event_log import GLOBAL_COUNTERS
 from ..service.tracing import span
 from ..storage.schema import BinaryVector
 from .filters import (
+    And,
+    Compare,
     DeviceMask,
     Expr,
+    In,
     Lambda,
+    Like,
+    Literal,
+    Not,
+    Or,
     WindowMask,
     as_mask_array,
     mask_argument,
@@ -203,9 +214,10 @@ def merge_tagged_topk(vals_t, rows_t, k):
     return _merge_tagged_body(tuple(vals_t), tuple(rows_t), k, stable=True)
 
 
-def _as_query_batch(query, dim: int):
-    """Normalize the query input to a host f32 [Q, dim] batch and its
-    per-query |q|^2 (numpy, re-applied to L2 distances on the host)."""
+def _as_query_batch(query, dim: int, metric: Metric):
+    """Normalize the query input to a host f32 [Q, dim] batch and, for L2,
+    its per-query |q|^2 (numpy, re-applied to L2 distances on the host;
+    None for the other metrics, whose distances do not read it)."""
     if isinstance(query, torch.Tensor):
         query = query.detach().cpu().numpy()
     q = np.asarray(query, dtype=np.float32)
@@ -213,7 +225,7 @@ def _as_query_batch(query, dim: int):
         q = q[None, :]
     if q.ndim != 2 or q.shape[1] != dim:
         raise QueryShapeError(f"query must be [*, {dim}], got {q.shape}")
-    qsq = np.einsum("ij,ij->i", q, q)
+    qsq = np.einsum("ij,ij->i", q, q) if metric == Metric.L2 else None
     return q, q.shape[0], qsq
 
 
@@ -292,6 +304,24 @@ def _walk_filter(expr):
             yield from _walk_filter(child)
 
 
+def _filter_key(expr: Expr) -> Optional[str]:
+    """A filter's part of a plan's key: its repr where every node is one
+    of `_PURE_FILTERS`, else None (the plan is not kept)."""
+    if all(type(e) in _PURE_FILTERS for e in _walk_filter(expr)):
+        return repr(expr)
+    return None
+
+
+def _plan_key(column, k, pkey, metric, use_two_stage, nq_pad, qh, is_binary, filter, fkey, st,
+              version) -> Optional[tuple]:
+    """The key a fused search's plan is kept under, or None where the
+    request is never kept (a filter outside `_PURE_FILTERS`)."""
+    if filter is not None and fkey is None:
+        return None
+    return ("plan", column, k, pkey, metric, use_two_stage, nq_pad, qh.shape[1:], qh.dtype.str,
+            is_binary, fkey, _settings_key(st), version)
+
+
 def estimate_selectivity(segment, filter_expr: Optional[Expr]) -> Optional[float]:
     """Fraction of the segment's rows passing `filter_expr` (ignoring
     deletes), or None when it cannot be costed cheaply (Lambda closures).
@@ -327,23 +357,24 @@ def _memo(cache: dict, cap: int, key, make):
     return hit
 
 
-def _prefilter(segment, fexpr: Optional[Expr], idx, st, k: int, pkey):
-    """(mask, searcher, forced to the exact scan) of one segment under a
-    filter: the pre-filter bitmap, the route its selectivity decides, and
-    for an IVF index the searcher of the passing rows with their layout as
-    its mask (`filter_layout`, cached by the filter as the segment's masks
-    are), or in disk mode its window mask."""
+def _prefilter(segment, fexpr: Optional[Expr], idx, st, k: int, pkey, counts: Dict[str, int]):
+    """(mask, searcher, forced to the exact scan, searches a layout) of one
+    segment under a filter: the pre-filter bitmap, the route its
+    selectivity decides, and for an IVF index the searcher of the passing
+    rows with their layout as its mask (`filter_layout`, cached by the
+    filter as the segment's masks are), or in disk mode its window mask.
+    The route's counters go on `counts`."""
     mask = segment_mask(segment, fexpr)
     if idx is None or fexpr is None:
-        return mask, idx, False
+        return mask, idx, False, False
     if st.query.filter_fallback_selectivity > 0:
         sel = estimate_selectivity(segment, fexpr)
         if sel is not None and sel < st.query.filter_fallback_selectivity:
             # over-selective filter: the exact masked scan is both correct
             # (a graph walk loses recall on sparse masks) and cheap (few
             # survivors) -- fallbackToFlat
-            GLOBAL_COUNTERS.bump("VectorIndexFallbackToFlat")
-            return mask, None, True
+            _add(counts, "VectorIndexFallbackToFlat")
+            return mask, None, True, False
     if hasattr(idx, "filter_layout"):
         # IVF-layout indexes search the passing rows in their own order,
         # or (disk mode) test the predicate over their window-permuted
@@ -352,12 +383,68 @@ def _prefilter(segment, fexpr: Optional[Expr], idx, st, k: int, pkey):
         found = idx.filter_layout(mask, key, k, pkey)
         if found is not None:
             layout, buf = found
-            return buf, layout, False
+            return buf, layout, False, True
         if isinstance(mask, DeviceMask):
             wm = idx.to_window_mask(mask, segment)
             if wm is not None:
-                return wm, idx, False
-    return mask, idx, False
+                return wm, idx, False, False
+    return mask, idx, False, False
+
+
+def _add(counts: Dict[str, int], name: str, n: int = 1) -> None:
+    counts[name] = counts.get(name, 0) + n
+
+
+# The filter nodes whose answer is a pure function of a segment's rows and
+# whose repr names every operand: a plan under a filter of these alone is
+# memoized by the filter's repr. Any other node plans every search in full:
+# a `Lambda` (its repr does not name its closure) and the fts predicates of
+# text_executor (they read an fts store, whose tokenizer they captured when
+# they were made).
+_PURE_FILTERS = (And, Or, Not, Literal, Compare, In, Like)
+
+# The settings a plan reads: their values are part of a plan's key
+# (`Settings` is mutable: its identity says nothing).
+_settings_key = operator.attrgetter(
+    "query.max_search_result_window", "query.two_stage_search",
+    "query.optimize_prefilter_in_search", "query.filter_fallback_selectivity",
+    "query.cost_based_index_routing", "query.enable_brute_force_vector_search",
+    "query.use_approx_topk", "query.approx_topk_recall_target",
+    "table.min_rows_to_build_vector_index",
+)
+
+
+class _Plan:
+    """A fused search's resolved plan, kept in the table's program cache
+    (`ProgramCache.keep_plan`) under the request's key: what the planning
+    hands `Program.run` besides the queries, the counters it bumped, the
+    loaded indexes whose cache recency it refreshed, and the cost routes it
+    priced. A repeated request runs it in place of the planning."""
+
+    __slots__ = ("program", "masks", "dyn", "seg_ids", "metric", "counts", "touched", "routes")
+
+    def __init__(self, program, masks, dyn, seg_ids, metric, counts, touched, routes):
+        self.program = program
+        self.masks = masks
+        self.dyn = dyn
+        self.seg_ids = seg_ids
+        self.metric = metric
+        self.counts = (tuple(counts), tuple(counts.values()))
+        self.touched = tuple(touched)
+        self.routes = tuple(routes)
+
+    def holds(self, nq: int, k: int, pkey) -> bool:
+        """Whether the cost routes priced for the planned batch route this
+        one alike: the key holds the padded batch, the model prices the
+        actual one."""
+        return all(idx.prefer_exact_scan(nq, k, pkey, nbytes) == scan
+                   for idx, nbytes, scan in self.routes)
+
+    def run(self, table, qh, nq: int, qsq, k: int) -> SearchResult:
+        GLOBAL_COUNTERS.bump_many(*self.counts)
+        table.touch_indexes(self.touched)
+        return SearchResult(self.metric, device=self.program.run(qh, self.masks, self.dyn),
+                            seg_ids=self.seg_ids, nq=nq, k=k, query_sqnorm=qsq)
 
 
 class VectorSearchExecutor:
@@ -370,6 +457,19 @@ class VectorSearchExecutor:
     (cost_based_index_routing) sends the segment to the exact scan;
     otherwise small segments always scan exactly and large ones scan only
     if enable_brute_force_vector_search.
+
+    A fused search's plan (the segments, their masks, routes and searchers,
+    the program) is a function of the request's key (`_plan_key`: the
+    column, k, params, metric, the padded batch's shape, the filter's repr,
+    the settings the plan reads) and of the table's `segment_version`,
+    which moves with every change a plan could see. It is kept in the
+    table's program cache beside its program, and a repeated request runs
+    it without planning (counter `SearchPlanHits`; a request that plans,
+    `SearchPlanMisses`). The table's one drop drops it. The two-stage path,
+    host-tier scans and a filter outside `_PURE_FILTERS` plan every search.
+    Each search opens `program.key` once, around the key and the lookup,
+    and a filtered one `filter.mask` once, around the filter's part of the
+    key; a planning search opens neither again.
     """
 
     def __init__(self, table):
@@ -413,23 +513,49 @@ class VectorSearchExecutor:
             qh, nq = _as_binary_query_batch(query, vtype)
             qsq = None
         else:
-            qh, nq, qsq = _as_query_batch(query, vtype.dim)
+            qh, nq, qsq = _as_query_batch(query, vtype.dim, metric)
         GLOBAL_COUNTERS.bump("VectorSearchQueries", nq)
 
         version = t.segment_version  # read before the segments: see ProgramCache.get
+        nq_pad = max(8, -(-nq // 8) * 8)
+        pkey = params_key(params)
+        use_two_stage = st.query.two_stage_search if two_stage is None else bool(two_stage)
+        fkey = None
+        if filter is not None:
+            with span("filter.mask"):
+                fkey = _filter_key(filter)
+        with span("program.key"):
+            mkey = _plan_key(column, k, pkey, metric, use_two_stage, nq_pad, qh, is_binary,
+                             filter, fkey, st, version)
+            try:
+                plan = None if mkey is None else t._programs.plan(mkey)
+            except TypeError:  # params that do not hash: never kept
+                mkey = plan = None
+        if plan is not None and plan.holds(nq, k, pkey):
+            return plan.run(t, qh, nq, qsq, k)
+        GLOBAL_COUNTERS.bump("SearchPlanMisses")
+        return self._plan_run(column, filter, k, pkey, params, metric, st, use_two_stage, qh, nq,
+                              qsq, nq_pad, is_binary, vtype, version, mkey)
+
+    def _plan_run(self, column, filter, k, pkey, params, metric, st, use_two_stage, qh, nq, qsq,
+                  nq_pad, is_binary, vtype, version, mkey) -> SearchResult:
+        """Plan the search in full and run it; a fused plan is kept under
+        `mkey` (None: not kept)."""
+        t = self.table
         segments = t.live_segments()
         if not segments:
             return SearchResult.empty(metric, nq, k, qsq)
 
-        nq_pad = max(8, -(-nq // 8) * 8)
         dpad = segments[0].vector(column).data.shape[1]
-        pkey = params_key(params)
-        use_two_stage = st.query.two_stage_search if two_stage is None else bool(two_stage)
         searchers: List[VectorIndex] = []
         masks: List[Any] = []
         seg_ids: List[int] = []
         first_stage: List[Tuple[int, VectorIndex, Any]] = []
         host_scans: List[Tuple[int, VectorIndex, Any]] = []
+        counts: Dict[str, int] = {}  # the routes' counters, bumped once the segments are walked
+        touched: List[Tuple[str, str, int]] = []  # the loaded indexes' cache keys
+        routes: List[Tuple[VectorIndex, int, bool]] = []  # the cost routes priced
+        layouts = 0  # segments searched through a filter layout
         for seg in segments:
             fexpr = filter
             if filter is not None and st.query.optimize_prefilter_in_search:
@@ -438,22 +564,26 @@ class VectorSearchExecutor:
                     continue  # provably no row passes: skip the segment
                 if fold is True:
                     fexpr = None  # provably all pass: alive mask only
-            idx = t.loaded_index(seg.segment_id, column, metric)
+            idx = t.loaded_index(seg.segment_id, column, metric, touched)
             if filter is None:
                 mask, forced_exact = segment_mask(seg, None), False
             else:
-                with span("filter.mask"):
-                    mask, idx, forced_exact = _prefilter(seg, fexpr, idx, st, k, pkey)
+                mask, idx, forced_exact, layout = _prefilter(seg, fexpr, idx, st, k, pkey, counts)
+                layouts += layout
             if idx is not None and st.query.cost_based_index_routing:
                 payload = seg.vector(column)
                 # a host-tier payload is never routed to the scan: its
                 # cost is the host link's, which the model does not price
-                if not payload.is_host and idx.prefer_exact_scan(nq, k, pkey, int(payload.nbytes)):
-                    # the exact scan is modeled cheaper than this index's
-                    # search for this batch and corpus, and it is exact
-                    idx = None
-                    forced_exact = True
-                    GLOBAL_COUNTERS.bump("VectorIndexCostRouteToScan")
+                if not payload.is_host:
+                    scan = idx.prefer_exact_scan(nq, k, pkey, int(payload.nbytes))
+                    routes.append((idx, int(payload.nbytes), scan))
+                    if scan:
+                        # the exact scan is modeled cheaper than this
+                        # index's search for this batch and corpus, and it
+                        # is exact
+                        idx = None
+                        forced_exact = True
+                        _add(counts, "VectorIndexCostRouteToScan")
             if (
                 idx is not None
                 and (use_two_stage or idx.requires_two_stage())
@@ -466,7 +596,7 @@ class VectorSearchExecutor:
                 if not small and not st.query.enable_brute_force_vector_search:
                     # the reference SKIPS index-less large parts when brute
                     # force is off (fewer/no rows, not an error)
-                    GLOBAL_COUNTERS.bump("VectorSearchSegmentsSkipped")
+                    _add(counts, "VectorSearchSegmentsSkipped")
                     continue
                 payload = seg.vector(column)
                 if is_binary:
@@ -484,9 +614,9 @@ class VectorSearchExecutor:
                         approx=st.query.use_approx_topk,
                         recall_target=st.query.approx_topk_recall_target,
                     )
-                GLOBAL_COUNTERS.bump("VectorBruteForceSearches")
+                _add(counts, "VectorBruteForceSearches")
             else:
-                GLOBAL_COUNTERS.bump("VectorIndexSearches")
+                _add(counts, "VectorIndexSearches")
             if isinstance(idx, FlatIndex) and idx.host:
                 # beyond-HBM tier: the streamed exact scan, eager
                 host_scans.append((seg.segment_id, idx, mask))
@@ -494,6 +624,8 @@ class VectorSearchExecutor:
             searchers.append(idx)
             masks.append(mask)
             seg_ids.append(seg.segment_id)
+        if counts:
+            GLOBAL_COUNTERS.bump_many(tuple(counts), tuple(counts.values()))
 
         if not searchers and not first_stage and not host_scans:
             # every segment const-folded away or skipped
@@ -532,21 +664,23 @@ class VectorSearchExecutor:
                 label=label_of(found), refs=refs,
             )
 
-        with span("program.key"):
-            key = (
-                "fused", k, bucketed, nq_pad, dpad, tuple(qh.shape[1:]), is_binary, specs,
-                tuple(signature(s, refs) for s in searchers), dyn_np is not None,
-            )
-            prog = t._programs.get(key, make, version)
-        packed = prog.run(qh, [None if m is None else m[1] for m in mats], dyn_np)
-        return SearchResult(
-            metric,
-            device=packed,
-            seg_ids=np.asarray(seg_ids, dtype=np.int64),
-            nq=nq,
-            k=k,
-            query_sqnorm=qsq,
+        key = (
+            "fused", k, bucketed, nq_pad, dpad, tuple(qh.shape[1:]), is_binary, specs,
+            tuple(signature(s, refs) for s in searchers), dyn_np is not None,
         )
+        prog = t._programs.get(key, make, version)
+        inputs = [None if m is None else m[1] for m in mats]
+        sids = np.asarray(seg_ids, dtype=np.int64)
+        if mkey is not None:
+            sids.flags.writeable = False  # every result of the plan reads it
+            if layouts:
+                _add(counts, "IvfFilterLayoutHits", layouts)  # a repeated plan's layout lookups
+            _add(counts, "SearchPlanHits")
+            t._programs.keep_plan(
+                mkey, _Plan(prog, inputs, dyn_np, sids, metric, counts, touched, routes),
+                key, prog, version)
+        packed = prog.run(qh, inputs, dyn_np)
+        return SearchResult(metric, device=packed, seg_ids=sids, nq=nq, k=k, query_sqnorm=qsq)
 
     # ------------------------------------------------------------ two-stage
     def _two_stage_run(

@@ -15,12 +15,15 @@ device scalar, and the packed int32 output. The body reads
 only those and the searchers' own tensors, which the entry keeps alive
 (`refs`): a graph over a freed tensor would read whatever the allocator
 put there next. A `ProgramCache` maps keys to entries, least recently
-used first out past `MAX_PROGRAMS`. Its owner drops it whenever a tensor
-a program reads may go: a table holds one for all its searches and drops
-it in one place (storage/table.py); a standalone index search
-(`VectorIndex.search`) uses one on the index, an fts store one of its own.
-This module knows no index, filter or table: its callers build the keys
-(`tensors_key` for the tensors a body reads) and the bodies.
+used first out past `MAX_PROGRAMS`. Beside them it keeps its callers'
+plans: what a caller resolved before it built a program's key, kept under
+a key of the caller's own, each tied to the program it runs (`keep_plan`).
+Its owner drops it whenever a tensor a program reads may go: a table
+holds one for all its searches and drops it, plans included, in one place
+(storage/table.py); a standalone index search (`VectorIndex.search`) uses
+one on the index, an fts store one of its own. This module knows no
+index, filter or table: its callers build the keys (`tensors_key` for the
+tensors a body reads), the bodies and the plans.
 
 On a CUDA device the first run warms the body up on a side stream (the
 kernels' build, their shared-memory opt-in and tensor-map entry point,
@@ -336,16 +339,21 @@ class GridProgram:
 
 
 class ProgramCache:
-    """Key -> Program, bounded by `cap` (least recently used out first).
-    `version` counts `invalidate` calls: the owner's generation. No entry
-    is older than the last `invalidate` (see `get`), so no key carries
-    the generation."""
+    """Key -> Program, bounded by `cap` (least recently used out first),
+    and beside them key -> plan, bounded by `cap` the same way. A plan is
+    whatever a caller keeps to skip its own planning; it runs one program
+    of the cache, and goes when that program goes. `version` counts
+    `invalidate` calls: the owner's generation. No entry is older than the
+    last `invalidate` (see `get`), so no key carries the generation."""
 
     def __init__(self, cap: int = MAX_PROGRAMS):
         self.cap = cap
         self.version = 0
         self._lock = threading.Lock()
         self._entries: "collections.OrderedDict[Hashable, Program]" = collections.OrderedDict()
+        # plan key -> (plan, the key of the program it runs)
+        self._plans: "collections.OrderedDict[Hashable, Tuple[object, Hashable]]" = (
+            collections.OrderedDict())
 
     def get(self, key: Hashable, make: Callable[[], Program],
             version: Optional[int] = None) -> Program:
@@ -362,16 +370,44 @@ class ProgramCache:
                 return prog
             self._entries[key] = prog
             while len(self._entries) > self.cap:
-                self._entries.popitem(last=False)
+                old, _ = self._entries.popitem(last=False)
+                for gone in [p for p, (_, pk) in self._plans.items() if pk == old]:
+                    del self._plans[gone]
                 GLOBAL_COUNTERS.bump("SearchProgramEvictions")
             return prog
 
+    def plan(self, key: Hashable):
+        """The plan kept under `key`, or None. A hit makes it and its
+        program the most recently used."""
+        with self._lock:
+            found = self._plans.get(key)
+            if found is None:
+                return None
+            self._plans.move_to_end(key)
+            self._entries.move_to_end(found[1])
+            return found[0]
+
+    def keep_plan(self, key: Hashable, plan, program_key: Hashable, program: Program,
+                  version: int) -> None:
+        """Keep `plan`, which runs `program` (kept under `program_key`),
+        under `key`: not where an invalidation landed after `version` was
+        read or the program is not the one kept (a plan over it would
+        outlive the drop)."""
+        with self._lock:
+            if version != self.version or self._entries.get(program_key) is not program:
+                return
+            self._plans[key] = (plan, program_key)
+            self._plans.move_to_end(key)
+            while len(self._plans) > self.cap:
+                self._plans.popitem(last=False)
+
     def invalidate(self) -> None:
-        """Drop every program (and with them the tensors they hold) and
-        move the version on."""
+        """Drop every program and plan (and with them the tensors they
+        hold) and move the version on."""
         with self._lock:
             self.version += 1
             self._entries.clear()
+            self._plans.clear()
 
     def __len__(self) -> int:
         with self._lock:

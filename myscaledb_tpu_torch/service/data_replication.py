@@ -419,6 +419,7 @@ class ReplicatedNode:
         for tdef in table._text_indexes.values():
             tdef.on_deletes(seg)
         table._winners_cache = None
+        table._segments_changed()
         return len(fresh)
 
     def _uid_of(self, tname: str, seg_id: int) -> Optional[str]:
@@ -776,6 +777,7 @@ class ReplicatedNode:
                 for tdef in t._text_indexes.values():
                     tdef.on_new_segment(seg)
                 t._winners_cache = None
+                t._segments_changed()
                 with self._lock:
                     self._mut_clock[uid] = incoming
             elif op == "truncate":
@@ -810,6 +812,7 @@ class ReplicatedNode:
                 for tdef in t._text_indexes.values():
                     tdef.on_deletes(seg)
             t._winners_cache = None
+            t._segments_changed()
         return True
 
     def _apply_deletes_v2(self, peer, t, tname, uid, e) -> bool:
@@ -842,6 +845,7 @@ class ReplicatedNode:
                         for tdef in t._text_indexes.values():
                             tdef.on_deletes(seg)
                     t._winners_cache = None
+                    t._segments_changed()
         return True
 
     def _apply_merge(self, peer, t, tname, uid, e) -> bool:
@@ -896,6 +900,7 @@ class ReplicatedNode:
                         for tdef in t._text_indexes.values():
                             tdef.on_deletes(new_seg)
                         t._winners_cache = None
+                        t._segments_changed()
         with self._lock:
             for ouid, (sid, omap) in list(self._origins.items()):
                 if _uid_table(ouid) != tname or sid not in src_by_seg:
@@ -925,6 +930,7 @@ class ReplicatedNode:
                 s for s in table.live_segments() if s.segment_id == seg_id
             )
             seg.delete_rows(np.nonzero(deleted)[0])
+            table._segments_changed()
         # the fetched files already landed under our repdata mirror
         # (_fetch_segment_columns), so this node can serve them onward
         # and survives restarts without refetching

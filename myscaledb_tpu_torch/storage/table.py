@@ -49,7 +49,7 @@ import shutil
 import threading
 import time
 import traceback
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -200,7 +200,10 @@ class Table:
         (and its spill), delete, UPDATE, ALTER, merge, truncate, index
         build, load, drop or cache eviction, by the fts definitions on
         every store change and on `drop_fts_index`; the database calls it
-        on DROP and DETACH."""
+        on DROP and DETACH, and after the deletes of a restored segment;
+        data replication after each delete or UPDATE it applies to a
+        segment. A search plan kept in the cache holds the masks it read
+        (search/executor.py): a change this misses would be served stale."""
         self._programs.invalidate()
 
     def add_commit_listener(self, fn) -> None:
@@ -738,10 +741,13 @@ class Table:
                 return False
             time.sleep(0.02)
 
-    def loaded_index(self, segment_id: int, column: str, metric: Metric):
+    def loaded_index(self, segment_id: int, column: str, metric: Metric,
+                     touched: Optional[List[Tuple[str, str, int]]] = None):
         """The index of `column` for one segment, when its metric is the
         one searched: the loaded (or decoupled) instance, or a persisted
-        one reloaded now; else None (the segment is scanned)."""
+        one reloaded now; else None (the segment is scanned). The key of a
+        loaded index whose cache recency this refreshes goes on `touched`
+        (`touch_indexes`)."""
         reloaded = None
         with self._lock:
             for desc in self._index_descs.values():
@@ -752,7 +758,10 @@ class Table:
                     continue
                 if slot.instance is not None:
                     if slot.status == IndexStatus.LOADED and self._index_cache is not None:
-                        self._index_cache.get((self.name, desc.name, segment_id))
+                        key = (self.name, desc.name, segment_id)
+                        self._index_cache.get(key)
+                        if touched is not None:
+                            touched.append(key)
                     return slot.instance
                 if slot.status == IndexStatus.BUILT and slot.path:
                     reloaded = (desc.name, self._reload_index(segment_id, desc, slot))
@@ -765,6 +774,14 @@ class Table:
             # table's lock, possibly another table's
             self._index_cache.put((self.name, name, segment_id), inst, inst.memory_bytes)
         return inst
+
+    def touch_indexes(self, keys) -> None:
+        """Refresh the cache recency of the loaded indexes under `keys`, as
+        `loaded_index` does: a search that skips its planning reads them
+        all the same, and a hot index must not look idle to the cache."""
+        if self._index_cache is not None:
+            for key in keys:
+                self._index_cache.get(key)
 
     def peek_index(self, segment_id: int, column: str, metric: Metric):
         """Like loaded_index, but never loads from disk and never touches

@@ -19,7 +19,8 @@ invalidation to the JAX package's results:
     alias, a miss after every mutation that changes what a search reads
     (results equal to JAX's after the same operations), no program left
     holding a dropped table's tensors, eight threads, the cache's cap and
-    the counters.
+    the counters; the plans kept beside the programs (a repeated search
+    runs its plan, a mutation drops it).
 """
 
 import gc
@@ -434,21 +435,32 @@ def test_mutation_misses_the_cache(op):
     flt = {"update": lambda ms: ms.F("tag") == 11}.get(op)
     kw = lambda ms: {"filter": flt(ms)} if flt else {}  # noqa: E731
     _same(jt.search("vec", q, k=K, **kw(jms)), tt.search("vec", q, k=K, **kw(tms)))
+    hits = _count("SearchPlanHits")
+    tt.search("vec", q, k=K, **kw(tms))  # the plan kept beside the program
+    # (before the update no segment can hold tag 11: both fold away, and
+    # an empty answer keeps no plan)
+    assert _count("SearchPlanHits") - hits == (op != "update")
     old = [weakref.ref(p) for p in tt._programs.programs()]
     version = tt.segment_version
     _ops(jms, jt, jdb)[op]()
     _ops(tms, tt, tdb)[op]()
     assert tt.segment_version > version and len(tt._programs) == 0
+    assert len(tt._programs._plans) == 0
     gc.collect()
     assert all(r() is None for r in old)
     caps = _count("SearchProgramCaptures")
+    hits, misses = _count("SearchPlanHits"), _count("SearchPlanMisses")
     tres = tt.search("vec", q, k=K, **kw(tms))
     jres = jt.search("vec", q, k=K, **kw(jms))
+    assert (_count("SearchPlanHits"), _count("SearchPlanMisses") - misses) == (hits, 1)
     if op == "truncate":
         assert not tres.valid.any() and not jres.valid.any()
     else:
         assert _count("SearchProgramCaptures") - caps == 1
         _same(jres, tres)
+        again = tt.search("vec", q, k=K, **kw(tms))  # the new plan, kept
+        assert _count("SearchPlanHits") - hits == 1
+        _same(jres, again)
     jdb.close()
     tdb.close()
 
@@ -564,17 +576,28 @@ def test_dropped_table_releases_its_filter_masks():
     db.close()
 
 
-def test_eight_threads_get_their_own_answers():
+@pytest.mark.parametrize("keys", [1, 4])
+def test_eight_threads_get_their_own_answers(keys):
+    """Eight threads, each its own queries, over one request key or four
+    (k and a filter's constant): every answer is JAX's, and every search
+    after each key's first few runs its kept plan."""
     ((jdb, jt), (tdb, tt)), q = _pair()
     batches = [q[i % 4 * 3:(i % 4 + 1) * 3] + 0.01 * i for i in range(8)]
-    want = [jt.search("vec", b, k=K) for b in batches]
+
+    def req(ms, i):
+        if keys == 1:
+            return {"k": K}
+        return {"k": K + i % 2, "filter": ms.F("tag") < 3 + i % 4 // 2}
+
+    want = [jt.search("vec", b, **req(jms, i)) for i, b in enumerate(batches)]
     got = [None] * 8
     errors = []
+    hits, misses = _count("SearchPlanHits"), _count("SearchPlanMisses")
 
     def worker(i):
         try:
             for _ in range(5):
-                r = tt.search("vec", batches[i], k=K)
+                r = tt.search("vec", batches[i], **req(tms, i))
                 got[i] = (r.segments.copy(), r.rows.copy(), r.distances.copy())
         except Exception as e:  # noqa: BLE001 -- reported below
             errors.append(e)
@@ -594,7 +617,11 @@ def test_eight_threads_get_their_own_answers():
         np.testing.assert_array_equal(segs, j.segments)
         np.testing.assert_array_equal(rows, j.rows)
         np.testing.assert_allclose(dists, j.distances, **TOL)
-    assert len(tt._programs) == 1  # one key: every batch pads to 8 rows
+    # every batch pads to 8 rows; a filter's constant is a program's input
+    assert len(tt._programs) == min(keys, 2) and len(tt._programs._plans) == keys
+    hit, missed = _count("SearchPlanHits") - hits, _count("SearchPlanMisses") - misses
+    # a key's searches that plan before its first plan is kept are misses
+    assert hit + missed == 40 and keys <= missed <= 8
     jdb.close()
     tdb.close()
 
