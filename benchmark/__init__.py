@@ -6,6 +6,7 @@ Everything that belongs to one configuration, traffic mix, cell or metric
 is a file of its own, found by its name in BENCHMARK.json:
 configs/<config>.json, traffic/<traffic>.json, cells/<cell>.json and
 metrics/<metric>.py; loops/<loop>.py are the load generators a traffic file
-names, references/<reference>.py the plain reference a configuration
-names. Nothing here imports JAX or the JAX package.
+names, references/<reference>.py the plain reference a configuration names
+(or its traffic, for a text or hybrid search of the table). Nothing here
+imports JAX or the JAX package.
 """

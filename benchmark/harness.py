@@ -50,6 +50,25 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _texts(loop, text) -> dict:
+    """The query texts of the pool, for a loop that reads them
+    (`READS_TEXTS = True`)."""
+    if not getattr(loop, "READS_TEXTS", False):
+        return {}
+    if text is None:
+        raise ValueError("the loop sends query texts and the configuration has no documents")
+    return {"texts": text.queries}
+
+
+def route_misses(window: dict, traffic, searches: int) -> int:
+    """The calls, or queries, that did not take the traffic's route: the
+    gap between each route counter's change over the window and the
+    searches (or their queries) the loop made."""
+    due = {"search": searches, "query": searches * int(traffic["batch"])}
+    return int(sum(abs(window.get(name, 0) - due[per])
+                   for name, per in system.route_counters(traffic)))
+
+
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device="cuda",
              bench_dir: str = BENCH_DIR, manifest: Optional[str] = None,
              t_start: Optional[float] = None, log: Callable[[str], None] = lambda s: None
@@ -67,11 +86,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
         torch.cuda.reset_peak_memory_stats(device)
 
     marks = [time.perf_counter()]
-    rows, pool = corpus.make(cfg, seed, device)
+    rows, pool, text = corpus.make(cfg, seed, device)
     marks.append(time.perf_counter())
-    sut = system.PortTable(cfg, traffic, rows, device)
+    sut = system.PortTable(cfg, traffic, rows, device,
+                           documents=None if text is None else text.documents)
     marks.append(time.perf_counter())
-    plan = loop.plan(traffic, pool, rng_plan)
+    plan = loop.plan(traffic, pool, rng_plan, **_texts(loop, text))
     loop.warm(sut, traffic, plan)
     _sync(device)
     # set-up leaves a million young objects (imports, the table, the
@@ -82,6 +102,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
     parts = np.diff([t_start] + marks)
     log(f"set-up {setup_s:.3f} s: start and CUDA {parts[0]:.3f}, data {parts[1]:.3f}, "
         f"table and index {parts[2]:.3f}, warm-up {parts[3]:.3f}")
+    steps = ", ".join(f"{k} {v:.3f}" for k, v in sut.seconds.items())
+    log(f"of the data: documents {0.0 if text is None else text.seconds:.3f} s; "
+        f"of the table: {steps} s")
 
     c0 = system.counters()
     g0 = gc.get_stats()[2]["collections"]
@@ -108,9 +131,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device="cuda"
     sut.close()
 
     values = judge.numbers(out["sample"], rows, pool, int(traffic["k"]), cfg,
-                           cell.reference(), device)
+                           cell.reference(), device, text=text, traffic=traffic)
     values["unanswered"] = out["unanswered"]
-    values["route_misses"] = abs(window.get(system.route_counter(traffic), 0) - searches)
+    values["route_misses"] = route_misses(window, traffic, searches)
     correct, checks = judge.compare(values, cell.cell["checks"])
 
     obs = {"setup_s": setup_s, "latencies_s": out["latencies_s"], "queries": out["queries"],
@@ -143,13 +166,15 @@ def control_numbers(name: str, seed: int, *, device="cuda", bench_dir: str = BEN
     cell = Cell(name, bench_dir, manifest)
     cfg, traffic = cell.config, cell.traffic
     ref = cell.reference()
-    rows, pool = corpus.make(cfg, seed, device)
+    rows, pool, text = corpus.make(cfg, seed, device)
     count = int(traffic["keep_calls"]) * int(traffic["batch"])
     qi = _streams(seed)[1].integers(0, pool.shape[0], count)
     k = int(traffic["k"])
     uniq, inv = np.unique(qi, return_inverse=True)
-    d, ids = ref.control(rows, pool[uniq], k, cfg, device)
-    values = judge.numbers([(qi, ids[inv], d[inv])], rows, pool, k, cfg, ref, device)
+    d, ids = ref.control(rows, pool[uniq], k, cfg, device,
+                         **judge.reference_args(ref, cfg, text, uniq, traffic))
+    values = judge.numbers([(qi, ids[inv], d[inv])], rows, pool, k, cfg, ref, device,
+                           text=text, traffic=traffic)
     values["unanswered"] = 0
     values["route_misses"] = 0
     return values

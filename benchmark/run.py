@@ -4,8 +4,9 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 From the root of a checkout, on a machine with the CUDA cards the cell
-asks for. Makes the cell's rows and queries from the seed on the card,
-builds the table (and index) through the port's public API,
+asks for. Makes the cell's rows and queries (and documents and query texts,
+where the configuration has them) from the seed on the card, builds the
+table (and its indexes) through the port's public API,
 warms up the cell's own shapes, measures for `--seconds`, then checks a
 sample of what the window answered against the plain reference. With
 `--trace 1` a traced window follows the measured one and the per-layer

@@ -54,5 +54,8 @@ class Cell:
         return load_module(os.path.join(self.dir, "loops", f"{kind}.py"), kind)
 
     def reference(self):
-        kind = self.config["reference"]
+        """The plain reference: the traffic's where it names one (a text or
+        hybrid search of the configuration's table), else the
+        configuration's."""
+        kind = self.traffic.get("reference") or self.config["reference"]
         return load_module(os.path.join(self.dir, "references", f"{kind}.py"), kind)

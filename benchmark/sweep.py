@@ -30,7 +30,7 @@ def nprobe_sweep(args, device):
     ref = cell.reference()
     k, b = int(traffic["k"]), int(traffic["batch"])
     for seed in args.seeds:
-        rows, pool = corpus.make(cfg, seed, device)
+        rows, pool, _ = corpus.make(cfg, seed, device)
         sut = system.PortTable(cfg, traffic, rows, device)
         for nprobe in args.nprobes:
             sut.params = {"nprobe": nprobe}

@@ -59,13 +59,25 @@ def test_a_sound_run_is_correct(tiny, kind):
     assert "qps" in want and set(res["metrics"]) == want
 
 
+# read from the card's busy time in the trace, which the CPU does not have
+DEVICE_TIME = {"device.idle_share", "device.ms_per_search", "scan_roofline", "ivf_roofline"}
+
+
 @pytest.mark.parametrize("kind", ["exact", "ivfflat"])
 def test_a_traced_run_reports_the_per_layer_metrics_it_can_read(tiny, kind):
     res = _run(tiny, kind, trace=True)["result"]
     _schema(res, True)
     assert res["correct"]
-    # the CPU has no device timeline: only the counters' metrics are read
-    assert set(res["metrics"]) == {"program.launch_calls", "program.captures"}
+    # the CPU has no device timeline: every metric the cell declares is read
+    # but those of the card's busy time (the counters', the spans' and the
+    # profiler's CPU events')
+    with open(tiny["manifest"]) as f:
+        declared = {m["name"] for m in json.load(f)["per_layer"]
+                    if tiny[kind] in m.get("workloads", [tiny[kind]])}
+    assert {"program.launch_calls", "program.captures", "frontend.host_ms",
+            "executor.plan_ms", "program.key_ms", "program.host_ms", "program.wait_ms",
+            "executor.plan_hit_share"} <= declared
+    assert set(res["metrics"]) == declared - DEVICE_TIME
 
 
 def test_the_traced_window_opens_on_its_first_call(tiny, monkeypatch):
